@@ -1,0 +1,89 @@
+"""Build ``csrc/*.cu`` into one shared library with a plain C interface.
+
+The library is compiled with ``nvcc`` for Hopper (``sm_90a``) at first use,
+cached in ``yolo_tpu_torch/_build/`` under a hash of the sources and flags,
+and loaded with ``ctypes``. Kernels launch on PyTorch's current stream; the
+wrappers in ``ops/`` pass device pointers and the stream as integers.
+
+A failed build or load raises: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC_DIR = Path(__file__).resolve().parent / 'csrc'
+BUILD_DIR = Path(__file__).resolve().parent / '_build'
+
+# --fmad=false: no multiply-add contraction, so the kernels' float results
+# (the NMS IoU in particular) match the plain PyTorch versions bit for bit.
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '--fmad=false', '-shared', '-Xcompiler', '-fPIC')
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob('*.cu'))
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    candidates = []
+    if CUDA_HOME:
+        candidates.append(os.path.join(CUDA_HOME, 'bin', 'nvcc'))
+    candidates.append(shutil.which('nvcc') or '')
+    for c in candidates:
+        if c and os.path.isfile(c):
+            return c
+    raise RuntimeError('nvcc not found: set CUDA_HOME or put nvcc on PATH '
+                       'to build the yolo_tpu_torch CUDA kernels')
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f'libyolo_tpu_torch_{h.hexdigest()[:16]}.so'
+
+
+def build() -> Path:
+    """Compile the sources unless the library for them is already built."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # compile to a private name, then rename: a concurrent process never
+    # loads a half-written library
+    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp, *map(str, _sources())]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
+                               f'{" ".join(cmd)}\n{proc.stdout}{proc.stderr}')
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernels; declares every C signature."""
+    lib = ctypes.CDLL(str(build()))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.nms_suppress_launch.argtypes = [p, p, p, p, p, p, i, i, f, i, i, p]
+    lib.nms_suppress_launch.restype = i
+    lib.nms_suppress_error_string.argtypes = [i]
+    lib.nms_suppress_error_string.restype = ctypes.c_char_p
+    return lib

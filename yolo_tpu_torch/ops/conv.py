@@ -1,0 +1,65 @@
+"""Spatial ops of the detector: conv, batch norm, pooling, upsample.
+
+Counterpart of ``yolo_tpu/ops/conv.py``. Tensors are NCHW in PyTorch's
+sense and kept in ``channels_last`` memory, so ``x.permute(0, 2, 3, 1)`` is
+the JAX package's NHWC array without a copy; weights are OIHW.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def conv2d(x, w, *, stride=1, padding: int = 0, groups: int = 1, bias=None):
+    """Grouped 2-D convolution; ``stride`` is an int or an (sy, sx) pair and
+    ``w`` is OIHW with I = in_channels // groups."""
+    return F.conv2d(x, w, bias, stride=stride, padding=padding, groups=groups)
+
+
+def batch_norm_infer(x, gamma, beta, mean, var, eps: float = 1e-5):
+    """Inference BN with running statistics: the per-channel scale and shift
+    are computed in f32, then cast to the activation dtype."""
+    gamma, beta, mean, var = (t.to(torch.float32)
+                              for t in (gamma, beta, mean, var))
+    scale = gamma * torch.rsqrt(var + eps)
+    shift = beta - mean * scale
+    return (x * scale.to(x.dtype)[:, None, None]
+            + shift.to(x.dtype)[:, None, None])
+
+
+def max_pool(x, size: int, stride: int):
+    """Darknet maxpool: -inf padding of (size - 1) // 2, except the tiny
+    k=2/s=1 case, which pads one zero row and column at the bottom/right."""
+    if size == 2 and stride == 1:
+        return F.max_pool2d(F.pad(x, (0, 1, 0, 1)), 2, 1)
+    return F.max_pool2d(x, size, stride, padding=(size - 1) // 2)
+
+
+def space_to_depth(x, stride: int):
+    """(N, C, H, W) -> (N, s*s*C, H/s, W/s) with output channel
+    ``(sy*s + sx)*C + c``, the NHWC order of the JAX package (not
+    ``pixel_unshuffle``'s ``c*s*s + sy*s + sx``)."""
+    n, c, h, w = x.shape
+    s = stride
+    y = x.permute(0, 2, 3, 1).reshape(n, h // s, s, w // s, s, c)
+    y = y.permute(0, 1, 3, 2, 4, 5).reshape(n, h // s, w // s, s * s * c)
+    return y.permute(0, 3, 1, 2)
+
+
+def upsample_nearest(x, scale: int):
+    """Nearest-neighbour upsample by an integer factor; the result is in
+    channels_last memory."""
+    n, c, h, w = x.shape
+    y = x.permute(0, 2, 3, 1)[:, :, None, :, None, :]
+    y = y.expand(n, h, scale, w, scale, c).reshape(n, h * scale, w * scale, c)
+    return y.permute(0, 3, 1, 2)
+
+
+def fuse_conv_bn(w, b, gamma, beta, mean, var, eps: float = 1e-5):
+    """Fold inference BN into an OIHW conv: returns (w_fused, b_fused)."""
+    scale = gamma / torch.sqrt(var + eps)
+    w_f = w * scale[:, None, None, None]
+    if b is None:
+        b = torch.zeros_like(mean)
+    return w_f, (b - mean) * scale + beta
