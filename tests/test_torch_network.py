@@ -239,3 +239,38 @@ def test_unported_layers_raise(repo_root, cfg, what):
     net = build_ir(f'{repo_root}/cfg/{cfg}')
     with pytest.raises(NotImplementedError, match=what):
         check_supported(net)
+
+
+def _same(a, b, where):
+    """Recursive equality of IR values (dicts, sequences, numpy arrays)."""
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        assert np.array_equal(np.asarray(a), np.asarray(b)), where
+    elif isinstance(a, dict):
+        assert isinstance(b, dict) and a.keys() == b.keys(), where
+        for k in a:
+            _same(a[k], b[k], f'{where}.{k}')
+    elif isinstance(a, (list, tuple)):
+        assert type(a) is type(b) and len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same(x, y, f'{where}[{i}]')
+    else:
+        assert type(a) is type(b) and a == b, (where, a, b)
+
+
+def test_ir_copy_matches_jax_on_every_cfg(repo_root):
+    """The port's own cfg parser and IR construction (yolo_tpu_torch/config.py,
+    ir.py) give the JAX package's IR, field for field, on every cfg."""
+    import dataclasses
+    import glob
+    from yolo_tpu_torch.ir import build_ir as tbuild
+    cfgs = sorted(glob.glob(f'{repo_root}/cfg/**/*.cfg', recursive=True))
+    assert len(cfgs) > 30
+    for path in cfgs:
+        for gray in (False, True):
+            a, b = build_ir(path, is_gray_scale=gray), tbuild(path, is_gray_scale=gray)
+            assert (a.in_channels, a.cfg_name) == (b.in_channels, b.cfg_name)
+            _same(a.module_defs, b.module_defs, f'{path} mdefs')
+            assert len(a.layers) == len(b.layers), path
+            for la, lb in zip(a.layers, b.layers):
+                _same(dataclasses.asdict(la), dataclasses.asdict(lb),
+                      f'{path} layer {la.index}')

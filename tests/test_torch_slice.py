@@ -86,7 +86,7 @@ def test_slice_matches_jax_bundle(toy_cfg, toy_checkpoint, sparse):
     finally:
         jax.config.update('jax_default_matmul_precision', old)
     tb = trt.load_model(toy_cfg, npz, device='cpu', dtype=torch.float32).fuse()
-    got = tb.make_infer(**kw)(trt.preprocess(x))
+    got = tb.make_infer(**kw)(trt.preprocess(x, device='cpu'))
     assert got.shape == ref.shape == (2, 64, 6)
     assert (ref[..., 4] > 0).sum() > 10
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-4)
@@ -95,8 +95,8 @@ def test_slice_matches_jax_bundle(toy_cfg, toy_checkpoint, sparse):
 def test_weights_and_npz_load_the_same_model(toy_cfg, toy_checkpoint):
     from yolo_tpu_torch import runtime as trt
     _, _, npz, weights = toy_checkpoint
-    a = trt.load_model(toy_cfg, npz, dtype=torch.float32)
-    b = trt.load_model(toy_cfg, weights, dtype=torch.float32)
+    a = trt.load_model(toy_cfg, npz, device='cpu', dtype=torch.float32)
+    b = trt.load_model(toy_cfg, weights, device='cpu', dtype=torch.float32)
     for tree_a, tree_b in ((a.params, b.params), (a.state, b.state)):
         assert tree_a.keys() == tree_b.keys()
         for k in tree_a:
@@ -120,7 +120,8 @@ def test_npz_with_ema_loads_the_ema_pair(toy_cfg, toy_checkpoint, tmp_path):
     path = tmp_path / 'ema.npz'
     save_checkpoint(path, params=params, state=state, ema=ema,
                     ema_state=ema_state)
-    got = trt.load_model(toy_cfg, str(path), dtype=torch.float32)
+    got = trt.load_model(toy_cfg, str(path), device='cpu',
+                         dtype=torch.float32)
     ref = jrt.load_model(toy_cfg, str(path), compute_dtype=None)
     want_p, want_s = from_jax(got.net, ref.params, ref.state)
     for k in want_p:
@@ -135,8 +136,9 @@ def test_npz_with_ema_loads_the_ema_pair(toy_cfg, toy_checkpoint, tmp_path):
 
 def test_default_decode_is_dense(toy_cfg, toy_checkpoint):
     from yolo_tpu_torch import runtime as trt
-    b = trt.load_model(toy_cfg, toy_checkpoint[2], dtype=torch.float32).fuse()
-    x = trt.preprocess(images(6, 1, 64))
+    b = trt.load_model(toy_cfg, toy_checkpoint[2], device='cpu',
+                       dtype=torch.float32).fuse()
+    x = trt.preprocess(images(6, 1, 64), device='cpu')
     kw = dict(conf_thres=0.05, max_det=32)
     assert torch.equal(b.make_infer(**kw)(x), b.make_infer(sparse=False, **kw)(x))
 
@@ -146,7 +148,7 @@ def test_preprocess_matches_jax():
     from yolo_tpu_torch.runtime import preprocess
     x = images(7, 2, 32)
     for maxabs in (False, True):
-        got = preprocess(x, maxabs)
+        got = preprocess(x, maxabs, device='cpu')
         assert got.dtype == torch.float32 and got.shape == (2, 32, 32, 3)
         np.testing.assert_array_equal(got.numpy(), np.asarray(jpre(x, maxabs)))
 
@@ -154,10 +156,11 @@ def test_preprocess_matches_jax():
 def test_bf16_pipeline_tracks_f32(toy_cfg, toy_checkpoint):
     """The bf16 forward (the default dtype) stays close to the f32 one."""
     from yolo_tpu_torch import runtime as trt
-    x = trt.preprocess(images(8, 2, 64))
+    x = trt.preprocess(images(8, 2, 64), device='cpu')
     heads = {}
     for dtype in (torch.float32, torch.bfloat16):
-        m = trt.load_model(toy_cfg, toy_checkpoint[2], dtype=dtype).fuse().model()
+        m = trt.load_model(toy_cfg, toy_checkpoint[2], device='cpu',
+                           dtype=dtype).fuse().model()
         with torch.no_grad():
             heads[dtype] = [h.float() for h in m.forward_heads(x)[0]]
     for a, b in zip(heads[torch.float32], heads[torch.bfloat16]):
@@ -167,20 +170,25 @@ def test_bf16_pipeline_tracks_f32(toy_cfg, toy_checkpoint):
 def test_unported_paths_raise(toy_cfg, tmp_path):
     from yolo_tpu_torch import runtime as trt
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        trt.load_model(toy_cfg, quantized=1)
+        trt.load_model(toy_cfg, device='cpu', quantized=2)
     pt = tmp_path / 'm.pt'
     pt.write_bytes(b'')
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        trt.load_model(toy_cfg, str(pt))
+        trt.load_model(toy_cfg, str(pt), device='cpu')
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        trt.load_model(toy_cfg).fuse().make_infer(augment=True)
+        trt.load_model(toy_cfg, device='cpu').fuse().make_infer(augment=True)
 
 
 def test_port_never_imports_jax_or_cv2():
-    code = ('import sys; import yolo_tpu_torch, yolo_tpu_torch.runtime, '
-            'yolo_tpu_torch.ops.nms, yolo_tpu_torch.detect, '
-            'yolo_tpu_torch.convert, yolo_tpu_torch._build; '
-            "bad = [m for m in ('jax', 'cv2') if m in sys.modules]; "
+    """Importing every module of the port loads neither jax, nor OpenCV
+    (imported inside functions only), nor any module of the JAX package."""
+    code = ('import pkgutil, importlib, sys, yolo_tpu_torch; '
+            'mods = [m.name for m in pkgutil.walk_packages('
+            "yolo_tpu_torch.__path__, 'yolo_tpu_torch.')]; "
+            '[importlib.import_module(m) for m in mods]; '
+            "assert len(mods) > 20, mods; "
+            "bad = [m for m in sys.modules if m in ('jax', 'cv2') "
+            "or m == 'yolo_tpu' or m.startswith(('jax.', 'yolo_tpu.'))]; "
             'assert not bad, bad')
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
     subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
@@ -267,7 +275,7 @@ def test_slice_on_card_matches_cpu(cuda, toy_cfg):
     for sparse, classes in ((False, None), (True, None), (True, (1,))):
         kw = dict(conf_thres=0.01, iou_thres=0.5, top_k=128, max_det=64,
                   sparse=sparse, classes=classes)
-        ref = bundles['cpu'].make_infer(**kw)(trt.preprocess(x))
+        ref = bundles['cpu'].make_infer(**kw)(trt.preprocess(x, device='cpu'))
         n0 = suppress.launches
         got = bundles[cuda].make_infer(**kw)(trt.preprocess(x, device=cuda))
         torch.cuda.synchronize()

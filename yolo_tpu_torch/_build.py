@@ -1,8 +1,9 @@
 """Build ``csrc/*.cu`` into one shared library with a plain C interface.
 
-The library is compiled with ``nvcc`` for Hopper (``sm_90a``) at first use,
-cached in ``yolo_tpu_torch/_build/`` under a hash of the sources and flags,
-and loaded with ``ctypes``. Kernels launch on PyTorch's current stream; the
+The library is compiled with ``nvcc`` for Hopper (``sm_90a``) at first use
+(one ``nvcc`` per source, all started together, then one link), cached in
+``yolo_tpu_torch/_build/`` under a hash of the sources and flags, and
+loaded with ``ctypes``. Kernels launch on PyTorch's current stream; the
 wrappers in ``ops/`` pass device pointers and the stream as integers.
 
 A failed build or load raises: there is no fallback.
@@ -23,9 +24,10 @@ CSRC_DIR = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent / '_build'
 
 # --fmad=false: no multiply-add contraction, so the kernels' float results
-# (the NMS IoU in particular) match the plain PyTorch versions bit for bit.
+# (the NMS IoU, the int8 conv epilogue) match the plain PyTorch versions bit
+# for bit.
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '--fmad=false', '-shared', '-Xcompiler', '-fPIC')
+              '-O3', '--fmad=false', '-Xcompiler', '-fPIC')
 
 
 def _sources() -> list[Path]:
@@ -60,20 +62,29 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: a concurrent process never
-    # loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp, *map(str, _sources())]
+    nvcc = _nvcc()
+    # compile into a private directory, then rename the library: a
+    # concurrent process never loads a half-written one
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in _sources():
+            obj = os.path.join(tmp, src.stem + '.o')
+            cmd = [nvcc, *NVCC_FLAGS, '-c', '-o', obj, str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        for cmd, _, proc in jobs:
+            log = proc.communicate()[0]
+            if proc.returncode != 0:
+                raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
+                                   f'{" ".join(cmd)}\n{log}')
+        lib = os.path.join(tmp, out.name)
+        cmd = [nvcc, '-shared', '-o', lib, *(obj for _, obj, _ in jobs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
+            raise RuntimeError(f'nvcc link failed ({proc.returncode}):\n'
                                f'{" ".join(cmd)}\n{proc.stdout}{proc.stderr}')
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        os.replace(lib, out)
     return out
 
 
@@ -86,4 +97,9 @@ def load_library() -> ctypes.CDLL:
     lib.nms_suppress_launch.restype = i
     lib.nms_suppress_error_string.argtypes = [i]
     lib.nms_suppress_error_string.restype = ctypes.c_char_p
+    lib.conv_int8_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i,
+                                     i, f, f, i, f, i, i, i, p]
+    lib.conv_int8_launch.restype = i
+    lib.conv_int8_error_string.argtypes = [i]
+    lib.conv_int8_error_string.restype = ctypes.c_char_p
     return lib

@@ -6,6 +6,10 @@ conv I = in_channels // groups on both sides, and the output channels of a
 group are contiguous on both sides, so one transpose converts every group).
 BN gamma/beta/mean/var, conv biases, weighted-shortcut ``w`` and SE
 ``fc1``/``fc2`` (already in torch ``Linear`` layout) are copied as they are.
+
+The quantizer state (``qstate``) is a nested dict of scalars and, for a
+concat, a ``float_max`` vector: ``qstate_from_jax``/``qstate_to_jax`` copy
+it leaf by leaf as f32.
 """
 
 from __future__ import annotations
@@ -13,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from yolo_tpu.ir import NetworkIR
+from .ir import NetworkIR
 
 _CONV_KINDS = ('conv', 'depthwise')
 
@@ -52,3 +56,18 @@ def to_jax(net: NetworkIR, params, state):
              for k, d in params.items()},
             {k: {f: conv(k, f, t) for f, t in d.items()}
              for k, d in state.items()})
+
+
+def qstate_from_jax(qstate, device=None):
+    """JAX qstate (nested dicts of numpy-convertible scalars and vectors,
+    e.g. 0-d arrays from a .npz) -> the same tree of f32 tensors."""
+    if isinstance(qstate, dict):
+        return {k: qstate_from_jax(v, device) for k, v in qstate.items()}
+    return torch.tensor(np.asarray(qstate, np.float32), device=device)
+
+
+def qstate_to_jax(qstate):
+    """Inverse of ``qstate_from_jax``: tensors -> numpy f32 arrays."""
+    if isinstance(qstate, dict):
+        return {k: qstate_to_jax(v) for k, v in qstate.items()}
+    return np.asarray(qstate.detach().to('cpu', torch.float32).numpy())

@@ -5,9 +5,13 @@ original frames, drawn and saved.
     python -m yolo_tpu_torch.detect --cfg cfg/yolov3/yolov3.cfg \\
         --weights weights/last.npz --source data/samples --device cuda
 
-The flags are those of the root ``detect.py`` for the float path.
-Quantized models, test-time augmentation and stream sources are not ported
-yet (see ROADMAP.md).
+    python -m yolo_tpu_torch.detect --cfg cfg/yolov3/yolov3.cfg \\
+        --weights weights/calibrated.npz --quantized 1 --source data/samples
+
+The flags are those of the root ``detect.py``. ``--quantized 1`` runs the
+true-int8 engine on a calibrated google-scheme checkpoint (its ``qstate``
+key or a sibling ``_qstate.npz``). Other schemes, test-time augmentation
+and stream sources are not ported yet (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from yolo_tpu.utils.cli import FlexParser
+from .utils.cli import FlexParser
 
 
 def parse_args(argv=None):
@@ -49,8 +53,12 @@ def parse_args(argv=None):
                    help='output video codec')
     p.add_argument('--device', type=str, default='',
                    help="torch device ('cuda', 'cuda:1', 'cpu'); default: "
-                        "cuda when available")
-    p.add_argument('--quantized', type=int, default=-1)
+                        "cuda")
+    p.add_argument('--quantized', type=int, default=-1,
+                   help='-1 float; 1 the int8 engine (google scheme)')
+    p.add_argument('--a-bit', '--a_bit', dest='a_bit', type=int, default=8)
+    p.add_argument('--w-bit', '--w_bit', dest='w_bit', type=int, default=8)
+    p.add_argument('--shortcut_way', type=int, default=1)
     p.add_argument('--augment', action='store_true')
     return p.parse_args(argv)
 
@@ -59,21 +67,24 @@ def main(argv=None):
     opt = parse_args(argv)
     # OpenCV is needed only here, for reading and drawing images
     import cv2
-    from yolo_tpu.config import load_classes, parse_data_cfg
-    from yolo_tpu.data.datasets import LoadImages
-    from yolo_tpu.utils.plots import color_for_class, plot_one_box
+    from .config import load_classes, parse_data_cfg
+    from .data.datasets import LoadImages
+    from .utils.plots import color_for_class, plot_one_box
 
     from .ops.boxes import scale_coords
     from .ops.nms import to_host_detections
     from .runtime import load_model, preprocess
 
-    device = torch.device(opt.device or
-                          ('cuda' if torch.cuda.is_available() else 'cpu'))
+    device = torch.device(opt.device or 'cuda')
     os.makedirs(opt.output, exist_ok=True)
     names = load_classes(opt.names or parse_data_cfg(opt.data)['names'])
     bundle = load_model(opt.cfg, opt.weights, device=device,
-                        quantized=opt.quantized, is_gray_scale=opt.gray_scale,
-                        maxabsscaler=opt.maxabsscaler).fuse()
+                        quantized=opt.quantized, a_bit=opt.a_bit,
+                        w_bit=opt.w_bit, shortcut_way=opt.shortcut_way,
+                        is_gray_scale=opt.gray_scale,
+                        maxabsscaler=opt.maxabsscaler)
+    if not bundle.quantized:
+        bundle = bundle.fuse()
     infer = bundle.make_infer(conf_thres=opt.conf_thres,
                               iou_thres=opt.iou_thres,
                               agnostic=opt.agnostic_nms, augment=opt.augment,

@@ -19,7 +19,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from yolo_tpu.ir import NetworkIR
+from ..ir import NetworkIR
 
 HEADER_VERSION = np.array([0, 2, 5], dtype=np.int32)
 _CUTOFF_BY_FILE = {'darknet53.conv.74': 75, 'yolov3-tiny.conv.15': 15}

@@ -20,7 +20,7 @@ import math
 import torch
 from torch import nn
 
-from yolo_tpu import ir as ir_mod
+from .. import ir as ir_mod
 
 from ..ops import activations as act_mod
 from ..ops import conv as conv_ops

@@ -63,3 +63,41 @@ def fuse_conv_bn(w, b, gamma, beta, mean, var, eps: float = 1e-5):
     if b is None:
         b = torch.zeros_like(mean)
     return w_f, (b - mean) * scale + beta
+
+
+# NHWC forms, for the quantized paths (compress/quant.py, int8_engine.py),
+# which keep the JAX package's layout end to end
+
+def conv2d_nhwc(x, w, *, stride=1, padding: int = 0, groups: int = 1,
+                bias=None):
+    """``conv2d`` on an NHWC tensor with an OIHW weight; returns NHWC (a
+    view of the channels_last result)."""
+    y = conv2d(x.permute(0, 3, 1, 2), w, stride=stride, padding=padding,
+               groups=groups, bias=bias)
+    return y.permute(0, 2, 3, 1)
+
+
+def max_pool_nhwc(x, size: int, stride: int):
+    """``max_pool`` on an NHWC tensor. An int8 tensor is pooled in f32 (int8
+    values are exact there) and cast back, so it works on every device;
+    the -inf padding of the general case then never wins a window, as the
+    int8 minimum pad of the JAX package never does."""
+    xf = x.to(torch.float32) if x.dtype == torch.int8 else x
+    y = max_pool(xf.permute(0, 3, 1, 2), size, stride).permute(0, 2, 3, 1)
+    return y.to(torch.int8).contiguous() if x.dtype == torch.int8 else y
+
+
+def upsample_nearest_nhwc(x, scale: int):
+    """Nearest-neighbour upsample of an NHWC tensor (any dtype); contiguous."""
+    n, h, w, c = x.shape
+    y = x[:, :, None, :, None, :].expand(n, h, scale, w, scale, c)
+    return y.reshape(n, h * scale, w * scale, c)
+
+
+def space_to_depth_nhwc(x, stride: int):
+    """NHWC space-to-depth (the [reorg3d] layer): output channel
+    ``(sy*s + sx)*C + c``; contiguous, any dtype."""
+    n, h, w, c = x.shape
+    s = stride
+    y = x.reshape(n, h // s, s, w // s, s, c).permute(0, 1, 3, 2, 4, 5)
+    return y.reshape(n, h // s, w // s, s * s * c)

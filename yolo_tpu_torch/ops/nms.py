@@ -143,7 +143,7 @@ def non_max_suppression(pred, conf_thres: float = 0.1, iou_thres: float = 0.6,
 
 
 def _heads_candidates(heads, anchors, strides, no, conf_thres, top_k,
-                      objs=None):
+                      objs=None, head_scales=None):
     """Sparse decode: pre-select boxes from the raw NHWC head maps and
     decode only those, never building the (bs, N, 5 + nc) io.
 
@@ -153,6 +153,9 @@ def _heads_candidates(heads, anchors, strides, no, conf_thres, top_k,
     be None. A scale with an obj map runs in cell mode (top-k cells by
     their best-anchor logit, all na anchors of a cell gathered); one
     without runs in row mode (top-k (cell, anchor) rows by the obj logit).
+    head_scales: optional per-scale dequant factors of int8 heads (the int8
+    engine); entries may be None for a float head. An int8 head is
+    gathered first and only the gathered rows are dequantized.
     Returns batched (box_xywh, obj, cls), ready for ``_pairs``."""
     bs = heads[0].shape[0]
     sizes = [(x.shape[1], x.shape[2], x.shape[3] // no) for x in heads]
@@ -162,10 +165,12 @@ def _heads_candidates(heads, anchors, strides, no, conf_thres, top_k,
     logit_thres = (math.log(conf_thres / (1.0 - conf_thres)) if conf_thres > 0
                    else -math.inf)
     objs = [None] * len(heads) if objs is None else objs
+    head_scales = ([None] * len(heads) if head_scales is None
+                   else head_scales)
 
     rows_all, obj_all = [], []
-    for x, om, (ny, nx, na), anc, stride in zip(heads, objs, sizes, anchors,
-                                                strides):
+    for x, om, hs, (ny, nx, na), anc, stride in zip(
+            heads, objs, head_scales, sizes, anchors, strides):
         dev = x.device
         n_s = ny * nx * na
         # per-scale quota: at least top_k plus a proportional share
@@ -178,14 +183,20 @@ def _heads_candidates(heads, anchors, strides, no, conf_thres, top_k,
             _, cidx = _topk(masked, k_c)
             cells = _gather_rows(x.reshape(bs, n_c, na * no), cidx)
             rows = cells.reshape(bs, k_c * na, no).to(torch.float32)
+            if hs is not None:
+                rows = rows * hs
             cell = cidx.repeat_interleave(na, dim=1)
             a = torch.arange(na, device=dev).repeat(k_c)[None]
         else:
             v = x.reshape(bs, n_s, no)              # row i = (y*nx + x)*na + a
             obj_logit = v[..., 4].to(torch.float32)
+            if hs is not None:
+                obj_logit = obj_logit * hs
             masked = torch.where(obj_logit > logit_thres, obj_logit, -math.inf)
             _, idx = _topk(masked, k_s)
             rows = _gather_rows(v, idx).to(torch.float32)
+            if hs is not None:
+                rows = rows * hs
             a = idx % na
             cell = idx // na
 
@@ -218,15 +229,18 @@ def non_max_suppression_heads(heads, anchors, strides, no: int,
                               multi_label: bool = True, agnostic: bool = False,
                               merge: bool = True, max_sweeps: int = 16,
                               objs=None, classes: tuple | None = None,
-                              plain: bool = False):
+                              head_scales=None, plain: bool = False):
     """Batched NMS straight from the raw NHWC head maps (sparse decode).
 
     Same contract as :func:`non_max_suppression`. heads: list of
     (bs, ny, nx, na*no); anchors: per-scale (na, 2) pixel anchors; strides:
     per-scale ints; objs: optional objectness-logit maps from
-    ``Darknet.forward_heads``. Output (bs, max_det, 6)."""
+    ``Darknet.forward_heads`` or the int8 engine; head_scales: per-scale
+    dequant factors of int8 heads (``make_int8_apply(...).head_scales``).
+    Output (bs, max_det, 6)."""
     box_xywh, obj, cls = _heads_candidates(heads, anchors, strides, no,
-                                           conf_thres, top_k, objs=objs)
+                                           conf_thres, top_k, objs=objs,
+                                           head_scales=head_scales)
     boxes, oboxes, cand_scores, cls_idx, valid = _pairs(
         box_xywh, obj, cls, conf_thres, top_k, multi_label, agnostic, classes)
     return _suppress_and_finalize(boxes, oboxes, cand_scores, cls_idx, valid,
