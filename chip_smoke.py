@@ -11,12 +11,15 @@ Phases; any failure exits non-zero, and nothing runs on the CPU instead
    below is a true f32 comparison.
 2. build: compiles ``yolo_tpu_torch/csrc/*.cu`` from the checkout (one nvcc
    per source, started together) into ``yolo_tpu_torch/_build/`` and prints
-   the seconds it took.
+   the seconds it took and what ptxas reported for each conv_int8
+   instantiation (registers, spills). Fails unless the conv_int8 kernels'
+   SASS (``cuobjdump -sass``) holds the integer warpgroup MMA (IGMMA) and
+   no IDP4A: K2 runs on the tensor cores.
 3. K1: the NMS suppression kernel against its plain PyTorch version on
    the card: bs=8 heavy-overlap candidates at k = 512, 300, 256 with and
    without merge, plus an all-invalid batch. ``keep`` must be bit-equal and
    the merged boxes within rtol 1e-5 / atol 1e-4 where kept. Prints the
-   median CUDA-event times of both at k=512, bs=8, and the bound.
+   times of both at k=512, bs=8, and the bound.
 4. float pipeline: ``cfg/yolov3/yolov3.cfg`` at full width, 608x608, random
    weights from a seed, through ``load_model(device='cuda').fuse()
    .make_infer()``, bf16, channels_last, bs=8, dense and sparse decode, at
@@ -31,11 +34,12 @@ Phases; any failure exits non-zero, and nothing runs on the CPU instead
 5. K2: the fused int8 conv kernel against its plain PyTorch version on the
    card: 1x1 s1, 3x3 s1 and s2, odd H/W, Cin not a multiple of 4 with Cout
    255, int8 and f32 outputs, leaky / linear / relu / mish / leaky under
-   maxabsscaler. Outputs must be bit-equal, except with mish (the kernel's
-   and PyTorch's tanh/exp may differ by an ulp): there at most 1 LSB apart,
-   and the share that differs is printed. Prints the median CUDA-event
-   times of both, the bound, and ``torch._int_mm`` on the same product
-   beside the 1x1 shape, at three yolov3 @608 bs=8 shapes.
+   maxabsscaler, and the tile edges (Cin 32 at 304 px, Cin 1024 into Cout
+   255, K*K*Cin = 4608, stride 2 on odd sizes). Outputs must be bit-equal,
+   except with mish (the kernel's and PyTorch's tanh/exp may differ by an
+   ulp): there at most 1 LSB apart, and the share that differs is printed.
+   Prints the times of both, the bound, and ``torch._int_mm`` on the same
+   product beside the 1x1 shape, at three yolov3 @608 bs=8 shapes.
 6. int8 serving: yolov3 @608 at full width, bs=8, random weights from a
    seed, ``load_model(quantized=1, device='cuda')`` with zero BN running
    statistics (the first calibration batch is copied in), 3 calibration
@@ -47,15 +51,26 @@ Phases; any failure exits non-zero, and nothing runs on the CPU instead
    bit-equal to the same engine through K2's plain version, and at conf
    0.1 its survivor count must lie within max(2, 20%) of the f32
    fake-quant sim's on the card (requant rounding, as the JAX package's
-   test allows); the head difference to the sim is printed in quanta. Then every K2 call of
-   that batch is timed alone on its own inputs, beside its plain version
-   and its bound, and the int8 pipeline is timed in turns with the bf16
+   test allows); the head difference to the sim is printed in quanta.
+   Then every K2 call of that batch is timed alone on its own inputs,
+   beside its plain version and its bound, summed over the batch and over
+   each class (3x3 s1, 3x3 s2, 1x1; time, bound, TOP/s), with
+   ``torch._int_mm`` of the same products summed over the 1x1 calls as the
+   library yardstick. The int8 pipeline is timed in turns with the bf16
    float pipeline on the same weights, and profiled (device time by kernel
    group). Prints the peak device memory.
 
+A kernel's time is taken twice, on the same inputs: ``cuda_ms``, what its
+caller waits for (median CUDA-event time, the host's work to queue the
+call included), and ``device_ms``, the device alone (a sleep kernel keeps
+the card busy while the host queues the call). A pipeline's time is
+``cuda_ms``.
+
 The line before the last is a JSON object with each kernel's launches on
-the main paths, error, times and bound; the line before it the card's name
-and power limit; the last line is the JSON device record. At the end the
+the main paths, error, times and bound (``ms``, ``plain_ms`` and
+``library_ms`` by ``cuda_ms``, ``device_ms`` beside them; for conv_int8
+also its 1x1 times beside ``torch._int_mm``'s, and its totals by class);
+the line before it the card's name and power limit; the last line is the JSON device record. At the end the
 run checks that neither jax nor OpenCV nor any module of the JAX package
 ``yolo_tpu`` was imported.
 """
@@ -98,6 +113,9 @@ SURVIVOR_CONF = 0.1
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 INT8_OPS_PER_S = 1979e12
+# a sleep of about 0.5 ms at the H100's clock: longer than the host takes
+# to queue one kernel call (see device_ms)
+SLEEP_CYCLES = 1_000_000
 
 
 class SmokeFailure(RuntimeError):
@@ -119,6 +137,27 @@ def cuda_ms(fn, iters=20, warmup=3):
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_ms(fn, iters=20, warmup=3):
+    """Median device time of one ``fn()`` call in milliseconds: a sleep
+    kernel keeps the card busy while the host queues the two events and the
+    call, so the host's launch overhead stays outside the interval (a
+    kernel's own time; ``cuda_ms`` times what a caller waits for)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
@@ -172,8 +211,32 @@ def phase_device():
     return card
 
 
+def conv_sass(lib_path):
+    """{opcode: count} of the matrix and dot-product instructions in the
+    SASS of the conv_int8 kernels of the built library (cuobjdump)."""
+    import re
+    from torch.utils.cpp_extension import CUDA_HOME
+    out = subprocess.run([os.path.join(CUDA_HOME or '/usr/local/cuda', 'bin',
+                                       'cuobjdump'), '-sass', str(lib_path)],
+                         capture_output=True, text=True, timeout=300,
+                         check=True).stdout
+    ops, fn = {}, ''
+    for line in out.splitlines():
+        m = re.search(r'Function : (\S+)', line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r'/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)',
+                      line)
+        if m and 'conv_int8' in fn and ('MMA' in m.group(1)
+                                        or 'DP4A' in m.group(1)):
+            ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+    return ops
+
+
 def phase_build():
     print('[2/6] build')
+    import re
     from yolo_tpu_torch import _build
     lib = _build.library_path()
     if lib.exists():
@@ -182,6 +245,23 @@ def phase_build():
     _build.load_library()
     secs = time.perf_counter() - t0
     print(f'  built {lib.relative_to(ROOT)} in {secs:.2f} s')
+    # what ptxas said of each conv_int8 instantiation (BN, int8 or f32 out)
+    fn = None
+    for line in _build.build_log().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r'conv_int8_kernelILi(\d+)ELb([01])E', fn or '')
+        if m and ('registers' in line or 'spill' in line):
+            print(f'    BN={m.group(1)} {"int8" if m.group(2) == "1" else "f32"}'
+                  f' out: {line.split(":", 1)[-1].strip()}')
+        if 'conv_int8' in line and 'Performance Loss' in line:
+            print(f'    {line.strip()}')
+    ops = conv_sass(lib)
+    igmma = sum(n for op, n in ops.items() if op.startswith('IGMMA'))
+    check(igmma > 0 and not any('DP4A' in op for op in ops),
+          f'conv_int8 runs on the tensor cores: {igmma} integer warpgroup '
+          f'MMA (IGMMA) instructions in its SASS, no IDP4A ({ops})')
     return secs
 
 
@@ -219,6 +299,7 @@ def phase_kernel(dev):
     boxes, scores, valid = candidates(rng, BS, 512, dev)
     kw = dict(iou_thres=0.6, merge=True)
     ms = cuda_ms(lambda: suppress(boxes, boxes, scores, valid, **kw))
+    dev_ms = device_ms(lambda: suppress(boxes, boxes, scores, valid, **kw))
     plain_ms = cuda_ms(lambda: suppress_reference(boxes, boxes, scores, valid,
                                                   **kw))
     # the bound of these inputs: each input read once (class-offset and raw
@@ -233,12 +314,14 @@ def phase_kernel(dev):
     n_over = float((vv & (box_iou_matrix(boxes, boxes) > 0.6)).sum())
     n_ops = float((nv * (nv - 1) / 2 * 14 + nv * 4).sum()) + 9 * n_over
     b_ms, b_by = bound_ms(n_bytes, n_ops, F32_OPS_PER_S)
-    print(f'  k=512 bs={BS} merge: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
-          f'bound {b_ms:.6f} ms by {b_by} ({n_bytes / 1e6:.3f} MB, '
-          f'{n_ops / 1e6:.2f} M f32 operations: {int(nv.sum())} valid, '
-          f'{int(n_over)} overlapping pairs)')
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+    print(f'  k=512 bs={BS} merge: kernel {ms:.4f} ms (device alone '
+          f'{dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms by '
+          f'{b_by} ({n_bytes / 1e6:.3f} MB, {n_ops / 1e6:.2f} M f32 '
+          f'operations: {int(nv.sum())} valid, {int(n_over)} overlapping '
+          'pairs)')
+    return dict(max_abs_err=max_err, ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
 
 
 def phase_pipeline(dev, card):
@@ -351,10 +434,44 @@ K2_CASES = [
     (2, 19, 19, 64, 64, 3, 1, 'leaky', True, True),
     (2, 19, 19, 64, 64, 1, 1, 'leaky', False, True),
     (2, 19, 19, 64, 64, 3, 1, 'mish', False, False),
+    # the tile edges of the tensor-core kernel: Cin 32 at 304 px, Cin 1024
+    # into Cout 255, K*K*Cin = 4608, stride 2 on odd sizes
+    (1, 304, 304, 32, 64, 3, 1, 'leaky', True, False),
+    (2, 19, 19, 1024, 255, 1, 1, 'linear', True, False),
+    (1, 19, 19, 512, 1024, 3, 1, 'leaky', True, False),
+    (2, 37, 29, 64, 128, 3, 2, 'leaky', True, False),
 ]
 # yolov3 @608 bs=8 shapes: 3x3 s1 at 152 px, 3x3 s2 304 -> 152, 1x1 at 76 px
 K2_TIMED = [(BS, 152, 152, 64, 128, 3, 1), (BS, 304, 304, 64, 128, 3, 2),
             (BS, 76, 76, 256, 128, 1, 1)]
+
+
+def int8_conv_shapes(cfg=CFG, size=SIZE, bs=BS):
+    """(N, H, W, Cin, Cout, K, stride) of every conv on an int8 edge of a
+    square ``size`` input (every conv but the float stem), in network
+    order, from the cfg alone."""
+    from yolo_tpu_torch.ir import build_ir
+    hw, out = {}, []
+    for lyr in build_ir(cfg).layers:
+        src = hw.get(lyr.index - 1, size)
+        if lyr.kind == 'conv':
+            hw[lyr.index] = (src + 2 * lyr.pad - lyr.size) // lyr.stride + 1
+            out.append((bs, src, src, lyr.in_channels, lyr.filters, lyr.size,
+                        lyr.stride))
+        elif lyr.kind == 'upsample':
+            hw[lyr.index] = src * lyr.stride
+        elif lyr.kind == 'route':
+            hw[lyr.index] = hw[lyr.layers[0]]
+        elif lyr.kind == 'maxpool':
+            hw[lyr.index] = (src + lyr.stride - 1) // lyr.stride
+        else:
+            hw[lyr.index] = src
+    return out[1:]
+
+
+def k2_class(k, stride):
+    """K2's three classes of yolov3 convs: '3x3 s1', '3x3 s2', '1x1'."""
+    return '1x1' if k == 1 else f'3x3 s{stride}'
 
 
 def k2_inputs(case, dev, seed=0):
@@ -382,18 +499,22 @@ def k2_bound(x8, w8, out):
                     INT8_OPS_PER_S)
 
 
-def int_mm_ms(x8, w8):
-    """``torch._int_mm`` of the 1x1 conv's (N*H*W, Cin) x (Cin, Cout)
-    product, the library yardstick (the port never calls it), or None where
-    this PyTorch build refuses the shape."""
+def int_mm_ms(x8, w8, **timing):
+    """(``cuda_ms``, ``device_ms``) of ``torch._int_mm`` on the 1x1 conv's
+    (N*H*W, Cin) x (Cin, Cout) product, the library yardstick (the port
+    never calls it), or None where this PyTorch build refuses the shape.
+    Cout is padded to a multiple of 8 (255 -> 256), the width ``_int_mm``
+    takes."""
     a = x8.reshape(-1, x8.shape[-1])
-    b = w8.reshape(w8.shape[0], -1).t()
+    b = w8.reshape(w8.shape[0], -1)
+    b = torch.nn.functional.pad(b, (0, 0, 0, -b.shape[0] % 8)).t()
     try:
         torch._int_mm(a, b)
     except RuntimeError as e:
         print(f'  torch._int_mm refused the shape: {e}')
         return None
-    return cuda_ms(lambda: torch._int_mm(a, b))
+    return (cuda_ms(lambda: torch._int_mm(a, b), **timing),
+            device_ms(lambda: torch._int_mm(a, b), **timing))
 
 
 def phase_conv_kernel(dev):
@@ -425,24 +546,25 @@ def phase_conv_kernel(dev):
             rel = float((d / want.double().abs().clamp_min(1e-30)).max())
             check(bool(torch.allclose(got, want, rtol=1e-5, atol=1e-5)),
                   f'{name}: within rtol/atol 1e-5 (max rel err {rel:.2e})')
-    timed = []
     for case in K2_TIMED:
         n, h, w, ci, co, k, s = case
         x8, w8, bias, sc, osc = k2_inputs(case, dev)
         kw = dict(stride=s, act='leaky')
         out = fused_conv_int8(x8, w8, bias, sc, osc, **kw)
         ms = cuda_ms(lambda: fused_conv_int8(x8, w8, bias, sc, osc, **kw))
+        alone = device_ms(lambda: fused_conv_int8(x8, w8, bias, sc, osc,
+                                                  **kw))
         plain = cuda_ms(lambda: fused_conv_int8_reference(x8, w8, bias, sc,
                                                           osc, **kw), iters=5)
         lib = int_mm_ms(x8, w8) if k == 1 else None
         b_ms, b_by = k2_bound(x8, w8, out)
         ops = 2.0 * out.numel() * k * k * ci
-        print(f'  {k}x{k} s{s} {h} px {ci}->{co} bs={n}: kernel {ms:.4f} ms '
-              f'({ops / ms / 1e9:.1f} TOP/s), plain {plain:.4f} ms, bound '
-              f'{b_ms:.5f} ms by {b_by}'
-              + (f', torch._int_mm {lib:.4f} ms' if lib is not None else ''))
-        timed.append((case, ms, plain, b_ms, lib))
-    return max_err, timed
+        print(f'  {k}x{k} s{s} {h} px {ci}->{co} bs={n}: kernel {ms:.4f} ms, '
+              f'device alone {alone:.4f} ms ({ops / alone / 1e9:.1f} TOP/s), '
+              f'plain {plain:.4f} ms, bound {b_ms:.5f} ms by {b_by}'
+              + (f'; torch._int_mm {lib[0]:.4f} ms, device alone '
+                 f'{lib[1]:.4f} ms' if lib is not None else ''))
+    return max_err
 
 
 def int8_bundle(dev, bs, size):
@@ -532,8 +654,11 @@ def int8_checks(b, x):
 
 def int8_layer_times(b, plan, x):
     """Every K2 call of one engine batch, timed alone on its own inputs
-    beside its plain version; the sums, the summed bound and the slowest
-    layers against their bounds."""
+    beside its plain version and its bound; the sums, overall and for each
+    class (3x3 s1, 3x3 s2, 1x1), and the slowest layers against their
+    bounds. On the 1x1 calls, ``torch._int_mm`` of the same (N*H*W, Cin) x
+    (Cin, Cout) product is the library yardstick (the port never calls
+    it)."""
     from yolo_tpu_torch.models.int8_engine import make_int8_apply
     from yolo_tpu_torch.ops.conv_int8 import (fused_conv_int8,
                                               fused_conv_int8_reference)
@@ -550,26 +675,64 @@ def int8_layer_times(b, plan, x):
     rows = []
     for args, kw, out in calls:
         x8, w8 = args[0], args[1]
-        ms = cuda_ms(lambda: fused_conv_int8(*args, **kw), iters=10, warmup=2)
+        k = w8.shape[1]
+        ms = cuda_ms(lambda: fused_conv_int8(*args, **kw), iters=10,
+                     warmup=2)
+        alone = device_ms(lambda: fused_conv_int8(*args, **kw), iters=10,
+                          warmup=2)
         plain = cuda_ms(lambda: fused_conv_int8_reference(*args, **kw),
                         iters=3, warmup=1)
+        lib = int_mm_ms(x8, w8, iters=10, warmup=2) if k == 1 else None
         b_ms, b_by = k2_bound(x8, w8, out)
-        ops = 2.0 * out.numel() * w8.shape[1] ** 2 * w8.shape[3]
-        rows.append(dict(ms=ms, plain=plain, bound=b_ms, by=b_by, ops=ops,
-                         what=f'{w8.shape[1]}x{w8.shape[1]} s{kw["stride"]} '
+        ops = 2.0 * out.numel() * k * k * w8.shape[3]
+        rows.append(dict(ms=ms, dev=alone, plain=plain, bound=b_ms, by=b_by,
+                         ops=ops, lib=lib, cls=k2_class(k, kw['stride']),
+                         what=f'{k}x{k} s{kw["stride"]} '
                               f'{x8.shape[1]}x{x8.shape[2]} '
                               f'{x8.shape[3]}->{w8.shape[0]}'))
-    tot = {f: sum(r[f] for r in rows) for f in ('ms', 'plain', 'bound', 'ops')}
+    tot = {f: sum(r[f] for r in rows)
+           for f in ('ms', 'dev', 'plain', 'bound', 'ops')}
     by_ops = sum(r['bound'] for r in rows if r['by'] == 'operations')
     tot['by'] = 'operations' if by_ops >= tot['bound'] / 2 else 'bytes'
     print(f'  {len(rows)} K2 calls per batch of {x.shape[0]}: kernel '
-          f'{tot["ms"]:.3f} ms in all ({tot["ops"] / tot["ms"] / 1e9:.1f} '
-          f'TOP/s), plain {tot["plain"]:.3f} ms, bound {tot["bound"]:.4f} ms '
+          f'{tot["ms"]:.3f} ms in all, device alone {tot["dev"]:.3f} ms '
+          f'({tot["ops"] / tot["dev"] / 1e9:.1f} TOP/s), plain '
+          f'{tot["plain"]:.3f} ms, bound {tot["bound"]:.4f} ms '
           f'({tot["ops"] / 1e12:.3f} T int8 operations; {by_ops:.4f} ms of '
           f'the bound from layers bound by operations)')
-    for r in sorted(rows, key=lambda r: -r['ms'])[:6]:
-        print(f'    {r["what"]}: {r["ms"]:.4f} ms, bound {r["bound"]:.5f} ms '
-              f'by {r["by"]}, plain {r["plain"]:.3f} ms')
+    tot['classes'] = {}
+    for cls in ('3x3 s1', '3x3 s2', '1x1'):
+        rs = [r for r in rows if r['cls'] == cls]
+        c = {f: sum(r[f] for r in rs) for f in ('ms', 'dev', 'bound', 'ops')}
+        c['calls'] = len(rs)
+        c['by_ops'] = sum(r['by'] == 'operations' for r in rs)
+        tot['classes'][cls] = {'ms': c['ms'], 'device_ms': c['dev'],
+                               'bound_ms': c['bound'], 'ops': c['ops'],
+                               'calls': c['calls'], 'by_ops': c['by_ops']}
+        print(f'    {cls}: {len(rs)} calls ({c["by_ops"]} bound by '
+              f'operations), kernel {c["ms"]:.4f} ms, device alone '
+              f'{c["dev"]:.4f} ms, bound {c["bound"]:.4f} ms, '
+              f'{c["ops"] / c["dev"] / 1e9:.1f} TOP/s on the device '
+              f'({c["ops"] / 1e12:.4f} T int8 operations)')
+    ones = [r for r in rows if r['cls'] == '1x1']
+    tot['ms_1x1'] = sum(r['ms'] for r in ones)
+    tot['device_ms_1x1'] = sum(r['dev'] for r in ones)
+    lib_ok = all(r['lib'] is not None for r in ones)
+    tot['library_ms_1x1'] = (sum(r['lib'][0] for r in ones) if lib_ok
+                             else None)
+    tot['library_device_ms_1x1'] = (sum(r['lib'][1] for r in ones) if lib_ok
+                                    else None)
+    if lib_ok:
+        print(f'    1x1: K2 {tot["ms_1x1"]:.4f} ms against torch._int_mm '
+              f'{tot["library_ms_1x1"]:.4f} ms; device alone '
+              f'{tot["device_ms_1x1"]:.4f} against '
+              f'{tot["library_device_ms_1x1"]:.4f} ms, on the same '
+              f'{len(ones)} products (s32 out, no epilogue; Cout 255 padded '
+              'to 256)')
+    for r in sorted(rows, key=lambda r: -r['dev'])[:6]:
+        print(f'    {r["what"]}: {r["ms"]:.4f} ms, device alone '
+              f'{r["dev"]:.4f} ms, bound {r["bound"]:.5f} ms by {r["by"]}, '
+              f'plain {r["plain"]:.3f} ms')
     return tot
 
 
@@ -672,7 +835,7 @@ def main():
     build_s = phase_build()
     k1 = phase_kernel(dev)
     k1_float = phase_pipeline(dev, card)
-    k2_err, k2_timed = phase_conv_kernel(dev)
+    k2_err = phase_conv_kernel(dev)
     launches, k2_tot = phase_int8(dev, card)
     check_imports()
     print(f'build {build_s:.2f} s; whole run {time.perf_counter() - t0:.1f} s')
@@ -686,9 +849,13 @@ def main():
          'source': 'yolo_tpu_torch/csrc/conv_int8.cu',
          'replaces': 'yolo_tpu/ops/pallas_conv.py:132',
          'launches': launches['conv_int8'], 'max_abs_err': k2_err,
-         'ms': k2_tot['ms'], 'plain_ms': k2_tot['plain'],
-         'bound_ms': k2_tot['bound'], 'bound_by': k2_tot['by'],
-         'library_ms': None}]}))
+         'ms': k2_tot['ms'], 'device_ms': k2_tot['dev'],
+         'plain_ms': k2_tot['plain'], 'bound_ms': k2_tot['bound'],
+         'bound_by': k2_tot['by'], 'library_ms': None,
+         'ms_1x1': k2_tot['ms_1x1'], 'device_ms_1x1': k2_tot['device_ms_1x1'],
+         'library_ms_1x1': k2_tot['library_ms_1x1'],
+         'library_device_ms_1x1': k2_tot['library_device_ms_1x1'],
+         'classes': k2_tot['classes']}]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

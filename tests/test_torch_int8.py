@@ -141,6 +141,138 @@ def test_k2_plain_odd_widths_grid_and_maxabs():
         assert got.min() >= qmin and got.max() <= qmax
 
 
+def _plan_cases():
+    """(id, (M, Cin, Cout, K, out_q)) for each distinct int8 conv shape of
+    yolov3 @608 at bs=8 (with its count among the 74) and each conv of
+    chip_smoke.py's K2_CASES."""
+    import collections
+    import chip_smoke
+    out = []
+    for (n, h, w, ci, co, k, s), times in collections.Counter(
+            chip_smoke.int8_conv_shapes()).items():
+        ho, wo = (h + 2 * (k // 2) - k) // s + 1, (w + 2 * (k // 2) - k) // s + 1
+        out.append((f'yolov3_{h}px_{k}x{k}s{s}_{ci}to{co}_x{times}',
+                    (n * ho * wo, ci, co, k, True)))
+    for n, h, w, ci, co, k, s, act, out_q, _ in chip_smoke.K2_CASES:
+        ho, wo = (h + 2 * (k // 2) - k) // s + 1, (w + 2 * (k // 2) - k) // s + 1
+        out.append((f'case_{n}x{h}x{w}_{k}x{k}s{s}_{ci}to{co}_{act}_'
+                    f'{"int8" if out_q else "f32"}',
+                    (n * ho * wo, ci, co, k, out_q)))
+    return out
+
+
+PLAN_CASES = _plan_cases()
+# the N of wgmma.mma_async.m64nNk32.s32.s8.s8 (PTX ISA): 8, 16, 24, then
+# multiples of 16 up to 256
+WGMMA_S8_WIDTHS = (8, 16, 24) + tuple(range(32, 257, 16))
+
+
+def test_k2_plan_covers_all_74_yolov3_convs():
+    import chip_smoke
+    shapes = chip_smoke.int8_conv_shapes()
+    assert len(shapes) == 74
+    assert sum(int(i.rsplit('_x', 1)[1]) for i, _ in PLAN_CASES
+               if i.startswith('yolov3')) == 74
+
+
+@pytest.mark.parametrize('shape', [c for _, c in PLAN_CASES],
+                         ids=[i for i, _ in PLAN_CASES])
+def test_k2_tile_plan_is_legal(shape):
+    """The host-side tile plan for the kernel: N a legal wgmma width, K
+    chunks a multiple of 32 bytes (the k of one s8 wgmma), shared memory
+    within the H100's 227 KB and holding the ring, the epilogue's slab, a
+    tile's run of output bytes where the kernel builds one, and the
+    barriers, at least 2 stages, and a grid that covers every pixel and
+    every output channel exactly once."""
+    from yolo_tpu_torch.ops import conv_int8 as K
+    m, cin, cout, k, out_q = shape
+    plan = K.tile_plan(m, cin, cout, k, out_q)
+    assert plan.bn in WGMMA_S8_WIDTHS and plan.bn in K.BN_CHOICES
+    assert K.BK % 32 == 0
+    assert plan.ktot == k * k * (-(-cin // K.CIN_GRANULE) * K.CIN_GRANULE)
+    assert plan.ktot % K.CIN_GRANULE == 0 and K.CIN_GRANULE % 16 == 0
+    assert 2 <= plan.stages <= 8
+    run = K.run_tile(cout, plan.bn, out_q)
+    assert plan.rows == run
+    assert plan.smem == K.smem_bytes(plan.bn, plan.stages, run)
+    assert plan.smem <= K.SMEM_LIMIT == 227 * 1024
+    ring = plan.stages * (K.BM + plan.bn) * K.BK
+    run_bytes = K.BM * cout + 15 if run else 0   # the run at any 16-byte phase
+    slab = K.BM * 32 * 4                    # the s32 sums of 32 channels
+    assert plan.smem >= 1024 + ring + slab + run_bytes + 16 * plan.stages
+    gx, gy = plan.grid
+    assert (gx - 1) * K.BM < m <= gx * K.BM
+    assert (gy - 1) * plan.bn < cout <= gy * plan.bn
+    assert gy <= 65535
+
+
+def _kernel_smem_bytes():
+    """``smem_bytes(bn, stages, rows)`` of ``csrc/conv_int8.cu`` as Python,
+    read from the source: its namespace constants and the two constexpr
+    functions that count a block's shared memory."""
+    import re
+    with open(os.path.join(ROOT, 'yolo_tpu_torch', 'csrc',
+                           'conv_int8.cu')) as f:
+        src = f.read()
+    env = {}
+    for name, expr in re.findall(r'^constexpr int (k\w+) = ([^;]+);', src,
+                                 re.M):
+        env[name] = eval(expr, {}, env)
+
+    def body(fn):
+        m = re.search(r'constexpr int ' + fn + r'\(([^)]*)\) \{\s*return '
+                      r'(.+?);\s*\}', src, re.S)
+        params = [a.split()[-1] for a in m.group(1).split(',')]
+        expr = re.sub(r'(\w+) \? (.+) : (.+)', r'(\2 if \1 else \3)',
+                      ' '.join(m.group(2).split()))
+        return eval(f'lambda {", ".join(params)}: {expr}', env)
+
+    env['rows_bytes'] = body('rows_bytes')
+    return env, body('smem_bytes'), src
+
+
+def test_k2_smem_formula_matches_kernel_source():
+    """The plan's shared-memory count (``smem_bytes``) and tile constants
+    against the kernel source's, for every BN, ring depth and run of bytes
+    the kernel takes: the plan keeps each block within what the kernel
+    asks for, and the kernel refuses a plan above the same limit."""
+    from yolo_tpu_torch.ops import conv_int8 as K
+    env, kernel_smem, src = _kernel_smem_bytes()
+    assert (K.BM, K.BK) == (env['kBM'], env['kBK'])
+    assert K.SMEM_LIMIT == env['kSmemLimit']
+    assert 'smem_bytes(bn, stages, rows) > kSmemLimit' in src
+    for bn in K.BN_CHOICES:
+        for stages in range(2, 9):
+            for rows in (False, True):
+                assert K.smem_bytes(bn, stages, rows) == kernel_smem(
+                    bn, stages, rows), (bn, stages, rows)
+
+
+@pytest.mark.parametrize('cin', [6, 16])
+@pytest.mark.parametrize('stride', [1, 2])
+def test_k2_cin_padding_leaves_twin_unchanged(cin, stride):
+    """The wrapper's Cin rule: zero-pad to a multiple of 16 channels only
+    where Cin is not one; the plain version on the padded tensors equals
+    it on the originals, int8 and f32 outputs."""
+    from yolo_tpu_torch.ops.conv_int8 import (CIN_GRANULE,
+                                              fused_conv_int8_reference,
+                                              pad_cin)
+    x8, w8, bias = _conv_case((2, 11, 13, cin, 40, 3), seed=cin + stride)
+    x8, w8, bias = torch.from_numpy(x8), _ohwi(w8), torch.from_numpy(bias)
+    xp, wp = pad_cin(x8, w8)
+    assert xp.shape[-1] == wp.shape[-1] == -(-cin // CIN_GRANULE) * CIN_GRANULE
+    if cin % CIN_GRANULE == 0:
+        assert xp is x8 and wp is w8
+    else:
+        assert torch.equal(xp[..., :cin], x8) and not xp[..., cin:].any()
+        assert torch.equal(wp[..., :cin], w8) and not wp[..., cin:].any()
+    for out_q in (True, False):
+        kw = dict(stride=stride, act='leaky', out_q=out_q)
+        a = fused_conv_int8_reference(x8, w8, bias, 2.0 ** -9, 2.0 ** -2, **kw)
+        b = fused_conv_int8_reference(xp, wp, bias, 2.0 ** -9, 2.0 ** -2, **kw)
+        assert torch.equal(a, b)
+
+
 def test_k2_supported_truth_table():
     from yolo_tpu.ops.pallas_conv import supported as jsupported
     from yolo_tpu_torch.ops.conv_int8 import supported
@@ -523,22 +655,44 @@ def test_unported_int8_paths_raise(tmp_path):
 
 # ---------------------------------------------------------------- on the card
 
+# the kernel's tile edges: pixels not a multiple of any tile (128 rows),
+# Cout 32 and 255, Cin 32 (yolov3's 304 px layer) and 1024 (1x1 at 19 px),
+# K*K*Cin = 4608 (3x3 512 -> 1024 at 19 px), stride 2 on odd sizes
+EDGE_CASES = [
+    (3, 23, 17, 32, 32, 3, 1, 'leaky', True),
+    (1, 304, 304, 32, 64, 3, 1, 'leaky', True),
+    (2, 19, 19, 1024, 255, 1, 1, 'linear', True),
+    (2, 19, 19, 1024, 512, 1, 1, 'leaky', True),
+    (1, 19, 19, 512, 1024, 3, 1, 'leaky', True),
+    (2, 37, 29, 64, 128, 3, 2, 'leaky', True),
+    (2, 13, 11, 48, 96, 3, 2, 'leaky', False),
+]
+EDGE_IDS = [f'{c[0]}x{c[1]}x{c[2]}_{c[5]}x{c[5]}s{c[6]}_{c[3]}to{c[4]}'
+            f'_{c[7]}_{"int8" if c[8] else "f32"}' for c in EDGE_CASES]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize('case', CASES + [(2, 11, 13, 6, 255, 3, 1, 'leaky',
-                                           True)],
-                         ids=CASE_IDS + ['3x3s1_6to255_leaky'])
+                                           True)] + EDGE_CASES,
+                         ids=CASE_IDS + ['3x3s1_6to255_leaky'] + EDGE_IDS)
 def test_k2_kernel_matches_plain(cuda, case):
     """The kernel against its plain version on the card: int8 outputs
     bit-equal for leaky/linear/relu; for mish at most 1 LSB apart on at
     most 0.1% of the values (the kernel's and PyTorch's transcendentals
     may differ by an ulp); f32 outputs rtol 1e-6 (the epilogue is the
-    same sequence of IEEE operations)."""
+    same sequence of IEEE operations). The tile-edge cases take an output
+    scale that spreads their outputs over the int8 grid (std about 40
+    quanta) instead of saturating at their deep sums."""
     from yolo_tpu_torch.ops.conv_int8 import (fused_conv_int8,
                                               fused_conv_int8_reference)
     n, h, w, ci, co, k, s, act, out_q = case
     x8, w8, bias = _conv_case(case)
+    oscale = 2.0 ** -2
+    if case in EDGE_CASES:
+        acc_std = (k * k * ci) ** 0.5 * 74.0 * 23.4
+        oscale = 2.0 ** round(np.log2(acc_std * 2.0 ** -9 / 40.0))
     args = (torch.from_numpy(x8).to(cuda), _ohwi(w8).to(cuda),
-            torch.from_numpy(bias).to(cuda), 2.0 ** -9, 2.0 ** -2)
+            torch.from_numpy(bias).to(cuda), 2.0 ** -9, oscale)
     kw = dict(stride=s, act=act, out_q=out_q)
     n0 = fused_conv_int8.launches
     got = fused_conv_int8(*args, **kw)

@@ -25,9 +25,10 @@ BUILD_DIR = Path(__file__).resolve().parent / '_build'
 
 # --fmad=false: no multiply-add contraction, so the kernels' float results
 # (the NMS IoU, the int8 conv epilogue) match the plain PyTorch versions bit
-# for bit.
+# for bit. -Xptxas=-v: each kernel's registers, spills and shared memory go
+# to the build log (``build_log()``).
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '--fmad=false', '-Xcompiler', '-fPIC')
+              '-O3', '--fmad=false', '-Xptxas=-v', '-Xcompiler', '-fPIC')
 
 
 def _sources() -> list[Path]:
@@ -73,19 +74,28 @@ def build() -> Path:
             jobs.append((cmd, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
+        logs = []
         for cmd, _, proc in jobs:
             log = proc.communicate()[0]
             if proc.returncode != 0:
                 raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
                                    f'{" ".join(cmd)}\n{log}')
+            logs.append(log)
         lib = os.path.join(tmp, out.name)
         cmd = [nvcc, '-shared', '-o', lib, *(obj for _, obj, _ in jobs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f'nvcc link failed ({proc.returncode}):\n'
                                f'{" ".join(cmd)}\n{proc.stdout}{proc.stderr}')
+        Path(str(out) + '.log').write_text(''.join(logs))
         os.replace(lib, out)
     return out
+
+
+def build_log() -> str:
+    """What nvcc and ptxas printed while building the current library."""
+    log = Path(str(library_path()) + '.log')
+    return log.read_text() if log.exists() else ''
 
 
 @functools.cache
@@ -98,7 +108,7 @@ def load_library() -> ctypes.CDLL:
     lib.nms_suppress_error_string.argtypes = [i]
     lib.nms_suppress_error_string.restype = ctypes.c_char_p
     lib.conv_int8_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i,
-                                     i, f, f, i, f, i, i, i, p]
+                                     i, f, f, i, f, i, i, i, i, i, i, i, p]
     lib.conv_int8_launch.restype = i
     lib.conv_int8_error_string.argtypes = [i]
     lib.conv_int8_error_string.restype = ctypes.c_char_p

@@ -13,23 +13,114 @@ order the kernel reads), bias f32[Cout], ``scale`` and ``out_scale``
 per-tensor f32 scalars, pad K // 2, groups 1.
 
 On a CUDA tensor it launches ``csrc/conv_int8.cu`` (an implicit GEMM on
-``__dp4a``, one thread block per 128 output pixels x 64 output channels)
-or raises; on a CPU tensor it runs ``fused_conv_int8_reference``. There is
-no fallback from CUDA to the plain version.
+Hopper's s8 tensor cores, ``wgmma`` fed by a ring of shared-memory tiles;
+persistent blocks walk tiles of 128 output pixels x BN output channels,
+BN from ``tile_plan``) or raises; on a CPU tensor it runs
+``fused_conv_int8_reference``. There is no fallback from CUDA to the plain
+version.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from . import activations as act_mod
+from .._build import load_library
 
 # activation codes of csrc/conv_int8.cu
 ACT_CODES = {'linear': 0, 'none': 0, '': 0, 'leaky': 1, 'relu': 2,
              'relu6': 3, 'mish': 4, 'swish': 5, 'logistic': 6, 'h_swish': 7,
              'h_sigmoid': 8}
+
+# the kernel's tiles (csrc/conv_int8.cu)
+BM = 128             # output pixels per block: two warpgroups of 64 rows
+BK = 128             # reduction bytes per ring stage: one 128-byte swizzle row
+CIN_GRANULE = 16     # Cin is zero-padded to a multiple of this (16-byte copies)
+BN_CHOICES = (256, 128, 64, 32)      # output channels per block (the
+                                     # kernel's instantiations)
+SLAB_BYTES = BM * 36 * 4  # the epilogue's s32 slab: BM rows of 32 (+4) words
+SMEM_LIMIT = 232448  # bytes of shared memory a block may take on an H100
+
+
+class TilePlan(NamedTuple):
+    bn: int              # output channels per block
+    stages: int          # depth of the shared-memory ring
+    smem: int            # bytes of dynamic shared memory per block
+    grid: tuple          # (pixel tiles, channel tiles)
+    ktot: int            # reduction length K*K*Cin (Cin padded), in bytes
+    rows: bool           # each tile's output built as one run of bytes
+
+
+def run_tile(cout: int, bn: int, out_q: bool) -> bool:
+    """Whether the kernel is told to build each tile's output as one run of
+    bytes in shared memory (int8 out, Cout not a multiple of 16, one
+    channel tile: the three Cout 255 heads), to store it with aligned
+    16-byte stores."""
+    return out_q and cout % 16 != 0 and cout <= bn
+
+
+def smem_bytes(bn: int, stages: int, run: bool = False) -> int:
+    """Shared memory of a block, as ``smem_bytes`` in the kernel source
+    counts it (a CPU test holds the two to each other): the ring of A
+    (BM x BK) and B (BN x BK) tiles, the epilogue's slab, the tile's run of
+    output bytes (``run_tile``), the mbarriers, and 1024 bytes to align
+    the ring for the 128-byte swizzle."""
+    return (1024 + stages * (BM * BK + bn * BK) + SLAB_BYTES
+            + (BM * bn + 16 if run else 0) + 16 * stages)
+
+
+@functools.lru_cache(maxsize=4096)
+def tile_plan(m: int, cin: int, cout: int, k: int,
+              out_q: bool = True) -> TilePlan:
+    """Tiles for one conv of ``m`` output pixels, ``cin`` input and
+    ``cout`` output channels and a ``k`` x ``k`` window, int8 out
+    (``out_q``) or f32.
+
+    A 3x3 conv into 128 or more channels has nine taps to sum per pixel
+    and is bound by the tensor cores: BN = 256 (or 128 where Cout < 256),
+    the widest wgmma that Cout fills, reads each A tile once for that many
+    channels, with a ring of 4 stages. The 1x1 convs, and the 3x3 convs
+    into 64 channels or fewer, are bound by bytes and latency: BN = 64 (32
+    where Cout <= 32) with 3 stages, so that two blocks share an SM and
+    hide each other's loads and epilogues. ``scripts/k2_sweep.py`` timed
+    every (BN, stages) on the 74 int8 convs of yolov3 @608 (PERF.md): this
+    rule is within a few percent of the best choice per shape. An int8
+    output whose Cout is not a multiple of 16 (the heads' 255) takes one
+    channel tile as wide as Cout where its pixel tiles alone give 64 blocks
+    or more, so that the tile's output is one run of bytes (``run_tile``).
+    The ring takes as many of its stages as fit in shared memory. The grid
+    is ``m`` / BM by Cout / BN tiles. Cached: the wrapper asks it on every
+    call."""
+    cin_p = -(-cin // CIN_GRANULE) * CIN_GRANULE
+    ktot = k * k * cin_p
+    gx = -(-m // BM)
+    if k == 3 and cout >= 128:
+        bn, stages = (256 if cout >= 256 else 128), 4
+    else:
+        bn, stages = (32 if cout <= 32 else 64), 3
+    if out_q and cout % 16 and cout <= BN_CHOICES[0] and gx >= 64:
+        bn = min(b for b in BN_CHOICES if b >= cout)
+    run = run_tile(cout, bn, out_q)
+    while smem_bytes(bn, stages, run) > SMEM_LIMIT:
+        stages -= 1
+    grid = (gx, -(-cout // bn))
+    return TilePlan(bn, stages, smem_bytes(bn, stages, run), grid, ktot, run)
+
+
+def pad_cin(x8, w8):
+    """Zero-pad Cin of x8 (N, H, W, Cin) and w8 (Cout, K, K, Cin) up to a
+    multiple of ``CIN_GRANULE`` where it is not one (a copy, only for such
+    odd widths). Exact: the zeros add nothing to the sums."""
+    extra = -x8.shape[-1] % CIN_GRANULE
+    if extra:
+        x8 = F.pad(x8, (0, extra))
+        w8 = F.pad(w8, (0, extra))
+    return x8, w8
 
 
 def supported(k: int, stride: int, pad: int, groups: int) -> bool:
@@ -123,14 +214,13 @@ def fused_conv_int8(x8, w8, bias, scale, out_scale, *, stride: int,
     if x8.device.type != 'cuda':
         raise ValueError(f'fused_conv_int8: no kernel for device {x8.device}')
     _check(x8, w8, bias, stride, act, qmin, qmax)
+    x8, w8 = pad_cin(x8, w8)
+    # the kernel reads x8, w8 and bias in 16-byte pieces (cp.async, TMA,
+    # vector loads)
+    x8, w8, bias = (t if t.data_ptr() % 16 == 0 else t.clone()
+                    for t in (x8, w8, bias))
     n, h, w, cin = x8.shape
     cout, k = w8.shape[0], w8.shape[1]
-    if cin % 4:
-        # the kernel reads 4 channels per 32-bit word: zero-pad Cin (a copy,
-        # only for such odd widths; zeros add nothing to the sums)
-        x8 = F.pad(x8, (0, -cin % 4))
-        w8 = F.pad(w8, (0, -cin % 4))
-        cin = x8.shape[-1]
     pad = k // 2
     ho = (h + 2 * pad - k) // stride + 1
     wo = (w + 2 * pad - k) // stride + 1
@@ -139,22 +229,35 @@ def fused_conv_int8(x8, w8, bias, scale, out_scale, *, stride: int,
                       device=x8.device)
     if out.numel() == 0:
         return out
-    from .._build import load_library
+    plan = tile_plan(n * ho * wo, cin, cout, k, out_q)
+    _launch(x8, w8, bias, out, stride, float(_f32(scale)),
+            float(np.float32(1.0) / _f32(out_scale)), act,
+            0.25 if maxabs else 0.1, out_q, qmin, qmax, plan.bn, plan.stages,
+            plan.rows)
+    return out
+
+
+def _launch(x8, w8, bias, out, stride, scale, oinv, act, slope, out_q, qmin,
+            qmax, bn, stages, rows):
+    """One launch of the kernel with the given tiles (BN, ring stages, the
+    run of bytes) on checked, Cin-padded, 16-byte aligned CUDA tensors;
+    adds one to ``fused_conv_int8.launches``, or raises if the launch is
+    refused."""
     lib = load_library()
-    slope = 0.25 if maxabs else 0.1
-    with torch.cuda.device(x8.device):
-        stream = torch.cuda.current_stream(x8.device).cuda_stream
-        err = lib.conv_int8_launch(
-            x8.data_ptr(), w8.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            n, h, w, cin, cout, k, stride, pad, ho, wo,
-            float(_f32(scale)), float(np.float32(1.0) / _f32(out_scale)),
-            ACT_CODES[act], slope, int(bool(out_q)), int(qmin), int(qmax),
-            stream)
+    n, h, w, cin = x8.shape
+    cout, k = w8.shape[0], w8.shape[1]
+    ho, wo = out.shape[1], out.shape[2]
+    dev = x8.device.index
+    err = lib.conv_int8_launch(
+        x8.data_ptr(), w8.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        n, h, w, cin, cout, k, stride, k // 2, ho, wo, scale, oinv,
+        ACT_CODES[act], slope, int(bool(out_q)), int(qmin), int(qmax),
+        bn, stages, int(bool(rows)), dev,
+        torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         raise RuntimeError('conv_int8 kernel launch failed: '
                            + lib.conv_int8_error_string(err).decode())
     fused_conv_int8.launches += 1
-    return out
 
 
 fused_conv_int8.launches = 0
