@@ -15,11 +15,16 @@ Phases; any failure exits non-zero, and nothing runs on the CPU instead
    instantiation (registers, spills). Fails unless the conv_int8 kernels'
    SASS (``cuobjdump -sass``) holds the integer warpgroup MMA (IGMMA) and
    no IDP4A: K2 runs on the tensor cores.
-3. K1: the NMS suppression kernel against its plain PyTorch version on
-   the card: bs=8 heavy-overlap candidates at k = 512, 300, 256 with and
-   without merge, plus an all-invalid batch. ``keep`` must be bit-equal and
-   the merged boxes within rtol 1e-5 / atol 1e-4 where kept. Prints the
-   times of both at k=512, bs=8, and the bound.
+3. K1: the NMS suppression kernel (one thread-block cluster per image)
+   against its plain PyTorch version on the card (``K1_CASES``):
+   heavy-overlap candidates at every k from 1 to 1024 that the plan treats
+   differently, with and without merge, bs 1, 8 and 64 (more clusters than
+   the card holds at once), a chain of 40 boxes capped at 0, 1, 3 and 16
+   sweeps, IoU == thres, and an all-invalid batch. ``keep`` must be
+   bit-equal and the merged boxes within rtol 1e-5 / atol 1e-4 where kept.
+   At k=512, bs=8: the plan's cluster, the times of both, the wrapper's
+   host time per call, the bound, and the device time at cluster sizes 4,
+   8 and 16 (each held to the plain version too).
 4. float pipeline: ``cfg/yolov3/yolov3.cfg`` at full width, 608x608, random
    weights from a seed, through ``load_model(device='cuda').fuse()
    .make_infer()``, bf16, channels_last, bs=8, dense and sparse decode, at
@@ -29,8 +34,10 @@ Phases; any failure exits non-zero, and nothing runs on the CPU instead
    (rtol 1e-5 / atol 1e-4), and at bs=1 the card's f32 heads must match the
    CPU's f32 heads (rtol 1e-3 / atol 1e-3: f32 convs summed in other orders
    over 75 layers), and the bf16 heads the card's f32 heads within 10% of
-   the head's largest magnitude. Prints images/s of both decodes, timed in
-   turns, and the time of the forward and of decode + NMS alone.
+   the head's largest magnitude. Times K1 on the dense path's own
+   candidates. Prints images/s of both decodes, timed in turns, the time
+   of the forward and of decode + NMS alone, and a profile of the dense
+   batch (device time by kernel group).
 5. K2: the fused int8 conv kernel against its plain PyTorch version on the
    card: 1x1 s1, 3x3 s1 and s2, odd H/W, Cin not a multiple of 4 with Cout
    255, int8 and f32 outputs, leaky / linear / relu / mish / leaky under
@@ -68,8 +75,11 @@ the card busy while the host queues the call). A pipeline's time is
 
 The line before the last is a JSON object with each kernel's launches on
 the main paths, error, times and bound (``ms``, ``plain_ms`` and
-``library_ms`` by ``cuda_ms``, ``device_ms`` beside them; for conv_int8
-also its 1x1 times beside ``torch._int_mm``'s, and its totals by class);
+``library_ms`` by ``cuda_ms``, ``device_ms`` beside them; for nms_suppress
+also its cluster and CTAs at k=512, bs=8, the wrapper's host time per call,
+the device time by cluster size and both times on the dense path's own
+candidates; for conv_int8 also its 1x1 times beside ``torch._int_mm``'s,
+and its totals by class);
 the line before it the card's name and power limit; the last line is the JSON device record. At the end the
 run checks that neither jax nor OpenCV nor any module of the JAX package
 ``yolo_tpu`` was imported.
@@ -173,18 +183,36 @@ def bound_ms(n_bytes, n_ops, ops_per_s):
     return max(t_b, t_o) * 1e3, ('bytes' if t_b >= t_o else 'operations')
 
 
-def candidates(rng, bs, k, dev):
-    """Score-sorted candidate sets with heavy overlap, invalid rows zeroed,
-    as ``_suppress_and_finalize`` hands them to the kernel."""
+def candidate_arrays(rng, bs, k, chain=0):
+    """Score-sorted candidate sets with heavy overlap as numpy: boxes
+    (bs, k, 4) f32, scores (bs, k) f32, valid (bs, k) bool. With ``chain``,
+    min(chain, k) slots spread over the k hold a suppression chain instead:
+    valid boxes 10 wide and 2 apart, far from the others, so that at
+    iou_thres 0.6 each overlaps only the next (IoU 2/3; 3/7 with the one
+    after) and the sweeps take about ``chain`` of them to converge."""
     cx, cy = rng.uniform(0, 200, (2, bs, k, 1))
     w, h = rng.uniform(5, 60, (2, bs, k, 1))
     boxes = np.concatenate([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
     scores = np.sort(rng.uniform(0.05, 1.0, (bs, k)))[:, ::-1].copy()
-    valid = torch.from_numpy(scores > 0.1).to(dev)
-    boxes = torch.from_numpy(boxes.astype(np.float32)).to(dev)
-    boxes = torch.where(valid[..., None], boxes, 0.0).contiguous()
-    scores = (torch.from_numpy(scores.astype(np.float32)).to(dev) * valid)
-    return boxes, scores.contiguous(), valid
+    valid = scores > 0.1
+    n = min(chain, k)
+    if n:
+        slots = np.linspace(0, k - 1, n).round().astype(int)
+        x0 = 1000.0 + 2.0 * np.arange(n)
+        y0 = np.full(n, 1000.0)
+        boxes[:, slots] = np.stack([x0, y0, x0 + 10, y0 + 10], -1)
+        valid[:, slots] = True
+    return boxes.astype(np.float32), scores.astype(np.float32), valid
+
+
+def candidates(rng, bs, k, dev, chain=0):
+    """``candidate_arrays`` on ``dev`` with the invalid rows zeroed and the
+    scores times valid, as ``_suppress_and_finalize`` hands them to K1."""
+    boxes, scores, valid = candidate_arrays(rng, bs, k, chain)
+    valid = torch.from_numpy(valid).to(dev)
+    boxes = torch.where(valid[..., None], torch.from_numpy(boxes).to(dev), 0.0)
+    scores = torch.from_numpy(scores).to(dev) * valid
+    return boxes.contiguous(), scores.contiguous(), valid
 
 
 def images(seed, bs, size):
@@ -265,29 +293,81 @@ def phase_build():
     return secs
 
 
+# K1's cases: (bs, k, merge, chain length, max_sweeps). Every k the plan
+# treats differently (one word, ragged words, one CTA, many CTAs, the
+# largest k), bs=64 for more clusters than the card holds at once, and a
+# chain of K1_CHAIN boxes capped below, near and past its length.
+K1_KS = (1, 31, 32, 33, 65, 300, 512, 1000, 1024)
+K1_CHAIN = 40
+K1_SWEEPS = (0, 1, 3, 16)
+K1_CASES = ([(BS, k, m, 0, 16) for k in K1_KS for m in (True, False)]
+            + [(bs, k, True, 0, 16) for bs in (1, 64) for k in (512, 1000)]
+            + [(bs, k, m, K1_CHAIN, s) for s in K1_SWEEPS
+               for bs, k, m in ((BS, 512, True), (64, 1024, False))])
+K1_CLUSTERS = (4, 8, 16)    # cluster sizes timed at k=512, bs=8
+
+
+def host_us(fn, n=200):
+    """The host's time per ``fn()`` call in microseconds: a host clock
+    over ``n`` calls with no synchronise, divided by ``n``."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return secs / n * 1e6
+
+
+def fixpoint_sweeps(oboxes, valid, iou_thres, cap=64):
+    """The sweeps after which ``keep`` stops changing in every image (the
+    plain version's fixpoint, at most ``cap``), and the overlapping pairs
+    of valid candidates."""
+    from yolo_tpu_torch.ops.boxes import box_iou_matrix
+    k = valid.shape[1]
+    over = box_iou_matrix(oboxes, oboxes) > torch.tensor(iou_thres)
+    vv = valid[:, :, None] & valid[:, None, :]
+    ar = torch.arange(k, device=valid.device)
+    tri = over & (ar[:, None] < ar[None, :])
+    keep, n = valid, 0
+    while n < cap:
+        new = valid & ~(tri & keep[:, :, None]).any(1)
+        if torch.equal(new, keep):
+            break
+        keep, n = new, n + 1
+    return n, int((over & vv).sum())
+
+
+def k1_compare(got, ref, what):
+    """``keep`` bit-equal, ``merged`` within KERNEL_TOL where kept; returns
+    the largest merged error."""
+    keep, merged = got
+    keep_r, merged_r = ref
+    m = keep[..., None]
+    a, b = torch.where(m, merged, 0.0), torch.where(m, merged_r, 0.0)
+    err = float((a - b).abs().max()) if a.numel() else 0.0
+    check(torch.equal(keep, keep_r) and torch.allclose(a, b, **KERNEL_TOL),
+          f'{what}: keep bit-equal ({int(keep.sum())} kept), merged within '
+          f'tolerance (max abs err {err:.3g})')
+    return err
+
+
 def phase_kernel(dev):
     print('[3/6] K1 nms_suppress vs plain version')
-    from yolo_tpu_torch.ops.nms_suppress import suppress, suppress_reference
+    from yolo_tpu_torch.ops import nms_suppress as K1
+    suppress, suppress_reference = K1.suppress, K1.suppress_reference
     rng = np.random.default_rng(0)
     max_err = 0.0
-    for k in (512, 300, 256):
-        for merge in (True, False):
-            boxes, scores, valid = candidates(rng, BS, k, dev)
-            kw = dict(iou_thres=0.6, merge=merge)
-            keep, merged = suppress(boxes, boxes, scores, valid, **kw)
-            torch.cuda.synchronize()
-            keep_r, merged_r = suppress_reference(boxes, boxes, scores, valid,
-                                                  **kw)
-            check(torch.equal(keep, keep_r),
-                  f'k={k} merge={merge}: keep bit-equal '
-                  f'({int(keep.sum())} of {int(valid.sum())} valid kept)')
-            m = keep[..., None]
-            a, b = torch.where(m, merged, 0.0), torch.where(m, merged_r, 0.0)
-            err = float((a - b).abs().max())
-            check(torch.allclose(a, b, **KERNEL_TOL),
-                  f'k={k} merge={merge}: merged within tolerance '
-                  f'(max abs err {err:.3g})')
-            max_err = max(max_err, err)
+    for bs, k, merge, chain, sweeps in K1_CASES:
+        boxes, scores, valid = candidates(rng, bs, k, dev, chain)
+        kw = dict(iou_thres=0.6, merge=merge, max_sweeps=sweeps)
+        got = suppress(boxes, boxes, scores, valid, **kw)
+        torch.cuda.synchronize()
+        ref = suppress_reference(boxes, boxes, scores, valid, **kw)
+        max_err = max(max_err, k1_compare(
+            got, ref, f'bs={bs} k={k} merge={merge} chain={chain} '
+            f'max_sweeps={sweeps}: {int(valid.sum())} valid'))
     z = torch.zeros((BS, 512, 4), device=dev)
     keep, merged = suppress(z, z, torch.zeros((BS, 512), device=dev),
                             torch.zeros((BS, 512), dtype=torch.bool,
@@ -295,33 +375,61 @@ def phase_kernel(dev):
     torch.cuda.synchronize()
     check(not bool(keep.any()) and bool(torch.isfinite(merged).all()),
           'all-invalid batch: nothing kept, merged finite')
+    # iou exactly at the threshold (2 / 4 = 0.5) suppresses nothing; a
+    # larger overlap suppresses the lower-scored box
+    b = torch.tensor([[[0, 0, 4, 1], [0, 0, 2, 1], [10, 10, 14, 14],
+                       [10, 10, 14, 13.5]]], dtype=torch.float32, device=dev)
+    s = torch.tensor([[0.9, 0.8, 0.7, 0.6]], device=dev)
+    v = torch.ones((1, 4), dtype=torch.bool, device=dev)
+    keep = suppress(b, b, s, v, iou_thres=0.5)[0]
+    keep_r = suppress_reference(b, b, s, v, iou_thres=0.5)[0]
+    check(keep.tolist() == keep_r.tolist() == [[True, True, True, False]],
+          'iou == thres keeps both boxes, bit-equal')
 
     boxes, scores, valid = candidates(rng, BS, 512, dev)
     kw = dict(iou_thres=0.6, merge=True)
-    ms = cuda_ms(lambda: suppress(boxes, boxes, scores, valid, **kw))
-    dev_ms = device_ms(lambda: suppress(boxes, boxes, scores, valid, **kw))
-    plain_ms = cuda_ms(lambda: suppress_reference(boxes, boxes, scores, valid,
-                                                  **kw))
+    args = (boxes, boxes, scores, valid)
+    plan = K1.device_plan(BS, 512, dev.index)
+    print(f'  plan at k=512 bs={BS}: cluster {plan.cluster}, {plan.ctas} CTAs '
+          f'of {K1.THREADS} threads, {plan.smem} bytes of shared memory each '
+          f'(the card holds {K1.max_clusters(dev.index, 512)} clusters of '
+          f'{K1.CLUSTER_MAX} at once)')
+    ms = cuda_ms(lambda: suppress(*args, **kw))
+    dev_ms = device_ms(lambda: suppress(*args, **kw))
+    h_us = host_us(lambda: suppress(*args, **kw))
+    plain_ms = cuda_ms(lambda: suppress_reference(*args, **kw))
+    # each cluster size on the same inputs, held to the plain version too
+    ref = suppress_reference(*args, **kw)
+    by_cluster = {}
+    for c in K1_CLUSTERS:
+        out = (torch.empty_like(valid), torch.empty_like(boxes))
+        launch = lambda: K1._launch(*args, *out, 0.6, 16, True, c)
+        launch()
+        torch.cuda.synchronize()
+        k1_compare(out, ref, f'cluster {c}')
+        by_cluster[c] = device_ms(launch)
+    sweeps, n_pairs = fixpoint_sweeps(boxes, valid, 0.6)
     # the bound of these inputs: each input read once (class-offset and raw
     # boxes, scores, valid) and each output written once (keep, merged);
     # 14 f32 operations per IoU of a pair of valid candidates, 9 per
     # overlapping (i, j) of the merge and 4 divisions per valid row
-    from yolo_tpu_torch.ops.boxes import box_iou_matrix
     bs, k = valid.shape
     n_bytes = bs * k * (16 + 16 + 4 + 1) + bs * k * (1 + 16)
     nv = valid.sum(1).double()
-    vv = valid[:, :, None] & valid[:, None, :]
-    n_over = float((vv & (box_iou_matrix(boxes, boxes) > 0.6)).sum())
-    n_ops = float((nv * (nv - 1) / 2 * 14 + nv * 4).sum()) + 9 * n_over
+    n_ops = float((nv * (nv - 1) / 2 * 14 + nv * 4).sum()) + 9 * n_pairs
     b_ms, b_by = bound_ms(n_bytes, n_ops, F32_OPS_PER_S)
     print(f'  k=512 bs={BS} merge: kernel {ms:.4f} ms (device alone '
-          f'{dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms by '
-          f'{b_by} ({n_bytes / 1e6:.3f} MB, {n_ops / 1e6:.2f} M f32 '
-          f'operations: {int(nv.sum())} valid, {int(n_over)} overlapping '
-          'pairs)')
-    return dict(max_abs_err=max_err, ms=ms, device_ms=dev_ms,
+          f'{dev_ms:.4f} ms, host {h_us:.1f} us per call), plain '
+          f'{plain_ms:.4f} ms, bound {b_ms:.6f} ms by {b_by} '
+          f'({n_bytes / 1e6:.3f} MB, {n_ops / 1e6:.2f} M f32 operations: '
+          f'{int(nv.sum())} valid, {n_pairs} overlapping pairs, fixpoint '
+          f'after {sweeps} sweeps)')
+    print('  device alone by cluster size: ' + ', '.join(
+        f'{c}: {t:.4f} ms' for c, t in by_cluster.items()))
+    return dict(max_abs_err=max_err, ms=ms, device_ms=dev_ms, host_us=h_us,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+                library_ms=None, cluster=plan.cluster, ctas=plan.ctas,
+                cluster_device_ms={str(c): t for c, t in by_cluster.items()})
 
 
 def phase_pipeline(dev, card):
@@ -380,6 +488,24 @@ def phase_pipeline(dev, card):
                   f'{"sparse" if s else "dense"}: kernel NMS == plain NMS '
                   f'(max abs err {err:.3g})')
 
+        # K1 on the exact candidate set the dense path hands it: class-offset
+        # boxes at conf 0.001, every one of the 512 slots filled
+        boxes, oboxes, cand, _, valid = nms._candidates(
+            io, CONF_THRES, kw['top_k'], True, False)
+        zero = lambda t: torch.where(valid[..., None], t, 0.0).contiguous()
+        args = (zero(oboxes), zero(boxes), (cand * valid).contiguous(),
+                valid.contiguous())
+        k1kw = dict(iou_thres=kw['iou_thres'])
+        k1 = dict(ms=cuda_ms(lambda: suppress(*args, **k1kw)),
+                  device_ms=device_ms(lambda: suppress(*args, **k1kw)),
+                  valid=int(valid.sum()))
+        k1['sweeps'], k1['pairs'] = fixpoint_sweeps(args[0], valid,
+                                                    kw['iou_thres'])
+        print(f'  K1 on the dense path\'s own candidates ({k1["valid"]} valid '
+              f'of {valid.numel()} slots, {k1["pairs"]} overlapping pairs, '
+              f'fixpoint after {k1["sweeps"]} sweeps): {k1["ms"]:.4f} ms, '
+              f'device alone {k1["device_ms"]:.4f} ms')
+
     # f32 heads on the card (TF32 off) against the CPU, and the bf16 heads
     # of the timed path against the card's f32 heads
     x1 = runtime.preprocess(images(2, 1, SIZE), device=dev)
@@ -416,7 +542,9 @@ def phase_pipeline(dev, card):
               f'decode + NMS alone {nms_ms[s]:.3f} ms')
     print(f'  forward alone (bf16 heads + slim obj conv): {fwd_ms:.3f} ms '
           f'per batch of {BS}')
-    return launches
+    print('  dense bf16 batch, profiled:')
+    profile_device(lambda: infer[False](x))
+    return launches, k1
 
 
 # --------------------------------------------------------------- K2, int8
@@ -834,7 +962,7 @@ def main():
     t0 = time.perf_counter()
     build_s = phase_build()
     k1 = phase_kernel(dev)
-    k1_float = phase_pipeline(dev, card)
+    k1_float, k1_main = phase_pipeline(dev, card)
     k2_err = phase_conv_kernel(dev)
     launches, k2_tot = phase_int8(dev, card)
     check_imports()
@@ -844,7 +972,9 @@ def main():
         {'name': 'nms_suppress', 'route': 'cuda',
          'source': 'yolo_tpu_torch/csrc/nms_suppress.cu',
          'replaces': 'yolo_tpu/ops/pallas_nms.py:33',
-         'launches': k1_float + launches['nms_suppress'], **k1},
+         'launches': k1_float + launches['nms_suppress'], **k1,
+         'main_path_ms': k1_main['ms'],
+         'main_path_device_ms': k1_main['device_ms']},
         {'name': 'conv_int8', 'route': 'cuda',
          'source': 'yolo_tpu_torch/csrc/conv_int8.cu',
          'replaces': 'yolo_tpu/ops/pallas_conv.py:132',

@@ -7,20 +7,26 @@ same tolerance on identical inputs; the sparse-decode path also goes
 through sigmoid/exp, whose last bits differ between the frameworks.
 """
 
+import os
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from _torch_port import candidates
 from yolo_tpu.models.yolo_head import decode_yolo_nhwc as jdecode
 from yolo_tpu.ops import nms as jnms
 from yolo_tpu.ops.pallas_nms import suppress as jsuppress
 from yolo_tpu_torch.ops import nms as tnms
+from yolo_tpu_torch.ops import nms_suppress as K1
 from yolo_tpu_torch.ops.nms_suppress import suppress, suppress_reference
 
 TOL = dict(rtol=1e-5, atol=1e-4)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(scope='module', autouse=True)
@@ -53,6 +59,162 @@ def test_suppress_reference_matches_jax(k, merge):
     for ref in (merged_p, merged_x):
         np.testing.assert_allclose(np.where(m, merged.numpy(), 0),
                                    np.where(m, np.asarray(ref), 0), **TOL)
+
+
+@pytest.mark.parametrize('max_sweeps', [0, 1, 3])
+def test_suppress_reference_capped_chains_match_jax(max_sweeps):
+    """A chain of 40 boxes, each overlapping only the next, spread over 96
+    heavy-overlap candidates and capped below its length: the twin's
+    unconverged ``keep`` equals the Pallas kernel's (interpret mode) and
+    ``_suppress_xla``'s after exactly ``max_sweeps`` sweeps. This is the
+    oracle that the cluster kernel's sweeps are held to on the card."""
+    b, s, v = chip_smoke.candidate_arrays(
+        np.random.default_rng(40 + max_sweeps), 2, 96, chain=40)
+    b = np.where(v[..., None], b, 0).astype(np.float32)
+    sv = (s * v).astype(np.float32)
+    keep_p, merged_p = jsuppress(jnp.asarray(b), jnp.asarray(b),
+                                 jnp.asarray(sv), jnp.asarray(v),
+                                 iou_thres=0.6, max_sweeps=max_sweeps,
+                                 merge=True, interpret=True)
+    keep_x, merged_x = jax.vmap(
+        lambda ob, bb, ss, vv: jnms._suppress_xla(ob, bb, ss, vv, 0.6, True,
+                                                  max_sweeps)
+    )(jnp.asarray(b), jnp.asarray(b), jnp.asarray(s), jnp.asarray(v))
+    bt, st, vt = torch.from_numpy(b), torch.from_numpy(sv), torch.from_numpy(v)
+    keep, merged = suppress_reference(bt, bt, st, vt, iou_thres=0.6,
+                                      max_sweeps=max_sweeps)
+    np.testing.assert_array_equal(keep.numpy(), np.asarray(keep_p))
+    np.testing.assert_array_equal(keep.numpy(), np.asarray(keep_x))
+    m = keep.numpy()[..., None]
+    for ref in (merged_p, merged_x):
+        np.testing.assert_allclose(np.where(m, merged.numpy(), 0),
+                                   np.where(m, np.asarray(ref), 0), **TOL)
+    # unconverged: more sweeps still change keep
+    done = suppress_reference(bt, bt, st, vt, iou_thres=0.6, max_sweeps=64,
+                              merge=False)[0]
+    assert not torch.equal(keep, done)
+
+
+@pytest.mark.parametrize('bs', [1, 8, 64])
+def test_suppress_plan_covers_every_k(bs):
+    """The cluster plan for every k the kernel takes, with and without the
+    card holding bs clusters of 16: C = min(8 or 16, ceil(k / 32)) CTAs per
+    image; the CTAs' column runs are whole 32-candidate words that cover
+    0..k-1 exactly once, differ by at most one word and give each of the
+    CTA's warps at most one word to sweep; shared memory within the
+    H100's 227 KB and at least what the CTA keeps there."""
+    for k in range(1, K1.MAX_K + 1):
+        nw = -(-k // 32)
+        for wide, c_max in ((0, 8), (bs - 1, 8), (bs, 16)):
+            plan = K1.suppress_plan(bs, k, wide)
+            assert plan.cluster == min(c_max, nw), (k, wide)
+            assert plan.ctas == bs * plan.cluster
+            assert len(plan.runs) == plan.cluster
+            starts = [a for a, _ in plan.runs]
+            ends = [b for _, b in plan.runs]
+            assert starts[0] == 0 and starts[1:] == ends[:-1]
+            assert ends[-1] - 32 < k <= ends[-1]
+            widths = [b - a for a, b in plan.runs]
+            assert all(a % 32 == 0 and b % 32 == 0 for a, b in plan.runs)
+            assert min(widths) >= 32 and max(widths) - min(widths) <= 32
+            assert max(widths) // 32 <= K1.THREADS // 32
+            assert plan.smem == K1.smem_bytes(k, plan.cluster)
+            assert (20 * 32 * nw + 20 * k + 4 * nw * max(widths) + 8 * nw
+                    <= plan.smem <= K1.SMEM_LIMIT == 227 * 1024)
+
+
+def _kernel_source_formulas():
+    """The constants and the constexpr size functions of
+    ``csrc/nms_suppress.cu`` as Python, read from the source."""
+    with open(os.path.join(ROOT, 'yolo_tpu_torch', 'csrc',
+                           'nms_suppress.cu')) as f:
+        src = f.read()
+    env = {}
+    for name, expr in re.findall(r'^constexpr int (k\w+) = ([^;]+);', src,
+                                 re.M):
+        env[name] = eval(expr.replace('/', '//'), {}, env)
+    for fn in ('words', 'run_words', 'smem_bytes'):
+        m = re.search(r'constexpr int ' + fn + r'\(([^)]*)\) \{\s*return '
+                      r'(.+?);\s*\}', src, re.S)
+        params = [a.split()[-1] for a in m.group(1).split(',')]
+        expr = ' '.join(m.group(2).split()).replace('/', '//')
+        env[fn] = eval(f'lambda {", ".join(params)}: {expr}', env)
+    return env, src
+
+
+def test_suppress_smem_formula_matches_kernel_source():
+    """The plan's shared-memory count and constants against the kernel
+    source's, for every k and cluster size the kernel takes: the plan's
+    CTAs get what the kernel asks for, and the kernel refuses what the
+    plan would refuse."""
+    env, src = _kernel_source_formulas()
+    assert (env['kMaxK'], env['kThreads'], env['kMaxCluster'],
+            env['kSmemLimit']) == (K1.MAX_K, K1.THREADS, K1.CLUSTER_MAX,
+                                   K1.SMEM_LIMIT)
+    assert 'smem_bytes(k, cluster) <= kSmemLimit' in src
+    assert 'run_words(k, cluster) <= kWarps' in src
+    for k in range(1, K1.MAX_K + 1):
+        assert env['words'](k) == K1.words(k)
+        for c in range(1, min(K1.CLUSTER_MAX, K1.words(k)) + 1):
+            assert K1.smem_bytes(k, c) == env['smem_bytes'](k, c), (k, c)
+
+
+def _kernel_float_constants(src):
+    """The ``constexpr float`` constants of the kernel source as floats."""
+    out = {}
+    for name, expr in re.findall(r'^constexpr float (k\w+) = ([^;]+);', src,
+                                 re.M):
+        expr = re.sub(r'(0x[0-9a-fA-Fp.+-]+)f\b',
+                      lambda m: repr(float.fromhex(m.group(1))), expr)
+        out[name] = float(eval(re.sub(r'(\d)f\b', r'\1', expr)))
+    return out
+
+
+def test_division_free_threshold_test_is_exact():
+    """The kernel's test of iou > thres without the division (graph_word
+    in ``csrc/nms_suppress.cu``: decided from p = RN(thres * den) unless
+    inter lies within p * (1 -+ 2^-18)), in numpy float32 with the
+    kernel's constants, against RN(inter / den) > thres as the plain
+    version computes it. Half the pairs are random boxes, half are built
+    to sit within 2 ulp of the threshold. The kernel cannot run here; this
+    holds its rule, and that the rule decides most random pairs."""
+    _, src = _kernel_source_formulas()
+    c = _kernel_float_constants(src)
+    f = np.float32
+    up, down, eps = f(c['kUp']), f(c['kDown']), f(c['kEps'])
+    assert (up, down) == (f(1 + 2 ** -18), f(1 - 2 ** -18))
+    rng = np.random.default_rng(0)
+    n = 200_000
+    for thres in (0.3, 0.45, 0.5, 0.6, 0.7, 0.9):
+        th = f(thres)
+        a = rng.uniform(0, 300, (n, 4)).astype(f)
+        a[:, 2:] = a[:, :2] + rng.uniform(0, 80, (n, 2)).astype(f)
+        b = rng.uniform(0, 300, (n, 4)).astype(f)
+        b[:, 2:] = b[:, :2] + rng.uniform(0, 80, (n, 2)).astype(f)
+        # equal boxes shifted along x by s: iou = (w - s) / (w + s) = thres
+        m = n // 2
+        s = ((a[:m, 2] - a[:m, 0]) * (1 - thres) / (1 + thres)).astype(f)
+        b[:m] = a[:m]
+        b[:m, 0] += s + rng.integers(-2, 3, m) * np.spacing(a[:m, 0])
+        b[:m, 2] += s
+        b[:m, 2] = np.maximum(b[:m, 2], b[:m, 0])
+        iw = np.maximum(np.minimum(a[:, 2], b[:, 2])
+                        - np.maximum(a[:, 0], b[:, 0]), f(0))
+        ih = np.maximum(np.minimum(a[:, 3], b[:, 3])
+                        - np.maximum(a[:, 1], b[:, 1]), f(0))
+        inter = iw * ih
+        area_a = (a[:, 2] - a[:, 0]) * (a[:, 3] - a[:, 1])
+        area_b = (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1])
+        den = area_a + area_b - inter + eps
+        assert inter.dtype == den.dtype == np.float32
+        assert (area_a <= c['kMaxArea']).all() and (den >= c['kTiny']).all()
+        ref = inter / den > th
+        p = th * den
+        over = inter >= p * up
+        sure = over | (inter <= p * down)
+        np.testing.assert_array_equal(np.where(sure, over, ref), ref)
+        assert (~sure[:m]).mean() > 0.5     # the division path is taken
+        assert sure[m:].mean() > 0.99
 
 
 def test_suppress_cpu_uses_reference_and_counts_no_launch():

@@ -197,29 +197,96 @@ def test_port_never_imports_jax_or_cv2():
 
 # ---------------------------------------------------------------- on the card
 
+def _suppress_inputs(arrays, dev):
+    """Numpy (boxes, scores, valid) on ``dev`` as ``_suppress_and_finalize``
+    hands them to the kernel: invalid rows zeroed, scores times valid."""
+    b, s, v = arrays
+    valid = torch.from_numpy(v).to(dev)
+    boxes = torch.where(valid[..., None], torch.from_numpy(b).to(dev), 0.0)
+    return boxes.contiguous(), (torch.from_numpy(s).to(dev) * valid), valid
+
+
+def _assert_suppress_matches(got, ref):
+    """keep bit-equal; merged within rtol 1e-5 / atol 1e-4 where kept (the
+    kernel sums the merge in another order)."""
+    assert torch.equal(got[0], ref[0])
+    m = got[0][..., None]
+    torch.testing.assert_close(torch.where(m, got[1], 0.0),
+                               torch.where(m, ref[1], 0.0),
+                               rtol=1e-5, atol=1e-4)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize('k', [512, 300, 256])
+@pytest.mark.parametrize('k', [1, 31, 32, 33, 65, 256, 300, 512, 1000, 1024])
 @pytest.mark.parametrize('merge', [True, False])
 def test_suppress_kernel_matches_reference(cuda, k, merge):
     from yolo_tpu_torch.ops.nms_suppress import suppress, suppress_reference
-    b, s, v = candidates(np.random.default_rng(k), 8, k)
-    boxes = torch.from_numpy(b).to(cuda)
-    valid = torch.from_numpy(v).to(cuda)
-    scores = torch.from_numpy(s).to(cuda) * valid
-    boxes = torch.where(valid[..., None], boxes, 0.0)
+    boxes, scores, valid = _suppress_inputs(
+        candidates(np.random.default_rng(k), 8, k), cuda)
     n0 = suppress.launches
-    keep, merged = suppress(boxes, boxes, scores, valid, iou_thres=0.6,
-                            merge=merge)
+    got = suppress(boxes, boxes, scores, valid, iou_thres=0.6, merge=merge)
     torch.cuda.synchronize()
     assert suppress.launches == n0 + 1
-    keep_r, merged_r = suppress_reference(boxes, boxes, scores, valid,
-                                          iou_thres=0.6, merge=merge)
-    assert torch.equal(keep, keep_r)
-    assert 0 < int(keep.sum()) < int(valid.sum())
-    m = keep[..., None]
-    torch.testing.assert_close(torch.where(m, merged, 0.0),
-                               torch.where(m, merged_r, 0.0),
-                               rtol=1e-5, atol=1e-4)
+    ref = suppress_reference(boxes, boxes, scores, valid, iou_thres=0.6,
+                             merge=merge)
+    _assert_suppress_matches(got, ref)
+    if k >= 64:
+        assert 0 < int(got[0].sum()) < int(valid.sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('bs', [1, 64])
+@pytest.mark.parametrize('k', [512, 1000])
+def test_suppress_kernel_batch_sizes(cuda, bs, k):
+    """One image, and more clusters than the card holds at once."""
+    from yolo_tpu_torch.ops.nms_suppress import suppress, suppress_reference
+    boxes, scores, valid = _suppress_inputs(
+        candidates(np.random.default_rng(bs * k), bs, k), cuda)
+    got = suppress(boxes, boxes, scores, valid, iou_thres=0.6)
+    torch.cuda.synchronize()
+    _assert_suppress_matches(got, suppress_reference(
+        boxes, boxes, scores, valid, iou_thres=0.6))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('max_sweeps', [0, 1, 3, 16])
+@pytest.mark.parametrize('bs,k,merge', [(8, 512, True), (64, 1024, False)])
+def test_suppress_kernel_capped_chains(cuda, max_sweeps, bs, k, merge):
+    """A chain of 40 boxes, each overlapping only the next, spread over the
+    cluster's CTAs: below the chain's length the sweeps stop unconverged,
+    and ``keep`` must still equal the plain version's exactly
+    ``max_sweeps`` sweeps."""
+    import chip_smoke
+    from yolo_tpu_torch.ops.nms_suppress import suppress, suppress_reference
+    boxes, scores, valid = _suppress_inputs(chip_smoke.candidate_arrays(
+        np.random.default_rng(max_sweeps), bs, k, chain=40), cuda)
+    kw = dict(iou_thres=0.6, max_sweeps=max_sweeps, merge=merge)
+    got = suppress(boxes, boxes, scores, valid, **kw)
+    torch.cuda.synchronize()
+    ref = suppress_reference(boxes, boxes, scores, valid, **kw)
+    _assert_suppress_matches(got, ref)
+    if max_sweeps in (1, 3):       # not yet the greedy result
+        assert not torch.equal(ref[0], suppress_reference(
+            boxes, boxes, scores, valid, iou_thres=0.6, max_sweeps=64,
+            merge=False)[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('cluster', [1, 2, 4, 8, 16])
+def test_suppress_kernel_every_cluster_size(cuda, cluster):
+    """The kernel at each cluster size it takes (k=512: 16 words over 1 to
+    16 CTAs), and the plan's choice at k=512, bs=8."""
+    import chip_smoke
+    from yolo_tpu_torch.ops import nms_suppress as K1
+    boxes, scores, valid = _suppress_inputs(chip_smoke.candidate_arrays(
+        np.random.default_rng(5), 8, 512, chain=40), cuda)
+    out = (torch.empty_like(valid), torch.empty_like(boxes))
+    K1._launch(boxes, boxes, scores, valid, *out, 0.6, 16, True, cluster)
+    torch.cuda.synchronize()
+    _assert_suppress_matches(out, K1.suppress_reference(
+        boxes, boxes, scores, valid, iou_thres=0.6))
+    plan = K1.device_plan(8, 512, torch.cuda.current_device())
+    assert plan.cluster >= 4 and plan.ctas >= 32
 
 
 @pytest.mark.gpu
@@ -242,19 +309,20 @@ def test_suppress_kernel_edge_cases(cuda):
     assert keep.tolist() == keep_r.tolist() == [[True, True, True, False]]
     with pytest.raises(ValueError):
         suppress(b, b, s.double(), v, iou_thres=0.5)
-    # one candidate, an odd width, the largest k, and one past it
-    for k in (1, 33, 1024):
-        bb, ss, vv = candidates(np.random.default_rng(k), 2, k)
-        valid = torch.from_numpy(vv).to(cuda)
-        boxes = torch.where(valid[..., None], torch.from_numpy(bb).to(cuda), 0.0)
-        scores = torch.from_numpy(ss).to(cuda) * valid
-        got = suppress(boxes, boxes, scores, valid, iou_thres=0.45)
-        ref = suppress_reference(boxes, boxes, scores, valid, iou_thres=0.45)
-        assert torch.equal(got[0], ref[0]), k
-        m = got[0][..., None]
-        torch.testing.assert_close(torch.where(m, got[1], 0.0),
-                                   torch.where(m, ref[1], 0.0),
-                                   rtol=1e-5, atol=1e-4)
+    # boxes that are not 16-byte aligned (a view one float in) are copied
+    flat = torch.zeros(1 + 2 * 33 * 4, device=cuda)
+    bb, ss, vv = _suppress_inputs(candidates(np.random.default_rng(3), 2, 33),
+                                  cuda)
+    odd = flat[1:].view(2, 33, 4)
+    odd.copy_(bb)
+    _assert_suppress_matches(
+        suppress(odd, odd, ss, vv, iou_thres=0.45),
+        suppress_reference(bb, bb, ss, vv, iou_thres=0.45))
+    # a cluster the kernel does not take is refused, not launched
+    from yolo_tpu_torch.ops.nms_suppress import _launch
+    out = (torch.empty_like(vv), torch.empty_like(bb))
+    with pytest.raises(RuntimeError, match='plan'):
+        _launch(bb, bb, ss, vv, *out, 0.5, 16, True, 4)   # 33 is two words
     z = torch.zeros((1, 1025, 4), device=cuda)
     with pytest.raises(ValueError, match='1025'):
         suppress(z, z, torch.zeros((1, 1025), device=cuda),

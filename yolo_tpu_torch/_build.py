@@ -103,8 +103,12 @@ def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernels; declares every C signature."""
     lib = ctypes.CDLL(str(build()))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.nms_suppress_launch.argtypes = [p, p, p, p, p, p, i, i, f, i, i, p]
+    lib.nms_suppress_launch.argtypes = [p, p, p, p, p, p, i, i, f, i, i, i,
+                                        i, p]
     lib.nms_suppress_launch.restype = i
+    lib.nms_suppress_max_clusters.argtypes = [i, i, i,
+                                              ctypes.POINTER(ctypes.c_int)]
+    lib.nms_suppress_max_clusters.restype = i
     lib.nms_suppress_error_string.argtypes = [i]
     lib.nms_suppress_error_string.restype = ctypes.c_char_p
     lib.conv_int8_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i,

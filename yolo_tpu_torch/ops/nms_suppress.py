@@ -1,20 +1,94 @@
-"""NMS suppression stage: a CUDA kernel and its plain PyTorch twin.
+"""K1, NMS suppression: a CUDA kernel and its plain PyTorch twin.
 
 ``suppress`` is the counterpart of ``yolo_tpu/ops/pallas_nms.py::suppress``.
-On a CUDA tensor it launches ``csrc/nms_suppress.cu`` (one thread block per
-image, the suppression graph as a bitmask in shared memory); on a CPU tensor
-it runs ``suppress_reference``, the batched form of
+On a CUDA tensor it launches ``csrc/nms_suppress.cu`` (one thread-block
+cluster per image, the suppression graph split by columns across the
+cluster's shared memories, ``suppress_plan`` sizing the cluster); on a CPU
+tensor it runs ``suppress_reference``, the batched form of
 ``yolo_tpu/ops/nms.py::_suppress_xla``. A CUDA tensor never falls back to
 the plain version: the kernel launches or the call raises.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+from typing import NamedTuple
+
 import torch
 
+from .._build import load_library
 from .boxes import box_iou_matrix
 
-MAX_K = 1024   # one thread per candidate, one block per image
+MAX_K = 1024          # candidates per image the kernel takes
+WORD = 32             # candidates per bit word of the graph and of keep
+THREADS = 512         # threads of a CTA (kThreads in the kernel)
+CLUSTER_PORTABLE = 8  # the largest cluster every Hopper launch can take
+CLUSTER_MAX = 16      # the largest, where the card holds enough of them
+SMEM_LIMIT = 232448   # bytes of shared memory a CTA may take on an H100
+
+
+class SuppressPlan(NamedTuple):
+    cluster: int          # CTAs per image: one thread-block cluster
+    ctas: int             # CTAs of the launch, bs * cluster
+    runs: tuple           # (first, end) column of each CTA of an image
+    smem: int             # bytes of dynamic shared memory per CTA
+
+
+def words(k: int) -> int:
+    """Bit words of a keep vector or of a graph column of k candidates."""
+    return -(-k // WORD)
+
+
+def smem_bytes(k: int, cluster: int) -> int:
+    """Shared memory of a CTA, as ``smem_bytes`` in the kernel source
+    counts it (a CPU test holds the two to each other): the class-offset
+    boxes and their areas (padded to whole words), the raw boxes, score *
+    valid, the graph of the CTA's longest run of columns, and the two keep
+    buffers."""
+    nw = words(k)
+    return (20 * WORD * nw + 20 * k + 4 * WORD * nw * -(-nw // cluster)
+            + 8 * nw)
+
+
+@functools.lru_cache(maxsize=4096)
+def suppress_plan(bs: int, k: int, wide: int = 0) -> SuppressPlan:
+    """The cluster for ``bs`` images of ``k`` candidates.
+
+    C = min(C_max, nw) CTAs per image, nw = ceil(k / 32): CTA r owns column
+    words r * nw / C .. (r + 1) * nw / C - 1, runs of whole words that
+    differ by at most one word. C_max is 16 where ``wide``, the clusters of
+    min(16, nw) CTAs that the card holds at once at this k
+    (``max_clusters``), is at least ``bs``; else 8, the portable size.
+    Cached: the wrapper asks it on every call."""
+    nw = words(k)
+    c = min(CLUSTER_MAX if wide >= bs else CLUSTER_PORTABLE, nw)
+    runs = tuple((WORD * (r * nw // c), WORD * ((r + 1) * nw // c))
+                 for r in range(c))
+    return SuppressPlan(c, bs * c, runs, smem_bytes(k, c))
+
+
+def device_plan(bs: int, k: int, device: int) -> SuppressPlan:
+    """The plan the wrapper launches on CUDA device ``device``:
+    ``suppress_plan`` with the card's count of wide clusters, asked only
+    where the plan could take more than the portable size."""
+    nw = words(k)
+    wide = (max_clusters(device, k, min(CLUSTER_MAX, nw))
+            if nw > CLUSTER_PORTABLE else 0)
+    return suppress_plan(bs, k, wide)
+
+
+@functools.lru_cache(maxsize=None)
+def max_clusters(device: int, k: int, cluster: int = CLUSTER_MAX) -> int:
+    """How many clusters of ``cluster`` CTAs at this k the card ``device``
+    holds at once (``cudaOccupancyMaxActiveClusters``); asked once."""
+    lib = load_library()
+    n = ctypes.c_int(0)
+    err = lib.nms_suppress_max_clusters(k, cluster, device, ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError('nms_suppress occupancy query failed: '
+                           + lib.nms_suppress_error_string(err).decode())
+    return n.value
 
 
 def suppress_reference(oboxes, boxes, scores, valid, *, iou_thres: float,
@@ -79,19 +153,32 @@ def suppress(oboxes, boxes, scores, valid, *, iou_thres: float,
     merged = torch.empty((bs, k, 4), dtype=torch.float32, device=valid.device)
     if bs == 0 or k == 0:
         return keep, merged
-    from .._build import load_library
+    plan = device_plan(bs, k, valid.device.index)
+    _launch(oboxes, boxes, scores, valid, keep, merged, iou_thres, max_sweeps,
+            merge, plan.cluster)
+    return keep, merged
+
+
+def _launch(oboxes, boxes, scores, valid, keep, merged, iou_thres, max_sweeps,
+            merge, cluster):
+    """One launch of the kernel with ``cluster`` CTAs per image on checked
+    CUDA tensors, into ``keep`` and ``merged``; adds one to
+    ``suppress.launches``, or raises if the launch is refused."""
     lib = load_library()
-    with torch.cuda.device(valid.device):
-        stream = torch.cuda.current_stream(valid.device).cuda_stream
-        err = lib.nms_suppress_launch(
-            oboxes.data_ptr(), boxes.data_ptr(), scores.data_ptr(),
-            valid.data_ptr(), keep.data_ptr(), merged.data_ptr(), bs, k,
-            float(iou_thres), int(max_sweeps), int(bool(merge)), stream)
+    # the kernel reads the boxes in 16-byte pieces
+    oboxes, boxes = (t if t.data_ptr() % 16 == 0 else t.clone()
+                     for t in (oboxes, boxes))
+    bs, k = valid.shape
+    dev = valid.device.index
+    err = lib.nms_suppress_launch(
+        oboxes.data_ptr(), boxes.data_ptr(), scores.data_ptr(),
+        valid.data_ptr(), keep.data_ptr(), merged.data_ptr(), bs, k,
+        float(iou_thres), int(max_sweeps), int(bool(merge)), cluster, dev,
+        torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         raise RuntimeError('nms_suppress kernel launch failed: '
                            + lib.nms_suppress_error_string(err).decode())
     suppress.launches += 1
-    return keep, merged
 
 
 suppress.launches = 0
