@@ -67,6 +67,23 @@ Phases; any failure exits non-zero, and nothing runs on the CPU instead
    float pipeline on the same weights, and profiled (device time by kernel
    group). Prints the peak device memory.
 
+7. mAP evaluation: ``eval.evaluator.evaluate`` through its ``loader=``
+   argument (``MemoryLoader``: the ``BatchLoader`` tuple over 8 seeded
+   batches of bs=8 in memory, no OpenCV), yolov3 @608, conf 0.001. Float
+   (phase 4's model, bf16, fused, dense), then the f32 QAT sim and the
+   int8 engine of phase 6's calibrated bundle, each against pseudo-labels
+   made by the model itself (``pseudo_labels``: its detections above one
+   confidence, at least 20 per image): the float model and the sim must
+   score mAP@0.5 >= 0.99; the engine's mAP against the sim's labels is
+   printed. Device and host matching must give equal results; the val
+   losses (``LossHyp()``) must be finite; launch counts, zeroed before each
+   evaluate, must read K1 once per batch and K2 74 times per engine batch.
+   Prints the setup time of a first and a second call on one model (the
+   cached Darknet; the cached int8 plan), evaluate's images/s against
+   make_infer alone on the same batches (in turns), the host's queue-and-
+   wait time and statistics pass, and a profile of each (the device's busy
+   share shows whether the one-batch lookahead overlaps host and device).
+
 A kernel's time is taken twice, on the same inputs: ``cuda_ms``, what its
 caller waits for (median CUDA-event time, the host's work to queue the
 call included), and ``device_ms``, the device alone (a sleep kernel keeps
@@ -74,7 +91,7 @@ the card busy while the host queues the call). A pipeline's time is
 ``cuda_ms``.
 
 The line before the last is a JSON object with each kernel's launches on
-the main paths, error, times and bound (``ms``, ``plain_ms`` and
+the main paths (phases 4, 6 and 7), error, times and bound (``ms``, ``plain_ms`` and
 ``library_ms`` by ``cuda_ms``, ``device_ms`` beside them; for nms_suppress
 also its cluster and CTAs at k=512, bs=8, the wrapper's host time per call,
 the device time by cluster size and both times on the dense path's own
@@ -225,7 +242,7 @@ def images(seed, bs, size):
 
 
 def phase_device():
-    print('[1/6] device')
+    print('[1/7] device')
     if not torch.cuda.is_available():
         raise SmokeFailure('no CUDA device: this smoke run needs the card')
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
@@ -263,7 +280,7 @@ def conv_sass(lib_path):
 
 
 def phase_build():
-    print('[2/6] build')
+    print('[2/7] build')
     import re
     from yolo_tpu_torch import _build
     lib = _build.library_path()
@@ -354,7 +371,7 @@ def k1_compare(got, ref, what):
 
 
 def phase_kernel(dev):
-    print('[3/6] K1 nms_suppress vs plain version')
+    print('[3/7] K1 nms_suppress vs plain version')
     from yolo_tpu_torch.ops import nms_suppress as K1
     suppress, suppress_reference = K1.suppress, K1.suppress_reference
     rng = np.random.default_rng(0)
@@ -433,7 +450,7 @@ def phase_kernel(dev):
 
 
 def phase_pipeline(dev, card):
-    print('[4/6] yolov3 @608 float pipeline')
+    print('[4/7] yolov3 @608 float pipeline')
     from yolo_tpu_torch import runtime
     from yolo_tpu_torch.ops import nms
     from yolo_tpu_torch.ops.nms_suppress import suppress
@@ -646,7 +663,7 @@ def int_mm_ms(x8, w8, **timing):
 
 
 def phase_conv_kernel(dev):
-    print('[5/6] K2 conv_int8 vs plain version')
+    print('[5/7] K2 conv_int8 vs plain version')
     from yolo_tpu_torch.ops.conv_int8 import (fused_conv_int8,
                                               fused_conv_int8_reference)
     max_err = 0.0
@@ -911,7 +928,7 @@ def profile_device(fn, n=3):
 
 
 def phase_int8(dev, card):
-    print('[6/6] yolov3 @608 int8 serving')
+    print('[6/7] yolov3 @608 int8 serving')
     from yolo_tpu_torch import runtime
     b, x = int8_bundle(dev, BS, SIZE)
     launches, plan, infer = int8_checks(b, x)
@@ -943,7 +960,296 @@ def phase_int8(dev, card):
     torch.cuda.synchronize()
     print(f'  int8 pipeline peak device memory: '
           f'{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB')
-    return launches, totals
+    return launches, totals, b
+
+
+# ------------------------------------------------------------ mAP evaluation
+
+DATA = os.path.join(ROOT, 'data_cfg', 'coco2014.data')   # 80 classes, names
+EVAL_IMAGES = 64          # 8 batches of BS
+EVAL_LABELS = 20          # pseudo-labels per image: its top detections
+# the pseudo-labels are the model's own top predictions (pseudo_labels), so
+# the same model scores mAP@0.5 = 1 up to the AP interpolation's rounding;
+# less means a fault in the loader, the matcher, the metrics or the NMS
+EVAL_MAP_MIN = 0.99
+
+
+class MemoryLoader:
+    """The ``BatchLoader`` tuple (uint8 NHWC images, padded targets, valid,
+    paths, shapes) over in-memory batches: no image files, no OpenCV."""
+
+    def __init__(self, batches, labels, max_t):
+        from yolo_tpu_torch.train.loss import pad_targets
+        self.items = [(imgs, *pad_targets(lab, max_t),
+                       [f'mem/{i}_{j}' for j in range(len(imgs))],
+                       [None] * len(imgs))
+                      for i, (imgs, lab) in enumerate(zip(batches, labels))]
+
+    def __iter__(self):
+        return iter(self.items)
+
+
+def pseudo_labels(infer, batches, dev, n=EVAL_LABELS):
+    """Per batch, per image: the model's own detections as [cls, x, y, w, h]
+    labels normalised by the (square) image size, clipped to the image.
+
+    Each image keeps every detection at or above one confidence for the
+    whole set: the lowest of the images' ``n``-th highest confidences (so
+    at least ``n`` per image). AP ranks predictions across images, so with
+    a count per image instead, one image's unlabelled detection could
+    outrank another's labelled one and count as a false positive before
+    it; with one threshold every labelled prediction ranks above every
+    other, and the model scores mAP@0.5 = 1 up to rounding. Two detections
+    of one class that clip to the same box (boxes far larger than the
+    image) give one label: only one prediction can claim it, the other is
+    a false positive either way. Returns (labels, the threshold, the
+    duplicates dropped)."""
+    from yolo_tpu_torch.runtime import preprocess
+    dets = [infer(preprocess(imgs, device=dev)).cpu().numpy()
+            for imgs in batches]
+    thres = min(d[d[:, 4] > 0][:n, 4].min() for db in dets for d in db)
+    out, n_dup = [], 0
+    for imgs, db in zip(batches, dets):
+        size = imgs.shape[1]
+        per = []
+        for d in db:
+            d = d[d[:, 4] >= thres]
+            b = d[:, :4].clip(0, size)
+            lab = np.column_stack([
+                d[:, 5], (b[:, 0] + b[:, 2]) / 2 / size,
+                (b[:, 1] + b[:, 3]) / 2 / size, (b[:, 2] - b[:, 0]) / size,
+                (b[:, 3] - b[:, 1]) / size]).astype(np.float32)
+            first = np.sort(np.unique(lab, axis=0, return_index=True)[1])
+            n_dup += len(lab) - len(first)
+            per.append(lab[first])
+        out.append(per)
+    return out, thres, n_dup
+
+
+def memory_loader(batches, labels):
+    """``MemoryLoader`` with a target capacity that holds every label."""
+    return MemoryLoader(batches, labels,
+                        max(sum(len(l) for l in per) for per in labels))
+
+
+def timed_eval(net, params, state, loader, dev, **kw):
+    """``evaluate`` on ``loader`` with every launch count zeroed just
+    before it; returns (its result, the launches of the run, wall s)."""
+    from yolo_tpu_torch.eval.evaluator import evaluate
+    from yolo_tpu_torch.ops.conv_int8 import fused_conv_int8
+    from yolo_tpu_torch.ops.nms_suppress import suppress
+    sync = torch.cuda.synchronize if dev.type == 'cuda' else (lambda: None)
+    sync()
+    suppress.launches = fused_conv_int8.launches = 0
+    t0 = time.perf_counter()
+    out = evaluate(net, params, state, DATA, batch_size=BS, img_size=SIZE,
+                   loader=loader, device=dev, **kw)
+    sync()
+    wall = time.perf_counter() - t0
+    return out, {'nms_suppress': suppress.launches,
+                 'conv_int8': fused_conv_int8.launches}, wall
+
+
+class EventWaits:
+    """Times the host's waits on CUDA events inside the block (the
+    evaluator waits on one event per batch). ``serial=True`` also makes
+    the host wait on each event as soon as it is recorded, right after its
+    batch is queued: the evaluator then queues no batch ahead, which is
+    the run without the one-batch lookahead."""
+
+    def __init__(self, serial=False):
+        self.serial, self.secs = serial, 0.0
+
+    def __enter__(self):
+        ev = torch.cuda.Event
+        self._orig = sync, record = ev.synchronize, ev.record
+
+        def timed_sync(e):
+            t0 = time.perf_counter()
+            sync(e)
+            self.secs += time.perf_counter() - t0
+
+        def record_then_wait(e, stream=None):
+            record(e, stream)
+            if self.serial:
+                timed_sync(e)
+        ev.synchronize, ev.record = timed_sync, record_then_wait
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.Event.synchronize, torch.cuda.Event.record = self._orig
+
+
+def lookahead_turns(run, n_images, card, what):
+    """``run()`` (one evaluate) with the lookahead and serial, in turns:
+    wall seconds and the host's seconds blocked on the batches' events."""
+    out = {False: [], True: []}
+    for serial in (False, True, True, False):
+        with EventWaits(serial) as w:
+            t0 = time.perf_counter()
+            run()
+            out[serial].append((time.perf_counter() - t0, w.secs))
+    for serial, rs in out.items():
+        name = 'serial (no lookahead)' if serial else 'lookahead'
+        walls = [r[0] for r in rs]
+        print(f'  {what} {name}: {n_images / statistics.median(walls):.1f} '
+              f'images/s (runs {", ".join(f"{w:.4f}" for w in walls)} s; '
+              f'host blocked on batch events '
+              f'{", ".join(f"{r[1]:.4f}" for r in rs)} s; {card})')
+    return out
+
+
+def check_eval(res, launches, n_batches, what, k2_per_batch=0):
+    """mAP@0.5 against the model's own pseudo-labels, finite val losses,
+    K1 once per batch, K2 ``k2_per_batch`` times per batch."""
+    (r, maps, _t) = res
+    check(r[2] >= EVAL_MAP_MIN,
+          f'{what}: mAP@0.5 {r[2]:.6f} >= {EVAL_MAP_MIN} against its own '
+          f'pseudo-labels (P {r[0]:.4f}, R {r[1]:.4f}, F1 {r[3]:.4f})')
+    check(all(np.isfinite(r[4:7])),
+          f'{what}: val losses finite (box {r[4]:.4f}, obj {r[5]:.4f}, '
+          f'cls {r[6]:.4f})')
+    check(launches['nms_suppress'] == n_batches and
+          launches['conv_int8'] == k2_per_batch * n_batches,
+          f'{what}: K1 launched {launches["nms_suppress"]} times, K2 '
+          f'{launches["conv_int8"]} times for {n_batches} batches')
+
+
+def phase_eval(dev, card, qb, cfg=CFG, n_images=EVAL_IMAGES):
+    """The evaluation path: ``evaluate`` on float yolov3 (device and host
+    matching), the f32 QAT sim and the int8 engine of phase 6's calibrated
+    bundle ``qb``, each against pseudo-labels made by the model itself."""
+    print(f'[7/7] mAP evaluation: yolov3 @{SIZE}, {n_images} images, bs={BS}')
+    from yolo_tpu_torch import runtime
+    from yolo_tpu_torch.compress.quant import make_quant_apply
+    from yolo_tpu_torch.eval.evaluator import evaluate, int8_engine_apply
+    from yolo_tpu_torch.train.loss import LossHyp
+    sync = torch.cuda.synchronize if dev.type == 'cuda' else (lambda: None)
+    n_batches = n_images // BS
+    batches = [images(10 + i, BS, SIZE) for i in range(n_batches)]
+    b16 = runtime.load_model(cfg, device=dev, conv_scale=CONV_SCALE,
+                             generator=torch.Generator().manual_seed(0)).fuse()
+    avecs = [np.asarray(l.anchors, np.float32) / l.yolo_stride
+             for l in b16.net.layers if l.kind == 'yolo']
+    kw = dict(conf_thres=CONF_THRES, iou_thres=0.6, top_k=512, max_det=300)
+    fkw = dict(fused=True, loss_hyp=LossHyp(), anchor_vecs=avecs, **kw)
+
+    # setup of a first and a second call on the same model (no batch): the
+    # second finds the eval-mode Darknet in the evaluator's cache
+    setup = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        evaluate(b16.net, b16.params, b16.state, DATA, loader=[], device=dev,
+                 **fkw)
+        sync()
+        setup.append(time.perf_counter() - t0)
+    print(f'  setup (no batch): first call {setup[0]:.4f} s, second '
+          f'{setup[1]:.4f} s')
+
+    infer = b16.make_infer(**kw)
+    labels, thres, n_dup = pseudo_labels(infer, batches, dev)
+    counts = [len(l) for per in labels for l in per]
+    check(min(counts) >= EVAL_LABELS - n_dup,
+          f'float: {sum(counts)} pseudo-labels, {min(counts)}-{max(counts)} '
+          f'per image (confidence >= {thres:.6f}; {n_dup} duplicates '
+          'dropped)')
+    loader = memory_loader(batches, labels)
+    res, launches, wall = timed_eval(b16.net, b16.params, b16.state, loader,
+                                     dev, **fkw)
+    check_eval(res, launches, n_batches, 'float bf16, device matching')
+    res_h, _, wall_h = timed_eval(b16.net, b16.params, b16.state, loader, dev,
+                                  device_match=False, **fkw)
+    check(res_h[0] == res[0] and np.array_equal(res_h[1], res[1]),
+          'device and host matching: the results tuple and maps equal')
+    total = dict(launches)
+
+    # evaluate against make_infer alone on the same batches (pre-uploaded),
+    # in turns; the statistics pass is what evaluate's host spends outside
+    # queueing and waiting (t_inf), less the cached setup
+    xs = [runtime.preprocess(bt, device=dev) for bt in batches]
+
+    def infer_all():
+        for x in xs:
+            infer(x)
+        sync()
+    runs = {'evaluate': [], 'make_infer': [], 'stats': [], 't_inf': []}
+    for name in ('evaluate', 'make_infer', 'make_infer', 'evaluate'):
+        if name == 'evaluate':
+            (_, _, t), _, w = timed_eval(b16.net, b16.params, b16.state,
+                                         loader, dev, **fkw)
+            runs['stats'].append(w - t[0] - setup[1])
+            runs['t_inf'].append(t[0])
+        else:
+            t0 = time.perf_counter()
+            infer_all()
+            w = time.perf_counter() - t0
+        runs[name].append(w)
+    for name in ('evaluate', 'make_infer'):
+        print(f'  {name}: {n_images / statistics.median(runs[name]):.1f} '
+              f'images/s (runs {", ".join(f"{w:.4f}" for w in runs[name])} '
+              f's for {n_images} images; {card})')
+    print(f'  evaluate: host wait and queue (t_inf) '
+          f'{", ".join(f"{t:.4f}" for t in runs["t_inf"])} s; statistics '
+          f'pass and printing {", ".join(f"{t:.4f}" for t in runs["stats"])}'
+          f' s; host matching run {wall_h:.4f} s (device matching '
+          f'{wall:.4f} s)')
+    if dev.type == 'cuda':
+        lookahead_turns(lambda: timed_eval(b16.net, b16.params, b16.state,
+                                           loader, dev, **fkw),
+                        n_images, card, 'float evaluate')
+        print('  evaluate, profiled (overlap: device busy share of the wall):')
+        profile_device(lambda: timed_eval(b16.net, b16.params, b16.state,
+                                           loader, dev, **fkw), n=2)
+        print('  make_infer alone on the same batches, profiled:')
+        profile_device(infer_all, n=2)
+
+    # the quantized bundle: pseudo-labels from its f32 sim; the sim and the
+    # int8 engine evaluated against them
+    qkw = dict(loss_hyp=LossHyp(), anchor_vecs=avecs, **kw)
+    qlabels, qthres, n_dup = pseudo_labels(
+        qb.make_infer(engine=False, **kw), batches, dev)
+    counts = [len(l) for per in qlabels for l in per]
+    check(min(counts) >= EVAL_LABELS - n_dup,
+          f'sim: {sum(counts)} pseudo-labels, {min(counts)}-{max(counts)} '
+          f'per image (confidence >= {qthres:.6f}; {n_dup} duplicates '
+          'dropped)')
+    qloader = memory_loader(batches, qlabels)
+    sim = make_quant_apply(qb.net, qb.qcfg)
+    res_s, ls, wall_s = timed_eval(qb.net, qb.params, qb.state, qloader, dev,
+                                   quant_apply=sim, qstate=qb.qstate, **qkw)
+    check_eval(res_s, ls, n_batches, 'f32 QAT sim')
+    t_plan = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        arrays, eng = int8_engine_apply(qb.net, qb.params, qb.state,
+                                        qb.qstate, qb.qcfg, dev)
+        sync()
+        t_plan.append(time.perf_counter() - t0)
+    print(f'  int8 engine setup (prepare_int8 plan): first call '
+          f'{t_plan[0]:.4f} s, second {t_plan[1]:.4f} s')
+    res_e, le, wall_e = timed_eval(qb.net, arrays, {}, qloader, dev,
+                                   quant_apply=eng, **qkw)
+    n_k2 = sum(l.kind == 'conv' for l in qb.net.layers) - 1
+    r = res_e[0]
+    check(le['nms_suppress'] == n_batches and
+          le['conv_int8'] == n_k2 * n_batches and all(np.isfinite(r[4:7])),
+          f'int8 engine: K1 launched {le["nms_suppress"]} times, K2 '
+          f'{le["conv_int8"]} times ({n_k2} a batch) for {n_batches} '
+          'batches; val losses finite')
+    print(f'  int8 engine against the sim\'s pseudo-labels: mAP@0.5 '
+          f'{r[2]:.6f} (P {r[0]:.4f}, R {r[1]:.4f}, F1 {r[3]:.4f}; losses '
+          f'{r[4]:.4f} {r[5]:.4f} {r[6]:.4f}); sim {res_s[0][2]:.6f}')
+    print(f'  sim {n_images / wall_s:.1f} images/s, int8 engine '
+          f'{n_images / wall_e:.1f} images/s (one evaluate each; {card})')
+    if dev.type == 'cuda':
+        run_e = lambda: timed_eval(qb.net, arrays, {}, qloader, dev,
+                                   quant_apply=eng, **qkw)
+        lookahead_turns(run_e, n_images, card, 'int8 engine evaluate')
+        print('  int8 engine evaluate, profiled:')
+        profile_device(run_e, n=2)
+    for k in total:
+        total[k] += ls[k] + le[k]
+    return total
 
 
 def check_imports():
@@ -964,7 +1270,8 @@ def main():
     k1 = phase_kernel(dev)
     k1_float, k1_main = phase_pipeline(dev, card)
     k2_err = phase_conv_kernel(dev)
-    launches, k2_tot = phase_int8(dev, card)
+    launches, k2_tot, qb = phase_int8(dev, card)
+    eval_launches = phase_eval(dev, card, qb)
     check_imports()
     print(f'build {build_s:.2f} s; whole run {time.perf_counter() - t0:.1f} s')
     print(card)
@@ -972,13 +1279,15 @@ def main():
         {'name': 'nms_suppress', 'route': 'cuda',
          'source': 'yolo_tpu_torch/csrc/nms_suppress.cu',
          'replaces': 'yolo_tpu/ops/pallas_nms.py:33',
-         'launches': k1_float + launches['nms_suppress'], **k1,
+         'launches': (k1_float + launches['nms_suppress']
+                      + eval_launches['nms_suppress']), **k1,
          'main_path_ms': k1_main['ms'],
          'main_path_device_ms': k1_main['device_ms']},
         {'name': 'conv_int8', 'route': 'cuda',
          'source': 'yolo_tpu_torch/csrc/conv_int8.cu',
          'replaces': 'yolo_tpu/ops/pallas_conv.py:132',
-         'launches': launches['conv_int8'], 'max_abs_err': k2_err,
+         'launches': launches['conv_int8'] + eval_launches['conv_int8'],
+         'max_abs_err': k2_err,
          'ms': k2_tot['ms'], 'device_ms': k2_tot['dev'],
          'plain_ms': k2_tot['plain'], 'bound_ms': k2_tot['bound'],
          'bound_by': k2_tot['by'], 'library_ms': None,

@@ -180,13 +180,19 @@ def test_unported_paths_raise(toy_cfg, tmp_path):
 
 
 def test_port_never_imports_jax_or_cv2():
-    """Importing every module of the port loads neither jax, nor OpenCV
-    (imported inside functions only), nor any module of the JAX package."""
+    """Importing every module of the port (the evaluation path's included)
+    loads neither jax, nor OpenCV or PIL (imported inside functions only),
+    nor any module of the JAX package."""
     code = ('import pkgutil, importlib, sys, yolo_tpu_torch; '
             'mods = [m.name for m in pkgutil.walk_packages('
             "yolo_tpu_torch.__path__, 'yolo_tpu_torch.')]; "
             '[importlib.import_module(m) for m in mods]; '
-            "assert len(mods) > 20, mods; "
+            "assert len(mods) > 25, mods; "
+            "need = {'yolo_tpu_torch.' + m for m in ('eval.evaluator', "
+            "'eval.matching', 'eval.metrics', 'train.loss', "
+            "'data.datasets', 'data.transforms', 'utils.plots', 'test')}; "
+            "assert need <= set(mods), need - set(mods); "
+            "assert 'PIL' not in sys.modules; "
             "bad = [m for m in sys.modules if m in ('jax', 'cv2') "
             "or m == 'yolo_tpu' or m.startswith(('jax.', 'yolo_tpu.'))]; "
             'assert not bad, bad')

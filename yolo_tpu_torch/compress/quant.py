@@ -25,7 +25,7 @@ from typing import Any, NamedTuple
 import torch
 
 from ..ir import NetworkIR
-from ..models.yolo_head import decode_yolo_nhwc, reshape_pred
+from ..models.yolo_head import anchors_on, decode_yolo_nhwc, reshape_pred
 from ..ops import activations as act_mod
 from ..ops import conv as conv_ops
 from ..ops.conv_int8 import round_half_away
@@ -373,6 +373,9 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig,
         parts = [fq(t, qs['scale'], 0.0, bits) for t in parts]
         return torch.cat(parts, -1), qs
 
+    yolos = [l for l in layers if l.kind == 'yolo']
+    anchor_cache: dict = {}
+
     def apply(params, state, qstate, x, train: bool = False):
         outs: dict[int, Any] = {}
         yolo_p, head_out, feats = [], [], []
@@ -417,9 +420,9 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig,
             return (yolo_p, feats), new_state, new_q
         if heads_only:
             return head_out, [None] * len(head_out)
-        yolos = [l for l in layers if l.kind == 'yolo']
-        io = torch.cat([decode_yolo_nhwc(h, l.anchors, l.yolo_stride, l.no)
-                        for h, l in zip(head_out, yolos)], 1)
+        anchors = anchors_on(yolos, anchor_cache, head_out[0].device)
+        io = torch.cat([decode_yolo_nhwc(h, a, l.yolo_stride, l.no)
+                        for h, a, l in zip(head_out, anchors, yolos)], 1)
         return io, yolo_p, feats
 
     apply.qcfg = cfg

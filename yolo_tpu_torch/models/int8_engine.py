@@ -41,7 +41,7 @@ from ..ir import NetworkIR
 from ..ops import activations as act_mod
 from ..ops import conv as conv_ops
 from ..ops.conv_int8 import fused_conv_int8, supported
-from .yolo_head import decode_yolo_nhwc, reshape_pred
+from .yolo_head import anchors_on, decode_yolo_nhwc, reshape_pred
 
 BN_EPS = 1e-5
 
@@ -231,6 +231,9 @@ def make_int8_apply(net: NetworkIR, plan: Int8Plan, heads_only: bool = False,
                                'follow its head conv, in the int8 engine')
             head_scales.append(meta[str(hc.index)]['sa'])
 
+    yolos = [l for l in layers if l.kind == 'yolo']
+    anchor_cache: dict = {}
+
     def apply(arrays, x):
         outs: dict[int, Any] = {}
         yolo_p, head_out, obj_out = [], [], []
@@ -279,9 +282,9 @@ def make_int8_apply(net: NetworkIR, plan: Int8Plan, heads_only: bool = False,
 
         if heads_only:
             return head_out, obj_out
-        yolos = [l for l in layers if l.kind == 'yolo']
-        io = torch.cat([decode_yolo_nhwc(h, l.anchors, l.yolo_stride, l.no)
-                        for h, l in zip(head_out, yolos)], 1)
+        anchors = anchors_on(yolos, anchor_cache, head_out[0].device)
+        io = torch.cat([decode_yolo_nhwc(h, a, l.yolo_stride, l.no)
+                        for h, a, l in zip(head_out, anchors, yolos)], 1)
         return io, yolo_p
 
     apply.head_scales = tuple(head_scales)

@@ -148,11 +148,11 @@ class Darknet(nn.Module):
 
     ``forward(x)`` takes an NHWC batch (bs, H, W, C) and returns the decoded
     io (bs, N, 5+nc) in the row-major (y, x, a) order of
-    ``decode_yolo_nhwc``. ``forward_heads(x)`` returns the raw NHWC head
-    maps (bs, ny, nx, na*no) and per-scale objectness-logit maps
-    (bs, ny, nx, na) from a slim conv over the head conv's ``a*no + 4``
-    channels (None where the head conv is not a plain linear conv with a
-    bias). ``fused`` says that conv BN has been folded by ``fuse_params``.
+    ``decode_yolo_nhwc``: ``decode(heads(x))``. ``forward_heads(x)``
+    returns the raw NHWC head maps (bs, ny, nx, na*no) and per-scale
+    objectness-logit maps (bs, ny, nx, na) from a slim conv over the head
+    conv's ``a*no + 4`` channels (None where the head conv is not a plain
+    linear conv with a bias). ``fused`` says that conv BN has been folded by ``fuse_params``.
 
     The weights are held in ``dtype`` (the compute dtype; the input is cast
     to it), BN statistics and anchors in f32, as in the JAX package. Move
@@ -272,11 +272,18 @@ class Darknet(nn.Module):
                 x = x + a[:, :nx]
         return x
 
-    def forward(self, x):
-        heads, _ = self._run(x, want_obj=False)
+    def heads(self, x):
+        """The raw NHWC head maps (bs, ny, nx, na*no) alone."""
+        return self._run(x, want_obj=False)[0]
+
+    def decode(self, heads):
+        """Head maps -> decoded io (bs, N, 5+nc), f32."""
         return torch.cat([decode_yolo_nhwc(h, a, l.yolo_stride, l.no)
                           for h, a, l in zip(heads, self.anchors(), self._yolos)],
                          1)
+
+    def forward(self, x):
+        return self.decode(self.heads(x))
 
     def forward_heads(self, x):
         return self._run(x, want_obj=True)

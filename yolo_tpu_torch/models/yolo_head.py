@@ -34,6 +34,17 @@ def decode_yolo(p, anchors, stride: int):
     return io.reshape(bs, -1, no)
 
 
+def anchors_on(yolos, cache: dict, device) -> list[torch.Tensor]:
+    """Per-scale (na, 2) f32 pixel anchors of the ``yolos`` layers on
+    ``device``, copied there once and kept in ``cache``: a host-to-device
+    copy on every call would synchronise the stream."""
+    anc = cache.get(device)
+    if anc is None:
+        anc = cache[device] = [torch.as_tensor(l.anchors, dtype=torch.float32,
+                                               device=device) for l in yolos]
+    return anc
+
+
 def decode_yolo_nhwc(x, anchors, stride: int, no: int):
     """Decode straight from the NHWC head map (bs, ny, nx, na*no) in f32.
     Returns io (bs, ny*nx*na, no) in row-major (y, x, a) order."""
