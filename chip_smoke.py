@@ -84,6 +84,28 @@ Phases; any failure exits non-zero, and nothing runs on the CPU instead
    wait time and statistics pass, and a profile of each (the device's busy
    share shows whether the one-batch lookahead overlaps host and device).
 
+8. more cfgs and paths (the phase's own seconds are printed):
+   (a) ``cfg/yolov3-mobilenet/yolov3-mobilenet-visdrone.cfg`` (depthwise
+   convs, SE blocks) at its 416 px and (b) ``cfg/yolov3/yolov3-asff.cfg``
+   (ASFF heads) at 608 px, each at full width, random weights from a seed,
+   bf16, fused, dense ``make_infer``, bs=8, conf 0.001: K1 launched once
+   for the batch, detections, the card's f32 heads against the CPU's at
+   bs=1 (rtol/atol 1e-3), images/s, the forward alone, a profile; (c)
+   test-time augmentation of phase 4's yolov3 @608 (``make_infer(augment=
+   True)``): K1 once per batch on the merged io of 22743 + 16128 + 12348
+   rows per image, timed in turns against the single pass; (d) the int8
+   engine of yolov3-mobilenet @416, bs=8, calibrated as in phase 6: K2 on
+   every ungrouped conv on an int8 edge, the exact grouped int32 conv on
+   the depthwise convs and the float-edge conv on the stem and after each
+   SE block, each count checked after one batch; the heads through K2
+   bit-equal to those through its plain version, the sim's survivors as
+   in phase 6, every call of each route and every SE block timed alone,
+   images/s against the bf16 float pipeline on the same weights, a
+   profile; (e) (a)'s weights written by ``save_torch_checkpoint`` and
+   served from the .pt give (a)'s detections bit for bit. Then one line
+   says which image decoders (``cv2``, ``PIL``, ``torchvision.io``) import
+   on the machine, each tried in a process of its own.
+
 A kernel's time is taken twice, on the same inputs: ``cuda_ms``, what its
 caller waits for (median CUDA-event time, the host's work to queue the
 call included), and ``device_ms``, the device alone (a sleep kernel keeps
@@ -91,12 +113,12 @@ the card busy while the host queues the call). A pipeline's time is
 ``cuda_ms``.
 
 The line before the last is a JSON object with each kernel's launches on
-the main paths (phases 4, 6 and 7), error, times and bound (``ms``, ``plain_ms`` and
+the main paths (phases 4, 6, 7 and 8), error, times and bound (``ms``, ``plain_ms`` and
 ``library_ms`` by ``cuda_ms``, ``device_ms`` beside them; for nms_suppress
 also its cluster and CTAs at k=512, bs=8, the wrapper's host time per call,
 the device time by cluster size and both times on the dense path's own
 candidates; for conv_int8 also its 1x1 times beside ``torch._int_mm``'s,
-and its totals by class);
+and its totals by class, and phase 8's engine by route);
 the line before it the card's name and power limit; the last line is the JSON device record. At the end the
 run checks that neither jax nor OpenCV nor any module of the JAX package
 ``yolo_tpu`` was imported.
@@ -242,7 +264,7 @@ def images(seed, bs, size):
 
 
 def phase_device():
-    print('[1/7] device')
+    print('[1/8] device')
     if not torch.cuda.is_available():
         raise SmokeFailure('no CUDA device: this smoke run needs the card')
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
@@ -280,7 +302,7 @@ def conv_sass(lib_path):
 
 
 def phase_build():
-    print('[2/7] build')
+    print('[2/8] build')
     import re
     from yolo_tpu_torch import _build
     lib = _build.library_path()
@@ -371,7 +393,7 @@ def k1_compare(got, ref, what):
 
 
 def phase_kernel(dev):
-    print('[3/7] K1 nms_suppress vs plain version')
+    print('[3/8] K1 nms_suppress vs plain version')
     from yolo_tpu_torch.ops import nms_suppress as K1
     suppress, suppress_reference = K1.suppress, K1.suppress_reference
     rng = np.random.default_rng(0)
@@ -450,7 +472,7 @@ def phase_kernel(dev):
 
 
 def phase_pipeline(dev, card):
-    print('[4/7] yolov3 @608 float pipeline')
+    print('[4/8] yolov3 @608 float pipeline')
     from yolo_tpu_torch import runtime
     from yolo_tpu_torch.ops import nms
     from yolo_tpu_torch.ops.nms_suppress import suppress
@@ -585,6 +607,10 @@ K2_CASES = [
     (2, 19, 19, 1024, 255, 1, 1, 'linear', True, False),
     (1, 19, 19, 512, 1024, 3, 1, 'leaky', True, False),
     (2, 37, 29, 64, 128, 3, 2, 'leaky', True, False),
+    # yolov3-mobilenet @416 bs=8 (phase 8): Cin 72 and 40, padded to 80 and
+    # 48, into Cout 24 and 120, which are not multiples of 16
+    (8, 104, 104, 72, 24, 1, 1, 'linear', True, False),
+    (8, 52, 52, 40, 120, 1, 1, 'relu6', True, False),
 ]
 # yolov3 @608 bs=8 shapes: 3x3 s1 at 152 px, 3x3 s2 304 -> 152, 1x1 at 76 px
 K2_TIMED = [(BS, 152, 152, 64, 128, 3, 1), (BS, 304, 304, 64, 128, 3, 2),
@@ -663,7 +689,7 @@ def int_mm_ms(x8, w8, **timing):
 
 
 def phase_conv_kernel(dev):
-    print('[5/7] K2 conv_int8 vs plain version')
+    print('[5/8] K2 conv_int8 vs plain version')
     from yolo_tpu_torch.ops.conv_int8 import (fused_conv_int8,
                                               fused_conv_int8_reference)
     max_err = 0.0
@@ -712,11 +738,11 @@ def phase_conv_kernel(dev):
     return max_err
 
 
-def int8_bundle(dev, bs, size):
-    """yolov3 at full width, random weights from a seed, zero BN running
-    statistics, calibrated by CALIB_STEPS steps on ``dev``."""
+def int8_bundle(dev, bs, size, cfg=CFG):
+    """``cfg`` (yolov3) at full width, random weights from a seed, zero BN
+    running statistics, calibrated by CALIB_STEPS steps on ``dev``."""
     from yolo_tpu_torch import runtime
-    b = runtime.load_model(CFG, device=dev, quantized=1, steps=100,
+    b = runtime.load_model(cfg, device=dev, quantized=1, steps=100,
                            conv_scale=CONV_SCALE_Q,
                            generator=torch.Generator().manual_seed(0))
     b.state = {k: {f: torch.zeros_like(t) for f, t in d.items()}
@@ -735,21 +761,27 @@ def int8_bundle(dev, bs, size):
 def int8_checks(b, x):
     """The main-path run with zeroed counts, then the engine through the
     plain conv and the f32 sim on the same batch. Returns the launches of
-    that run and the engine's pieces for timing."""
+    that run (and the calls of the engine's other two conv routes, the
+    grouped int8 conv and the float-edge conv) and the engine's pieces for
+    timing."""
     from yolo_tpu_torch.compress.quant import make_quant_apply
     from yolo_tpu_torch.models.int8_engine import make_int8_apply, prepare_int8
     from yolo_tpu_torch.ops import nms
-    from yolo_tpu_torch.ops.conv_int8 import (fused_conv_int8,
-                                              fused_conv_int8_reference)
+    from yolo_tpu_torch.ops.conv_int8 import (float_edge_conv, fused_conv_int8,
+                                              fused_conv_int8_reference,
+                                              grouped_conv_int8)
     from yolo_tpu_torch.ops.nms_suppress import suppress
     sync = torch.cuda.synchronize if x.is_cuda else (lambda: None)
     kw = dict(conf_thres=CONF_THRES, iou_thres=0.6, top_k=512, max_det=300)
     infer = b.make_infer(**kw)
     suppress.launches = fused_conv_int8.launches = 0
+    grouped_conv_int8.calls = float_edge_conv.calls = 0
     dets = infer(x)
     sync()
     launches = {'nms_suppress': suppress.launches,
-                'conv_int8': fused_conv_int8.launches}
+                'conv_int8': fused_conv_int8.launches,
+                'grouped_conv_int8': grouped_conv_int8.calls,
+                'float_edge_conv': float_edge_conv.calls}
     bs = x.shape[0]
     check(tuple(dets.shape) == (bs, 300, 6) and bool(torch.isfinite(dets).all()),
           'int8 detections (bs, max_det, 6), all finite')
@@ -893,9 +925,11 @@ PROFILE_GROUPS = (('K2 conv_int8', ('conv_int8',)),
                   ('reduce', ('reduce',)))
 
 
-def profile_device(fn, n=3):
+def profile_device(fn, n=3, ranges=()):
     """Device time per call of ``fn`` by kernel group, busy share and kernel
-    count, from torch.profiler over ``n`` calls after a warm-up."""
+    count, from torch.profiler over ``n`` calls after a warm-up; and the
+    device time of the kernels launched inside each ``record_function``
+    range named in ``ranges`` (see ``in_range``), a part of the groups."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -906,9 +940,20 @@ def profile_device(fn, n=3):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    def kernel_us(ev):          # kernels launched under ev, ev excluded
+        return sum(c.self_device_time_total + kernel_us(c)
+                   for c in ev.cpu_children)
+
+    in_ranges = {r: [0.0, 0] for r in ranges}
+    for e in prof.events():
+        if e.name in ranges and e.device_type == torch.autograd.DeviceType.CPU:
+            in_ranges[e.name][0] += kernel_us(e) / 1e3 / n
+            in_ranges[e.name][1] += 1 / n
     groups, n_kernels = {}, 0
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # a range's own span on the device timeline is no kernel
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.key in ranges):
             continue
         us = e.self_device_time_total
         n_kernels += e.count
@@ -925,10 +970,42 @@ def profile_device(fn, n=3):
           f'{n_kernels / n:.0f} kernels per batch')
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f'    {g}: {ms:.3f} ms')
+    for r, (ms, calls) in in_ranges.items():
+        print(f'    of which {r}: {ms:.3f} ms in {calls:.0f} calls')
+    return {'wall_ms': wall_ms, 'busy_ms': busy, 'kernels': n_kernels / n,
+            'groups': groups, 'ranges': {r: v[0] for r, v in in_ranges.items()}}
+
+
+class patched:
+    """Within the block, each function ``module.name`` of ``targets``
+    ({label: (module, name)}) is replaced by ``wrap(label, fn)``."""
+
+    def __init__(self, targets, wrap):
+        self.targets, self.wrap = targets, wrap
+
+    def __enter__(self):
+        self.saved = {label: getattr(mod, name)
+                      for label, (mod, name) in self.targets.items()}
+        for label, (mod, name) in self.targets.items():
+            setattr(mod, name, self.wrap(label, self.saved[label]))
+        return self
+
+    def __exit__(self, *exc):
+        for label, (mod, name) in self.targets.items():
+            setattr(mod, name, self.saved[label])
+
+
+def in_range(label, fn):
+    """``fn`` inside a ``record_function(label)`` range, which
+    ``profile_device(ranges=...)`` reads."""
+    def call(*args, **kw):
+        with torch.profiler.record_function(label):
+            return fn(*args, **kw)
+    return call
 
 
 def phase_int8(dev, card):
-    print('[6/7] yolov3 @608 int8 serving')
+    print('[6/8] yolov3 @608 int8 serving')
     from yolo_tpu_torch import runtime
     b, x = int8_bundle(dev, BS, SIZE)
     launches, plan, infer = int8_checks(b, x)
@@ -1119,7 +1196,7 @@ def phase_eval(dev, card, qb, cfg=CFG, n_images=EVAL_IMAGES):
     """The evaluation path: ``evaluate`` on float yolov3 (device and host
     matching), the f32 QAT sim and the int8 engine of phase 6's calibrated
     bundle ``qb``, each against pseudo-labels made by the model itself."""
-    print(f'[7/7] mAP evaluation: yolov3 @{SIZE}, {n_images} images, bs={BS}')
+    print(f'[7/8] mAP evaluation: yolov3 @{SIZE}, {n_images} images, bs={BS}')
     from yolo_tpu_torch import runtime
     from yolo_tpu_torch.compress.quant import make_quant_apply
     from yolo_tpu_torch.eval.evaluator import evaluate, int8_engine_apply
@@ -1252,6 +1329,269 @@ def phase_eval(dev, card, qb, cfg=CFG, n_images=EVAL_IMAGES):
     return total
 
 
+# ------------- phase 8: depthwise, SE and ASFF cfgs, TTA, the mobilenet engine
+
+MOBILE_CFG = os.path.join(ROOT, 'cfg', 'yolov3-mobilenet',
+                          'yolov3-mobilenet-visdrone.cfg')
+MOBILE_SIZE = 416
+# yolov3-mobilenet's random float weights (f32 on the CPU, bs=1, seed 0):
+# at 1.0 its heads have a std of 3.5-4.4 and confidences up to 0.995; at
+# 0.9 they stay at the bias prior (confidence at most 0.05), at 1.1 they
+# overflow
+CONV_SCALE_MOBILE = 1.0
+ASFF_CFG = os.path.join(ROOT, 'cfg', 'yolov3', 'yolov3-asff.cfg')
+# as yolov3: at 0.6 no box passes conf 0.001, at 0.8 the confidences
+# saturate (f32 on the CPU, bs=1, seed 0)
+CONV_SCALE_ASFF = 0.7
+# rows of test-time augmentation's merged io, yolov3 @608: the input, its
+# flip scaled by 0.83 (504 px, padded to 512) and its 0.67 scale (407 px,
+# padded to 448)
+TTA_ROWS = 22743 + 16128 + 12348
+
+
+def float_serving(dev, card, cfg, size, conv_scale, what):
+    """A float cfg at full width through ``load_model(...).fuse()
+    .make_infer()``, bf16, dense, bs=BS, conf 0.001: K1 once for the batch,
+    detections, f32 heads on the card against the CPU's at bs=1, images/s,
+    the forward alone and a profile. Returns (K1 launches, the unfused
+    bundle, the batch, its detections)."""
+    from yolo_tpu_torch import runtime
+    from yolo_tpu_torch.ops.nms_suppress import suppress
+
+    def bundle(device, dtype):
+        return runtime.load_model(cfg, device=device, dtype=dtype,
+                                  conv_scale=conv_scale,
+                                  generator=torch.Generator().manual_seed(0))
+
+    raw = bundle(dev, torch.bfloat16)
+    b16 = raw.fuse()
+    kw = dict(conf_thres=CONF_THRES, iou_thres=0.6, top_k=512, max_det=300)
+    infer = b16.make_infer(**kw)
+    x = runtime.preprocess(images(21, BS, size), device=dev)
+    infer(x)
+    torch.cuda.synchronize()
+    suppress.launches = 0
+    dets = infer(x)
+    torch.cuda.synchronize()
+    launches = suppress.launches
+    check(launches == 1, f'{what}: main path launched K1 {launches} time(s) '
+          'for one batch')
+    n = int((dets[..., 4] > 0).sum())
+    check(tuple(dets.shape) == (BS, 300, 6)
+          and bool(torch.isfinite(dets).all()) and n > 0,
+          f'{what}: detections (bs, max_det, 6), all finite, {n} over the '
+          'batch')
+    x1 = runtime.preprocess(images(22, 1, size), device=dev)
+    with torch.inference_mode():
+        h_card = bundle(dev, torch.float32).fuse().model().forward_heads(x1)[0]
+        h_cpu = bundle('cpu', torch.float32).fuse().model().forward_heads(
+            x1.cpu())[0]
+    for i, (a, c) in enumerate(zip(h_card, h_cpu)):
+        err = float((a.cpu() - c).abs().max())
+        check(torch.allclose(a.cpu(), c, **F32_HEADS_TOL),
+              f'{what}: bs=1 f32 head {i} card vs CPU (max abs err '
+              f'{err:.3g}, head max {float(c.abs().max()):.3g})')
+    model = b16.model()
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: model.forward_heads(x), iters=10)
+    runs = [cuda_ms(lambda: infer(x), iters=10) for _ in range(2)]
+    ms = statistics.median(runs)
+    print(f'  {what}: {ms:.3f} ms per batch of {BS} (runs '
+          f'{", ".join(f"{r:.3f}" for r in runs)}), {BS * 1000.0 / ms:.1f} '
+          f'images/s bf16 dense ({card}); forward alone {fwd_ms:.3f} ms')
+    profile_device(lambda: infer(x))
+    return launches, raw, x, dets
+
+
+def tta_serving(dev, card):
+    """Test-time augmentation of yolov3 @608, bs=BS, bf16: K1 once per
+    batch on the merged io of the three passes, timed in turns against the
+    single pass. Returns the K1 launches of one batch."""
+    from yolo_tpu_torch import runtime
+    from yolo_tpu_torch.ops.nms_suppress import suppress
+    b16 = runtime.load_model(CFG, device=dev, conv_scale=CONV_SCALE,
+                             generator=torch.Generator().manual_seed(0)).fuse()
+    kw = dict(conf_thres=CONF_THRES, iou_thres=0.6, top_k=512, max_det=300)
+    infer = {'tta': b16.make_infer(augment=True, **kw),
+             'single': b16.make_infer(**kw)}
+    x = runtime.preprocess(images(1, BS, SIZE), device=dev)
+    with torch.inference_mode():
+        rows = b16.model().forward_augment(x).shape[1]
+    check(rows == TTA_ROWS, f'TTA: merged io of {rows} rows per image '
+          '(22743 + 16128 + 12348)')
+    infer['tta'](x)
+    torch.cuda.synchronize()
+    suppress.launches = 0
+    dets = infer['tta'](x)
+    torch.cuda.synchronize()
+    launches = suppress.launches
+    check(launches == 1, f'TTA: main path launched K1 {launches} time(s) for '
+          'one batch')
+    n = int((dets[..., 4] > 0).sum())
+    check(tuple(dets.shape) == (BS, 300, 6)
+          and bool(torch.isfinite(dets).all()) and n > 0,
+          f'TTA: detections (bs, max_det, 6), all finite, {n} over the batch')
+    runs = {'tta': [], 'single': []}
+    for name in ('tta', 'single', 'single', 'tta'):
+        runs[name].append(cuda_ms(lambda: infer[name](x), iters=10))
+    for name, rs in runs.items():
+        ms = statistics.median(rs)
+        print(f'  yolov3 @{SIZE} {name}: {ms:.3f} ms per batch of {BS} (runs '
+              f'{", ".join(f"{r:.3f}" for r in rs)}), {BS * 1000.0 / ms:.1f} '
+              f'images/s bf16 dense ({card})')
+    return launches
+
+
+def engine_routes(net):
+    """The expected conv routes of the int8 engine on ``net``: float edges
+    (the stem and each conv right after an SE, avgpool or scale_channels
+    layer), grouped convs (the exact int32 path), and K2 for the rest."""
+    convs = [l for l in net.layers if l.kind in ('conv', 'depthwise')]
+    n_float = sum(l.index == 0 or net.layers[l.index - 1].kind in (
+        'se', 'avgpool', 'scale_channels') for l in convs)
+    n_grouped = sum(l.groups > 1 for l in convs)
+    return {'conv_int8': len(convs) - n_float - n_grouped,
+            'grouped_conv_int8': n_grouped, 'float_edge_conv': n_float}
+
+
+def engine_spans():
+    """The int8 engine's routes besides K2, and its SE blocks: {label:
+    (module, name)} of the functions it calls for them."""
+    from yolo_tpu_torch.models import int8_engine as E
+    from yolo_tpu_torch.ops import conv as C
+    return {'grouped int8 conv': (E, 'grouped_conv_int8'),
+            'float-edge conv': (E, 'float_edge_conv'),
+            'SE block': (C, 'se_block_nhwc')}
+
+
+def route_times(b, plan, x):
+    """Every conv of one engine batch by its route (K2, the grouped int8
+    conv, the float-edge conv) and every SE block, each call timed alone on
+    its own inputs (device alone and by the caller's wait) and summed by
+    route; K2's bound summed over its calls."""
+    from yolo_tpu_torch.models import int8_engine as E
+    from yolo_tpu_torch.ops.conv_int8 import fused_conv_int8
+    spans = engine_spans()
+    calls = {'K2': [], **{label: [] for label in spans}}
+
+    def recorder(name, fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            calls[name].append((fn, args, kw, out))
+            return out
+        return call
+
+    with patched(spans, recorder), torch.inference_mode():
+        E.make_int8_apply(b.net, plan, heads_only=True,
+                          conv=recorder('K2', fused_conv_int8))(plan.arrays, x)
+    out = {}
+    for name, cs in calls.items():
+        tot = {'calls': len(cs), 'ms': 0.0, 'device_ms': 0.0}
+        for fn, args, kw, res in cs:
+            run = lambda: fn(*args, **kw)
+            with torch.inference_mode():
+                tot['ms'] += cuda_ms(run, iters=10, warmup=2)
+                tot['device_ms'] += device_ms(run, iters=10, warmup=2)
+            if name == 'K2':
+                tot['bound_ms'] = tot.get('bound_ms', 0.0) + k2_bound(
+                    args[0], args[1], res)[0]
+        out[name] = tot
+        print(f'  {name}: {tot["calls"]} calls per batch of {x.shape[0]}, '
+              f'{tot["device_ms"]:.4f} ms on the device, {tot["ms"]:.4f} ms '
+              'by the caller\'s wait (each call alone, summed; in a call of '
+              'many kernels the device timer counts the host\'s gaps between '
+              'them)'
+              + (f'; bound {tot["bound_ms"]:.4f} ms' if 'bound_ms' in tot
+                 else ''))
+    return out
+
+
+def mobile_int8(dev, card):
+    """The int8 engine of yolov3-mobilenet @416, bs=BS: calibration, the
+    engine into the sparse NMS with every count zeroed before one batch,
+    its heads through K2 against K2's plain twin, the sim's survivors, the
+    routes' times, images/s and a profile. Returns the launches."""
+    from yolo_tpu_torch import runtime
+    b, x = int8_bundle(dev, BS, MOBILE_SIZE, cfg=MOBILE_CFG)
+    launches, plan, infer = int8_checks(b, x)
+    want = engine_routes(b.net)
+    for name, n in want.items():
+        check(launches[name] == n, f'mobilenet int8: {name} ran '
+              f'{launches[name]} times for one batch ({n} expected)')
+    check(launches['nms_suppress'] == 1, f'mobilenet int8: K1 launched '
+          f'{launches["nms_suppress"]} time(s)')
+    routes = route_times(b, plan, x)
+    f16 = runtime.ModelBundle(net=b.net, params=b.params, state=b.state,
+                              device=b.device).fuse()
+    kw = dict(conf_thres=CONF_THRES, iou_thres=0.6, top_k=512, max_det=300)
+    finfer = f16.make_infer(**kw)
+    runs = {'bf16': [], 'int8': []}
+    for name in ('bf16', 'int8', 'int8', 'bf16'):
+        fn = finfer if name == 'bf16' else infer
+        runs[name].append(cuda_ms(lambda: fn(x), iters=10))
+    for name in ('int8', 'bf16'):
+        ms = statistics.median(runs[name])
+        print(f'  mobilenet {name} pipeline: {ms:.3f} ms per batch of {BS} '
+              f'(runs {", ".join(f"{r:.3f}" for r in runs[name])}), '
+              f'{BS * 1000.0 / ms:.1f} images/s ({card})')
+    spans = engine_spans()
+    with patched(spans, in_range):
+        prof = profile_device(lambda: infer(x), ranges=tuple(spans))
+    return launches, routes, prof
+
+
+def image_decoders():
+    """Which image decoders import on this machine, each tried in a
+    process of its own (importing one here would fail check_imports)."""
+    found = {}
+    for mod in ('cv2', 'PIL', 'torchvision.io'):
+        r = subprocess.run([sys.executable, '-c', f'import {mod}'],
+                           capture_output=True, timeout=300)
+        found[mod] = r.returncode == 0
+    print('  image decoders: ' + ', '.join(
+        f'{m} {"imports" if ok else "does not import"}'
+        for m, ok in found.items()))
+    return found
+
+
+def phase_new_cfgs(dev, card):
+    """(a) yolov3-mobilenet @416 and (b) yolov3-asff @608 float serving,
+    (c) TTA on yolov3 @608, (d) the yolov3-mobilenet int8 engine, (e)
+    (a)'s weights through a .pt; then the image decoders. Returns the
+    launches of K1 and K2 and the engine's routes."""
+    from yolo_tpu_torch import runtime
+    from yolo_tpu_torch.models.torch_import import save_torch_checkpoint
+    t0 = time.perf_counter()
+    print(f'[8/8] more cfgs: (a) yolov3-mobilenet @{MOBILE_SIZE}, (b) '
+          f'yolov3-asff @{SIZE}, (c) TTA yolov3 @{SIZE}, (d) mobilenet int8, '
+          '(e) .pt')
+    k1 = 0
+    n, raw, x, dets = float_serving(dev, card, MOBILE_CFG, MOBILE_SIZE,
+                                    CONV_SCALE_MOBILE, '(a) mobilenet')
+    k1 += n
+    k1 += float_serving(dev, card, ASFF_CFG, SIZE, CONV_SCALE_ASFF,
+                        '(b) asff')[0]
+    k1 += tta_serving(dev, card)
+    launches, routes, prof = mobile_int8(dev, card)
+    routes['profile'] = prof
+    k1 += launches['nms_suppress']
+    path = os.path.join(ROOT, 'yolo_tpu_torch', '_build', 'phase8_mobile.pt')
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    save_torch_checkpoint(raw.net, raw.params, raw.state, path)
+    try:
+        b = runtime.load_model(MOBILE_CFG, path, device=dev).fuse()
+    finally:
+        os.remove(path)
+    kw = dict(conf_thres=CONF_THRES, iou_thres=0.6, top_k=512, max_det=300)
+    got = b.make_infer(**kw)(x)
+    check(torch.equal(got, dets), '(e) mobilenet through a .pt written by '
+          'save_torch_checkpoint: the same detections, bit for bit')
+    image_decoders()
+    print(f'  phase 8: {time.perf_counter() - t0:.1f} s')
+    return {'nms_suppress': k1, 'conv_int8': launches['conv_int8']}, routes
+
+
+
 def check_imports():
     bad = sorted(m for m in sys.modules if m in ('jax', 'cv2')
                  or m == 'yolo_tpu' or m.startswith(('jax.', 'yolo_tpu.')))
@@ -1272,6 +1612,7 @@ def main():
     k2_err = phase_conv_kernel(dev)
     launches, k2_tot, qb = phase_int8(dev, card)
     eval_launches = phase_eval(dev, card, qb)
+    new_launches, routes = phase_new_cfgs(dev, card)
     check_imports()
     print(f'build {build_s:.2f} s; whole run {time.perf_counter() - t0:.1f} s')
     print(card)
@@ -1280,13 +1621,15 @@ def main():
          'source': 'yolo_tpu_torch/csrc/nms_suppress.cu',
          'replaces': 'yolo_tpu/ops/pallas_nms.py:33',
          'launches': (k1_float + launches['nms_suppress']
-                      + eval_launches['nms_suppress']), **k1,
+                      + eval_launches['nms_suppress']
+                      + new_launches['nms_suppress']), **k1,
          'main_path_ms': k1_main['ms'],
          'main_path_device_ms': k1_main['device_ms']},
         {'name': 'conv_int8', 'route': 'cuda',
          'source': 'yolo_tpu_torch/csrc/conv_int8.cu',
          'replaces': 'yolo_tpu/ops/pallas_conv.py:132',
-         'launches': launches['conv_int8'] + eval_launches['conv_int8'],
+         'launches': (launches['conv_int8'] + eval_launches['conv_int8']
+                      + new_launches['conv_int8']),
          'max_abs_err': k2_err,
          'ms': k2_tot['ms'], 'device_ms': k2_tot['dev'],
          'plain_ms': k2_tot['plain'], 'bound_ms': k2_tot['bound'],
@@ -1294,7 +1637,8 @@ def main():
          'ms_1x1': k2_tot['ms_1x1'], 'device_ms_1x1': k2_tot['device_ms_1x1'],
          'library_ms_1x1': k2_tot['library_ms_1x1'],
          'library_device_ms_1x1': k2_tot['library_device_ms_1x1'],
-         'classes': k2_tot['classes']}]}))
+         'classes': k2_tot['classes'],
+         'mobilenet_int8': routes}]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -425,17 +425,67 @@ def test_cli_returns_what_evaluate_returns(eval_sets, tmp_path, monkeypatch):
     assert np.loadtxt(tmp_path / 'benchmark.txt').shape == (2, 10)
 
 
+def test_evaluate_augment_matches_jax(eval_sets, capsys):
+    """``augment=True``: the float model's test-time augmentation into the
+    dense NMS against JAX's ``evaluate(augment=True)``, with no val losses
+    even when the loss is asked for; a quantized apply prints JAX's warning
+    and runs its single pass."""
+    import jax.numpy as jnp
+    from yolo_tpu.eval.evaluator import evaluate as jeval
+    from yolo_tpu.models.network import fuse_params as jfuse
+    from yolo_tpu.train.loss import LossHyp as JHyp
+    from yolo_tpu_torch import runtime as trt
+    from yolo_tpu_torch.compress.quant import make_quant_apply
+    from yolo_tpu_torch.eval.evaluator import evaluate
+    from yolo_tpu_torch.train.loss import LossHyp
+    cfg, npz, data = eval_sets['float']
+    jnet, jparams, jstate, _ = _jax_weights(cfg, npz)
+    tb = trt.load_model(cfg, npz, device='cpu', dtype=torch.float32).fuse()
+    avecs = _anchor_vecs(tb.net)
+    kw = dict(batch_size=BS, img_size=SIZE, fused=True, augment=True,
+              anchor_vecs=avecs)
+    want = jeval(jnet, jfuse(jnet, jparams, jstate), {}, data,
+                 compute_dtype=jnp.float32, loss_hyp=JHyp(), **kw)
+    got = evaluate(tb.net, tb.params, tb.state, data, loss_hyp=LossHyp(),
+                   compute_dtype=torch.float32, device='cpu', **kw)
+    _assert_results_close(got, want, 'augment')
+    assert got[0][4:] == (0.0, 0.0, 0.0)
+    single = evaluate(tb.net, tb.params, tb.state, data, batch_size=BS,
+                      img_size=SIZE, fused=True, compute_dtype=torch.float32,
+                      device='cpu')
+    assert got[0][:4] != single[0][:4]         # the three passes moved it
+    qcfg, qnpz, qdata = eval_sets['quant']
+    qb = trt.load_model(qcfg, qnpz, device='cpu', quantized=1, steps=100)
+    qkw = dict(batch_size=BS, img_size=SIZE, device='cpu', qstate=qb.qstate,
+               quant_apply=make_quant_apply(qb.net, qb.qcfg))
+    capsys.readouterr()
+    q_aug = evaluate(qb.net, qb.params, qb.state, qdata, augment=True, **qkw)
+    assert 'WARNING: --augment (TTA) is not supported' in capsys.readouterr().out
+    q_one = evaluate(qb.net, qb.params, qb.state, qdata, **qkw)
+    assert q_aug[0] == q_one[0]
+    np.testing.assert_array_equal(q_aug[1], q_one[1])
+
+
 def test_unported_eval_paths_raise(eval_sets):
+    """Mesh evaluation, ``--qat-eval-snap bf16`` and ``--quantized 2`` raise
+    NotImplementedError naming ROADMAP.md; test-time augmentation, which
+    the first evaluation slice refused, runs, by ``evaluate`` and by the
+    CLI's ``--augment``, to the same results."""
+    from yolo_tpu_torch import runtime as trt
     from yolo_tpu_torch import test as cli
     from yolo_tpu_torch.eval.evaluator import evaluate
     cfg, npz, data = eval_sets['float']
-    for kw in (dict(augment=True), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            evaluate(None, {}, {}, data, device='cpu', **kw)
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        evaluate(None, {}, {}, data, device='cpu', mesh=object())
     base = ['--cfg', cfg, '--data', data, '--weights', npz, '--device', 'cpu']
-    for extra in (['--augment'], ['--qat-eval-snap', 'bf16'],
-                  ['--quantized', '2']):
+    for extra in (['--qat-eval-snap', 'bf16'], ['--quantized', '2']):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             cli.main(base + extra)
     with pytest.raises(SystemExit):
         cli.main(base + ['--int8-engine'])
+    tb = trt.load_model(cfg, npz, device='cpu').fuse()
+    want = evaluate(tb.net, tb.params, tb.state, data, batch_size=BS,
+                    img_size=SIZE, fused=True, augment=True, device='cpu')[0]
+    got = cli.main(base + ['--augment', '--no-plot', '--img-size', str(SIZE),
+                           '--batch-size', str(BS)])
+    assert got == want and got[2] > 0.3

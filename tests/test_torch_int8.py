@@ -632,25 +632,43 @@ def test_engine_reorg3d_concat_maxpool_matches_jax(tmp_path_factory,
 
 
 def test_unported_int8_paths_raise(tmp_path):
-    """A grouped conv on an int8 edge, and layer kinds the engine lacks,
-    raise NotImplementedError naming ROADMAP.md."""
+    """A grouped conv on an int8 edge, and an SE layer (a float edge), which
+    the engine's first slice refused, now serve: calibration, then the
+    engine into the sparse NMS, with the grouped conv on the exact int32
+    path and the conv after the SE block on a float edge; its heads within
+    2 quanta of the f32 sim's."""
     from yolo_tpu_torch import runtime as trt
+    from yolo_tpu_torch.compress.quant import make_quant_apply
+    from yolo_tpu_torch.models.int8_engine import make_int8_apply, prepare_int8
+    from yolo_tpu_torch.ops.conv_int8 import (float_edge_conv,
+                                              grouped_conv_int8)
     grouped = TOY_CFG.replace('filters=16\nsize=3\nstride=2\npad=1\n',
                               'filters=16\nsize=3\nstride=2\npad=1\ngroups=2\n',
                               1)
     assert grouped != TOY_CFG
-    p = tmp_path / 'grouped.cfg'
-    p.write_text(grouped)
-    b = trt.load_model(str(p), device='cpu', quantized=1, steps=100)
+    se_cfg = TOY_CFG.replace('[maxpool]\nsize=2\nstride=1\n',
+                             '[se]\nreduction=4\n')
+    assert se_cfg != TOY_CFG
     x = trt.preprocess(images(3, 1, 64), device='cpu')
-    b.apply(x, train=True)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        b.make_infer()(x)
-    se = tmp_path / 'se.cfg'
-    se.write_text(TOY_CFG.replace('[maxpool]\nsize=2\nstride=1\n',
-                                  '[se]\nreduction=4\n'))
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        trt.load_model(str(se), device='cpu', quantized=1)
+    for name, text, n_grouped, n_float in (('grouped', grouped, 1, 1),
+                                           ('se', se_cfg, 0, 2)):
+        p = tmp_path / f'{name}.cfg'
+        p.write_text(text)
+        b = trt.load_model(str(p), device='cpu', quantized=1, steps=100)
+        b.apply(x, train=True)
+        g0, f0 = grouped_conv_int8.calls, float_edge_conv.calls
+        dets = b.make_infer(conf_thres=0.001)(x)
+        assert grouped_conv_int8.calls - g0 == n_grouped, name
+        assert float_edge_conv.calls - f0 == n_float, name
+        assert dets.shape == (1, 300, 6) and bool(torch.isfinite(dets).all())
+        plan = prepare_int8(b.net, b.params, b.state, b.qstate, b.qcfg)
+        eng = make_int8_apply(b.net, plan, heads_only=True)
+        heads = eng(plan.arrays, x)[0]
+        sim = make_quant_apply(b.net, b.qcfg, heads_only=True)(
+            b.params, b.state, b.qstate, x)[0]
+        for h, f, sa in zip(heads, sim, eng.head_scales):
+            d = (h.to(torch.float32) - torch.round(f / sa)).abs()
+            assert float(d.max()) <= 2, (name, float(d.max()))
 
 
 # ---------------------------------------------------------------- on the card

@@ -167,16 +167,28 @@ def test_bf16_pipeline_tracks_f32(toy_cfg, toy_checkpoint):
         np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=0.05, atol=0.1)
 
 
-def test_unported_paths_raise(toy_cfg, tmp_path):
+def test_unported_paths_raise(toy_cfg, toy_checkpoint, tmp_path):
+    """Other quantization schemes raise NotImplementedError naming
+    ROADMAP.md; a .pt checkpoint and test-time augmentation, which the
+    first slice refused, now serve: the .pt (written by the JAX package's
+    ``save_torch_checkpoint``) loads the weights the .npz loads, and
+    ``make_infer(augment=True)`` returns detections."""
+    from yolo_tpu.ir import build_ir
+    from yolo_tpu.models.torch_import import save_torch_checkpoint
     from yolo_tpu_torch import runtime as trt
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         trt.load_model(toy_cfg, device='cpu', quantized=2)
+    params, state, npz, _ = toy_checkpoint
     pt = tmp_path / 'm.pt'
-    pt.write_bytes(b'')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        trt.load_model(toy_cfg, str(pt), device='cpu')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        trt.load_model(toy_cfg, device='cpu').fuse().make_infer(augment=True)
+    save_torch_checkpoint(build_ir(toy_cfg), params, state, pt)
+    a = trt.load_model(toy_cfg, str(pt), device='cpu', dtype=torch.float32)
+    b = trt.load_model(toy_cfg, npz, device='cpu', dtype=torch.float32)
+    for k in b.params:
+        for f in b.params[k]:
+            assert torch.equal(a.params[k][f], b.params[k][f]), (k, f)
+    x = trt.preprocess(images(9, 2, 64), device='cpu')
+    dets = a.fuse().make_infer(augment=True, conf_thres=0.05)(x)
+    assert dets.shape == (2, 300, 6) and int((dets[..., 4] > 0).sum()) > 0
 
 
 def test_port_never_imports_jax_or_cv2():

@@ -1,11 +1,13 @@
 """Fake-quant simulation of the google scheme, forward only (counterpart of
 ``yolo_tpu/compress/quant.py``).
 
-What this slice needs for true-int8 serving: the quantizer math, the
-range trackers, the BN-fold quantized conv, the requantized shortcut
-(ways 1 and 2) and concat, and ``make_quant_apply`` in train mode (the
-calibration step: it returns the new BN state and quantizer state) and
-in eval mode (the sim the int8 engine is held against).
+What true-int8 serving needs: the quantizer math, the range trackers, the
+BN-fold quantized conv (grouped and depthwise ones included), the
+requantized shortcut (ways 1 and 2) and concat, and ``make_quant_apply``
+in train mode (the calibration step: it returns the new BN state and
+quantizer state) and in eval mode (the sim the int8 engine is held
+against). SE, global avgpool and scale_channels stay float, as in the JAX
+package's sim.
 
 Quantizer state lives in an explicit ``qstate`` dict of 0-d f32 tensors
 (scale, zero point, tracker min/max, step counters), keyed by layer-index
@@ -15,7 +17,9 @@ are the port's OIHW. All quantized scales snap to powers of two.
 
 Not ported yet (see ROADMAP.md): the other schemes (tpsq, ptq_cos, dorefa,
 wbin, ternary), the straight-through gradient as an autograd Function
-(QAT training), ``prepare_eval_params`` and the bf16 eval snaps.
+(QAT training), ``prepare_eval_params``, the bf16 eval snaps, ASFF heads
+and a standalone [batchnorm] layer (its train mode needs the batch-
+statistics BN of the training slice).
 """
 
 from __future__ import annotations
@@ -38,7 +42,8 @@ SCHEMES = {1: 'google', 2: 'tpsq', 3: 'ptq_cos', 4: 'dorefa', 5: 'wbin',
            6: 'ternary'}
 # layer kinds the sim and the int8 engine run; the rest raise
 # NotImplementedError
-QUANT_KINDS = ('conv', 'maxpool', 'route', 'shortcut', 'upsample', 'yolo',
+QUANT_KINDS = ('conv', 'depthwise', 'maxpool', 'se', 'avgpool',
+               'scale_channels', 'route', 'shortcut', 'upsample', 'yolo',
                'reorg3d', 'dropout')
 
 
@@ -186,7 +191,7 @@ def init_quant_state(net: NetworkIR, cfg: QuantConfig, device=None):
     qstate: dict[str, Any] = {}
     for lyr in net.layers:
         k = str(lyr.index)
-        if lyr.kind == 'conv':
+        if lyr.kind in ('conv', 'depthwise'):
             qstate[k] = {'aq': tracker_init(device), 'wq': tracker_init(device),
                          'bq': tracker_init(device), 'first_bn': z(0.0),
                          'step': z(0.0)}
@@ -282,8 +287,9 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig,
       eval:  (io, yolo_p, feats), or (head_out, [None] * n) with
              ``heads_only``
 
-    conv -> BN-fold quantized conv with a quantized activation; shortcut ->
-    requantized add (min or max way); multi-route -> requantized concat.
+    conv and depthwise conv -> BN-fold quantized conv with a quantized
+    activation; shortcut -> requantized add (min or max way); multi-route
+    -> requantized concat; SE, avgpool and scale_channels -> float.
     Train mode is calibration: range trackers, scales and BN statistics
     update; nothing is differentiated here."""
     check_supported(net, cfg.scheme)
@@ -385,7 +391,7 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig,
         for lyr in layers:
             k = str(lyr.index)
             kind = lyr.kind
-            if kind == 'conv':
+            if kind in ('conv', 'depthwise'):
                 st = state.get(k, {})
                 prev, st2, new_q[k] = qconv(lyr, params[k], st, new_q[k],
                                             prev, train)
@@ -393,6 +399,13 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig,
                     new_state[k] = st2
             elif kind == 'maxpool':
                 prev = conv_ops.max_pool_nhwc(prev, lyr.size, lyr.stride)
+            elif kind == 'se':
+                prev = conv_ops.se_block_nhwc(prev, params[k]['fc1'],
+                                              params[k]['fc2'])
+            elif kind == 'avgpool':
+                prev = conv_ops.global_avg_pool_nhwc(prev)
+            elif kind == 'scale_channels':
+                prev = outs[lyr.layers[0]] * prev
             elif kind == 'upsample':
                 prev = conv_ops.upsample_nearest_nhwc(prev, lyr.stride)
             elif kind == 'route':

@@ -8,9 +8,14 @@ original frames, drawn and saved.
     python -m yolo_tpu_torch.detect --cfg cfg/yolov3/yolov3.cfg \\
         --weights weights/calibrated.npz --quantized 1 --source data/samples
 
-The flags are those of the root ``detect.py``. ``--quantized 1`` runs the
-true-int8 engine on a calibrated google-scheme checkpoint (its ``qstate``
-key or a sibling ``_qstate.npz``). Other schemes, test-time augmentation
+    python -m yolo_tpu_torch.detect --cfg cfg/yolov3/yolov3.cfg \\
+        --weights weights/best.pt --augment --source data/samples
+
+The flags are those of the root ``detect.py``. ``--weights`` takes a .npz
+of the JAX package, a .pt of the PyTorch reference or darknet .weights.
+``--quantized 1`` runs the true-int8 engine on a calibrated google-scheme
+checkpoint (its ``qstate`` key or a sibling ``_qstate.npz``).
+``--augment`` runs test-time augmentation on a float model. Other schemes
 and stream sources are not ported yet (see ROADMAP.md).
 """
 
@@ -59,7 +64,8 @@ def parse_args(argv=None):
     p.add_argument('--a-bit', '--a_bit', dest='a_bit', type=int, default=8)
     p.add_argument('--w-bit', '--w_bit', dest='w_bit', type=int, default=8)
     p.add_argument('--shortcut_way', type=int, default=1)
-    p.add_argument('--augment', action='store_true')
+    p.add_argument('--augment', action='store_true',
+                   help='test-time augmentation (float models)')
     return p.parse_args(argv)
 
 

@@ -17,9 +17,9 @@ n's statistics while the device computes batch n+1. Nothing on the path
 copies from pageable host memory or reads a device value, either of which
 would synchronise the stream.
 
-Not ported yet (see ROADMAP.md): test-time augmentation, mesh and
-multi-process evaluation, the quantized apply's sparse twin
-(``make_heads_only``) and ``prepare_eval_params``.
+Not ported yet (see ROADMAP.md): mesh and multi-process evaluation, the
+quantized apply's sparse twin (``make_heads_only``) and
+``prepare_eval_params``.
 """
 
 from __future__ import annotations
@@ -103,7 +103,7 @@ def int8_engine_apply(net, params, state, qstate, qcfg, device):
 
 
 def _build_infer(net, params, state, qstate, *, quant_apply, anchor_vecs,
-                 loss_hyp, want_loss, sparse, fused, compute_dtype,
+                 loss_hyp, want_loss, augment, sparse, fused, compute_dtype,
                  maxabsscaler, conf_thres, iou_thres, top_k, max_det,
                  multi_label, iouv, device_match, nc, device):
     """The per-batch eval step: infer(x, targets, valid, img_w) ->
@@ -126,7 +126,11 @@ def _build_infer(net, params, state, qstate, *, quant_apply, anchor_vecs,
                            maxabsscaler=maxabsscaler, device=device)
         to_pred = lambda heads: [reshape_pred(h, l.na, l.no)
                                  for h, l in zip(heads, yolos)]
-        if sparse:
+        if augment:
+            def fwd(x):
+                return non_max_suppression(model.forward_augment(x),
+                                           **nms_kw), []
+        elif sparse:
             anchors = model.anchors()
             strides = [l.yolo_stride for l in yolos]
 
@@ -214,6 +218,11 @@ def evaluate(net, params, state, data, *, batch_size=16, img_size=416,
     ``loss_hyp`` with ``anchor_vecs`` (per-layer (na, 2) anchors / stride)
     adds the val losses; the ragged tail's pad slots weigh 0 in them.
 
+    ``augment``: test-time augmentation of the float model
+    (``Darknet.forward_augment``) into the dense NMS, without val losses
+    (the merged io has no per-layer outputs); with ``quant_apply`` it
+    prints a warning and runs a single pass, as the JAX package does.
+
     ``device_match``: the TP assignment runs on the device
     (``matching.match_device``) instead of the host loop
     (``metrics.match_predictions``); both give the same result.
@@ -221,8 +230,6 @@ def evaluate(net, params, state, data, *, batch_size=16, img_size=416,
     ``t_inf`` is the host's time to queue the batches and to wait for their
     results; ``t_nms`` is 0 (NMS runs inside the timed step), as in the JAX
     package."""
-    if augment:
-        raise unported('test-time augmentation (evaluate(augment=True))')
     if mesh is not None:
         raise unported('mesh and multi-process evaluation (the parallel/ '
                         'slice)')
@@ -236,6 +243,12 @@ def evaluate(net, params, state, data, *, batch_size=16, img_size=416,
     niou = len(iouv)
 
     want_loss = loss_hyp is not None and anchor_vecs is not None
+    if augment and quant_apply is not None:
+        print('WARNING: --augment (TTA) is not supported with quantized '
+              'evaluation; running single-pass')
+        augment = False
+    if augment:
+        sparse = want_loss = False
     if quant_apply is not None:
         sparse = False          # the port's quantized applies have no sparse twin
     avecs = ([torch.as_tensor(a, dtype=torch.float32, device=device)
@@ -243,8 +256,9 @@ def evaluate(net, params, state, data, *, batch_size=16, img_size=416,
     infer = _build_infer(
         net, params, state, qstate, quant_apply=quant_apply,
         anchor_vecs=avecs, loss_hyp=loss_hyp, want_loss=want_loss,
-        sparse=sparse, fused=fused, compute_dtype=compute_dtype,
-        maxabsscaler=maxabsscaler, conf_thres=conf_thres,
+        augment=augment, sparse=sparse, fused=fused,
+        compute_dtype=compute_dtype, maxabsscaler=maxabsscaler,
+        conf_thres=conf_thres,
         iou_thres=iou_thres, top_k=top_k, max_det=max_det,
         multi_label=multi_label, iouv=iouv_t, device_match=device_match,
         nc=nc, device=device)

@@ -4,28 +4,33 @@ The fake-quant sim (``compress/quant.py``) simulates integer arithmetic in
 float. This engine runs the calibrated model with int8 tensors end to end:
 
   - conv weights are pre-quantized to int8 (BN folded, pow-2 scale) and
-    stored (Cout, K, K, Cin), the order kernel K2 reads them in;
+    stored (Cout, K, K, Cin / groups), the order kernel K2 reads them in;
   - activations travel between layers as int8 NHWC tensors with a per-edge
     pow-2 scale;
-  - every conv on an int8 edge runs K2 (``ops/conv_int8.fused_conv_int8``:
-    s8 x s8 -> s32 and a fused f32 epilogue of scale, bias, activation and
-    requantization to the layer's own output scale), the arithmetic the
-    sim models;
+  - every ungrouped 1x1 s1 and 3x3 s1/s2 conv on an int8 edge runs K2
+    (``ops/conv_int8.fused_conv_int8``: s8 x s8 -> s32 and a fused f32
+    epilogue of scale, bias, activation and requantization to the layer's
+    own output scale), the arithmetic the sim models; the other convs on
+    int8 edges (depthwise and grouped ones, 5x5 windows) run
+    ``grouped_conv_int8``, the same arithmetic in plain PyTorch with exact
+    int32 sums (the JAX package runs them through XLA's s8 conv);
   - shortcuts and concats follow the sim's requantization chains (min/max
-    shortcut ways, a common concat scale) in f32.
+    shortcut ways, a common concat scale) in f32;
+  - SE, global avgpool and scale_channels are float edges, as in the sim.
 
-The network input is a float edge: the first conv runs on the bf16-rounded
-input and the dequantized int8 weights, summed in f32 (cuDNN on the card),
-then requantizes. Scales are read from a calibrated qstate when the plan is
-prepared and baked in as Python floats.
+A conv on a float edge (the network input, or the output of an SE,
+avgpool or scale_channels layer) runs on the bf16-rounded input and the
+dequantized int8 weights, summed in f32 (cuDNN on the card), then
+requantizes (``ops/conv_int8.float_edge_conv``). Scales are read from a
+calibrated qstate when the plan is prepared and baked in as Python floats.
 
 The JAX package's TPU backend menu ('mixed'/'auto') is not carried over:
-every int8 conv goes through K2, which is the JAX ``backend='pallas'``
-routing with ``pallas_min_hw=0`` (its oracle is ``backend='xla'``).
+every int8 conv that K2 takes goes through it, which is the JAX
+``backend='pallas'`` routing with ``pallas_min_hw=0`` (its oracle is
+``backend='xla'``).
 
-Not ported yet (see ROADMAP.md): schemes other than google, grouped or
-other convs K2 does not take on int8 edges, and the float fallback edges
-(SE, avgpool, scale_channels, standalone batchnorm).
+Not ported yet (see ROADMAP.md): schemes other than google, and a
+standalone [batchnorm] layer.
 """
 
 from __future__ import annotations
@@ -38,16 +43,17 @@ import torch
 from ..compress.quant import (QuantConfig, check_supported, qrange,
                               round_half_away, unported)
 from ..ir import NetworkIR
-from ..ops import activations as act_mod
 from ..ops import conv as conv_ops
-from ..ops.conv_int8 import fused_conv_int8, supported
+from ..ops.conv_int8 import (float_edge_conv, fused_conv_int8,
+                              grouped_conv_int8, supported)
 from .yolo_head import anchors_on, decode_yolo_nhwc, reshape_pred
 
 BN_EPS = 1e-5
 
 
 class Int8Plan(NamedTuple):
-    arrays: dict            # {layer_key: {'w8': int8 (Cout,K,K,Cin), 'bias': f32}}
+    arrays: dict            # {layer_key: {'w8': int8 (Cout,K,K,Cin/groups),
+                            #  'bias': f32} | {'fc1', 'fc2'} (SE) | {'w'}}
     meta: dict              # {layer_key: {'sw','sa'} | {'in_scale','sc'} | {'rs'}}
     a_bits: int
     shortcut_way: int
@@ -78,8 +84,8 @@ def prepare_int8(net: NetworkIR, params, state, qstate, cfg: QuantConfig,
     The eval path of the sim, in float64 numpy as in the JAX package:
     w_fold = w * gamma/sqrt(var+eps), bias = beta - mean*inv (+ b*inv),
     both quantized with their tracker scales; the plan holds the int8
-    weights and the dequantized f32 bias the epilogue adds, on ``device``
-    (default: that of the params)."""
+    weights and the dequantized f32 bias the epilogue adds, and the SE
+    layers' f32 fc weights, on ``device`` (default: that of the params)."""
     check_supported(net, cfg.scheme)
     if device is None:
         device = next(iter(next(iter(params.values())).values())).device
@@ -87,7 +93,7 @@ def prepare_int8(net: NetworkIR, params, state, qstate, cfg: QuantConfig,
     meta: dict[str, dict] = {}
     for lyr in net.layers:
         k = str(lyr.index)
-        if lyr.kind == 'conv':
+        if lyr.kind in ('conv', 'depthwise'):
             p = {f: _np64(v) for f, v in params[k].items()}
             if lyr.bn:
                 inv = p['gamma'] / np.sqrt(_np64(state[k]['var']) + BN_EPS)
@@ -117,6 +123,9 @@ def prepare_int8(net: NetworkIR, params, state, qstate, cfg: QuantConfig,
                     device, torch.float32)}
         elif lyr.kind == 'route' and len(lyr.layers) > 1:
             meta[k] = {'rs': _scalar(qstate[k]['scale'])}
+        elif lyr.kind == 'se':
+            arrays[k] = {f: params[k][f].detach().to(device, torch.float32)
+                         for f in ('fc1', 'fc2')}
     return Int8Plan(arrays=arrays, meta=meta, a_bits=cfg.a_bits,
                     shortcut_way=cfg.shortcut_way,
                     maxabsscaler=cfg.maxabsscaler, scheme=cfg.scheme)
@@ -142,9 +151,9 @@ def make_int8_apply(net: NetworkIR, plan: Int8Plan, heads_only: bool = False,
     (``ops/nms.non_max_suppression_heads(..., head_scales=...)``), which
     dequantizes only the rows it gathers.
 
-    ``conv``: the int8 conv, K2 (``fused_conv_int8``) by default; pass its
-    plain version (``fused_conv_int8_reference``) to hold one against the
-    other on the card."""
+    ``conv``: the int8 conv of the convs K2 takes, K2 (``fused_conv_int8``)
+    by default; pass its plain version (``fused_conv_int8_reference``) to
+    hold one against the other on the card."""
     check_supported(net, plan.scheme)
     layers = net.layers
     bits = plan.a_bits
@@ -162,30 +171,21 @@ def make_int8_apply(net: NetworkIR, plan: Int8Plan, heads_only: bool = False,
     def conv_i8(lyr, arr, t):
         stride = lyr.stride_xy or lyr.stride
         m = meta[str(lyr.index)]
-        if t[0] == 'q':
-            if (isinstance(stride, (tuple, list))
-                    or not supported(lyr.size, stride, lyr.pad, lyr.groups)):
-                raise unported(f'layer {lyr.index}: int8 conv k={lyr.size} '
-                               f's={stride} pad={lyr.pad} '
-                               f'groups={lyr.groups}')
+        epi = dict(act=lyr.activation, maxabs=plan.maxabsscaler, qmin=qmin,
+                   qmax=qmax)
+        if t[0] == 'f':
+            q = float_edge_conv(t[1], arr['w8'], arr['bias'], m['sw'],
+                                m['sa'], stride=stride, pad=lyr.pad,
+                                groups=lyr.groups, **epi)
+        elif (isinstance(stride, int)
+              and supported(lyr.size, stride, lyr.pad, lyr.groups)):
             q = conv(t[1], arr['w8'], arr['bias'], t[2] * m['sw'], m['sa'],
-                     stride=stride, act=lyr.activation,
-                     maxabs=plan.maxabsscaler, out_q=True, qmin=qmin,
-                     qmax=qmax)
-            return ('q', q, m['sa'])
-        # float edge (the network input): the conv of the bf16-rounded input
-        # with the dequantized int8 weights (exact in bf16), summed and
-        # kept in f32. That is the JAX engine as its jitted program computes
-        # it: XLA keeps the bf16 conv's f32 sums without rounding them to
-        # bf16 (its eager op does round them).
-        wf = arr['w8'].permute(0, 3, 1, 2).to(torch.float32) * m['sw']
-        xb = t[1].to(torch.bfloat16).to(torch.float32)
-        y = conv_ops.conv2d_nhwc(xb, wf, stride=stride, padding=lyr.pad,
-                                 groups=lyr.groups)
-        y = y + arr['bias']
-        y = act_mod.get(lyr.activation, plan.maxabsscaler)(y)
-        q = torch.clamp(round_half_away(y * (1.0 / m['sa'])), qmin, qmax)
-        return ('q', q.to(torch.int8).contiguous(), m['sa'])
+                     stride=stride, out_q=True, **epi)
+        else:
+            q = grouped_conv_int8(t[1], arr['w8'], arr['bias'],
+                                  t[2] * m['sw'], m['sa'], stride=stride,
+                                  pad=lyr.pad, groups=lyr.groups, **epi)
+        return ('q', q, m['sa'])
 
     def shortcut_i8(lyr, arr, t, outs):
         """The sim's requantization chain in f32; scales are pow-2, so the
@@ -241,8 +241,15 @@ def make_int8_apply(net: NetworkIR, plan: Int8Plan, heads_only: bool = False,
         for lyr in layers:
             k = str(lyr.index)
             kind = lyr.kind
-            if kind == 'conv':
+            if kind in ('conv', 'depthwise'):
                 prev = conv_i8(lyr, arrays[k], prev)
+            elif kind == 'se':
+                prev = ('f', conv_ops.se_block_nhwc(
+                    _as_float(prev), arrays[k]['fc1'], arrays[k]['fc2']))
+            elif kind == 'avgpool':
+                prev = ('f', conv_ops.global_avg_pool_nhwc(_as_float(prev)))
+            elif kind == 'scale_channels':
+                prev = ('f', _as_float(outs[lyr.layers[0]]) * _as_float(prev))
             elif kind == 'maxpool':
                 prev = (prev[0], conv_ops.max_pool_nhwc(prev[1], lyr.size,
                                                         lyr.stride), *prev[2:])

@@ -1,16 +1,17 @@
 """Darknet detector as an ``nn.Module`` built from a ``NetworkIR``.
 
 Counterpart of ``yolo_tpu/models/network.py`` for inference: the eval
-forward (with BN, or with BN folded by ``fuse_params``) and the
-``heads_only`` outputs that feed the sparse-decode NMS.
+forward (with BN, or with BN folded by ``fuse_params``), the ``heads_only``
+outputs that feed the sparse-decode NMS, and test-time augmentation
+(``Darknet.forward_augment``, the JAX package's ``make_augmented_apply``).
+Every layer kind of the cfgs under ``cfg/`` runs: conv and depthwise conv,
+standalone BN, maxpool, SE, global avgpool, scale_channels, reorg3d,
+route, shortcut, upsample, dropout, and yolo heads, ASFF ones included.
 
 Params and state are dicts keyed by layer-index strings, as in the JAX
 package: ``params[k]`` holds ``w`` (OIHW), ``b`` or ``gamma``/``beta``,
 the weighted-shortcut ``w``; ``state[k]`` holds the BN ``mean``/``var``.
 ``yolo_tpu_torch.convert`` moves them to and from the JAX pytrees.
-
-Not ported yet (see ROADMAP.md): ASFF heads, reorg3d, se, avgpool,
-scale_channels, depthwise and mixconv layers, and test-time augmentation.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .. import ir as ir_mod
@@ -30,12 +32,16 @@ from .yolo_head import decode_yolo_nhwc
 CONV_BN_EPS = 1e-5
 LONE_BN_EPS = 1e-4
 
-SUPPORTED_KINDS = ('conv', 'batchnorm', 'maxpool', 'route', 'shortcut',
-                   'upsample', 'yolo', 'dropout')
+SUPPORTED_KINDS = ('conv', 'depthwise', 'batchnorm', 'maxpool', 'se',
+                   'avgpool', 'scale_channels', 'reorg3d', 'route',
+                   'shortcut', 'upsample', 'yolo', 'dropout')
+CONV_KINDS = ('conv', 'depthwise')
 
 
 def _asff_yolo(net: ir_mod.NetworkIR) -> set[int]:
-    """Indices of yolo layers that fuse all scales (ASFF)."""
+    """Indices of yolo layers that fuse all scales (ASFF): their ``from``
+    head convs carry na*no + nl channels, the last nl of them the per-pixel
+    scale weights."""
     layers = net.layers
     return {l.index for l in layers
             if l.kind == 'yolo' and len(l.layers) >= 2
@@ -51,10 +57,6 @@ def check_supported(net: ir_mod.NetworkIR):
             raise NotImplementedError(
                 f'layer {lyr.index}: kind {lyr.kind!r} is not ported to '
                 f'yolo_tpu_torch yet (see ROADMAP.md)')
-    if _asff_yolo(net):
-        raise NotImplementedError(
-            'ASFF yolo heads are not ported to yolo_tpu_torch yet '
-            '(see ROADMAP.md)')
 
 
 def init_params(net: ir_mod.NetworkIR, generator: torch.Generator | None = None,
@@ -68,9 +70,10 @@ def init_params(net: ir_mod.NetworkIR, generator: torch.Generator | None = None,
     biases are uniform in +-0.05; BN gets gamma in U(0.6, 1.4), beta ~ N(0, 0.1),
     running mean ~ N(0, 0.3) and var in U(0.5, 2) (identity BN would let the
     random activations die out over the depth); a leading 3-channel
-    [BatchNorm2d] is the imagenet input normaliser; weighted shortcuts start
-    at zero; and convs feeding a yolo layer get the smart head bias
-    (objectness -4.5, classes log(0.6 / (nc - 0.99)))."""
+    [BatchNorm2d] is the imagenet input normaliser; SE fc weights are
+    uniform in +-1/sqrt(fan_in); weighted shortcuts start at zero; and
+    convs feeding a yolo layer get the smart head bias (objectness -4.5,
+    classes log(0.6 / (nc - 0.99)))."""
     check_supported(net)
     g = generator if generator is not None else torch.Generator().manual_seed(0)
     uniform = lambda n, lo, hi: lo + (hi - lo) * torch.rand(n, generator=g)
@@ -84,7 +87,7 @@ def init_params(net: ir_mod.NetworkIR, generator: torch.Generator | None = None,
     state: dict[str, dict] = {}
     for lyr in net.layers:
         k = str(lyr.index)
-        if lyr.kind == 'conv':
+        if lyr.kind in CONV_KINDS:
             shape = (lyr.filters, lyr.in_channels // lyr.groups, lyr.size,
                      lyr.size)
             std = conv_scale * math.sqrt(2.0 / math.prod(shape[1:]))
@@ -100,6 +103,11 @@ def init_params(net: ir_mod.NetworkIR, generator: torch.Generator | None = None,
                         'var': torch.tensor([0.0524, 0.0502, 0.0506])}
         elif lyr.kind == 'batchnorm':
             params[k], state[k] = bn(lyr.filters)
+        elif lyr.kind == 'se':
+            c, r = lyr.filters, lyr.reduction
+            params[k] = {'fc1': uniform((c // r, c), -1, 1) / math.sqrt(c),
+                         'fc2': uniform((c, c // r), -1, 1)
+                         / math.sqrt(c // r)}
         elif lyr.kind == 'shortcut' and lyr.weighted:
             params[k] = {'w': torch.zeros(len(lyr.layers) + 1)}
 
@@ -121,7 +129,7 @@ def fuse_params(net: ir_mod.NetworkIR, params, state):
     fused = {k: dict(v) for k, v in params.items()}
     for lyr in net.layers:
         k = str(lyr.index)
-        if lyr.kind == 'conv' and lyr.bn and k in state:
+        if lyr.kind in CONV_KINDS and lyr.bn and k in state:
             p = fused[k]
             w, b = conv_ops.fuse_conv_bn(p['w'], p.get('b'), p['gamma'],
                                          p['beta'], state[k]['mean'],
@@ -167,7 +175,7 @@ class Darknet(nn.Module):
         check_supported(net)
         state = state or {}
         for lyr in net.layers:
-            if lyr.kind == 'conv':
+            if lyr.kind in CONV_KINDS:
                 p = params[str(lyr.index)]
                 want = ('w', 'b') if (fused or not lyr.bn) else ('w', 'gamma',
                                                                   'beta')
@@ -181,16 +189,18 @@ class Darknet(nn.Module):
         self.layer = nn.ModuleDict({k: _LayerTensors(v, state.get(k, {}), dtype)
                                     for k, v in params.items()})
         self._act = {l.index: act_mod.get(l.activation, maxabsscaler)
-                     for l in net.layers if l.kind == 'conv'}
+                     for l in net.layers if l.kind in CONV_KINDS}
         self._yolos = [l for l in net.layers if l.kind == 'yolo']
         for i, l in enumerate(self._yolos):
             self.register_buffer(f'anchors{i}', torch.as_tensor(
                 l.anchors, dtype=torch.float32), persistent=False)
+        self._asff = _asff_yolo(net)
         # head conv index -> the yolo layer right after it, where the slim
-        # objectness conv applies (same pairing rule as the JAX package)
+        # objectness conv applies (same pairing rule as the JAX package; an
+        # ASFF head's objectness lives in the fused map, so it has none)
         self._head_conv = {}
         for i, lyr in enumerate(net.layers):
-            if lyr.kind == 'yolo' and i > 0:
+            if lyr.kind == 'yolo' and i > 0 and lyr.index not in self._asff:
                 hc = net.layers[i - 1]
                 if (hc.kind == 'conv' and hc.groups == 1
                         and hc.activation in ('linear', None)
@@ -208,7 +218,7 @@ class Darknet(nn.Module):
         head_convs = self._head_conv if want_obj else {}
         for lyr in self.net.layers:
             kind = lyr.kind
-            if kind == 'conv':
+            if kind in CONV_KINDS:
                 t = self.layer[str(lyr.index)]
                 stride = lyr.stride_xy or lyr.stride
                 if lyr.index in head_convs:
@@ -233,6 +243,15 @@ class Darknet(nn.Module):
                                                  t.var, LONE_BN_EPS)
             elif kind == 'maxpool':
                 prev = conv_ops.max_pool(prev, lyr.size, lyr.stride)
+            elif kind == 'se':
+                t = self.layer[str(lyr.index)]
+                prev = conv_ops.se_block(prev, t.fc1, t.fc2)
+            elif kind == 'avgpool':
+                prev = conv_ops.global_avg_pool(prev)
+            elif kind == 'scale_channels':
+                prev = outs[lyr.layers[0]] * prev
+            elif kind == 'reorg3d':
+                prev = conv_ops.space_to_depth(prev, lyr.stride)
             elif kind == 'upsample':
                 prev = conv_ops.upsample_nearest(prev, lyr.stride)
             elif kind == 'route':
@@ -245,13 +264,34 @@ class Darknet(nn.Module):
             elif kind == 'shortcut':
                 prev = self._shortcut(lyr, prev, outs)
             elif kind == 'yolo':
-                heads.append(prev.permute(0, 2, 3, 1))
+                heads.append(self._asff_fuse(lyr, outs)
+                             if lyr.index in self._asff
+                             else prev.permute(0, 2, 3, 1))
                 o = pending.get(lyr.index - 1)
                 objs.append(None if o is None else o.permute(0, 2, 3, 1))
             # dropout: identity at inference
             if lyr.is_routed:
                 outs[lyr.index] = prev
         return heads, objs
+
+    @staticmethod
+    def _asff_fuse(lyr, outs):
+        """The ASFF head map (NHWC, f32): this scale's map weighted by
+        ``sigmoid(p[:, -n:]) * 2 / n``, plus the other scales' maps, each
+        resized bilinearly (half-pixel centres, no antialias) to this grid
+        and weighted likewise."""
+        srcs = [outs[j].to(torch.float32) for j in lyr.layers]
+        n, i = len(srcs), lyr.yolo_index
+        p = srcs[i]
+        w = torch.sigmoid(p[:, -n:]) * (2.0 / n)
+        fused = p[:, :-n] * w[:, i:i + 1]
+        size = tuple(p.shape[2:])
+        for j, s in enumerate(srcs):
+            if j != i:
+                r = F.interpolate(s[:, :-n], size=size, mode='bilinear',
+                                  align_corners=False)
+                fused = fused + w[:, j:j + 1] * r
+        return fused.permute(0, 2, 3, 1).contiguous()
 
     def _shortcut(self, lyr, x, outs):
         if lyr.weighted:
@@ -287,3 +327,34 @@ class Darknet(nn.Module):
 
     def forward_heads(self, x):
         return self._run(x, want_obj=True)
+
+    def forward_augment(self, x):
+        """Test-time augmentation (the JAX package's
+        ``make_augmented_apply``): the decoded io of the input, of its
+        left-right flip scaled by 0.83 (boxes divided by 0.83, x centres
+        flipped back against the input width) and of the input scaled by
+        0.67 (boxes divided by 0.67), concatenated along the rows."""
+        img_w = x.shape[2]
+        io0 = self(x)
+        io1 = self(scale_img(torch.flip(x, (2,)), 0.83))
+        io1 = torch.cat([img_w - io1[..., :1] / 0.83, io1[..., 1:4] / 0.83,
+                         io1[..., 4:]], -1)
+        io2 = self(scale_img(x, 0.67))
+        io2 = torch.cat([io2[..., :4] / 0.67, io2[..., 4:]], -1)
+        return torch.cat([io0, io1, io2], 1)
+
+
+def scale_img(x, ratio: float, same_shape: bool = False, gs: int = 64):
+    """Scale an NHWC batch by ``ratio`` (bilinear, half-pixel centres, no
+    antialias, in f32) to (int(h * ratio), int(w * ratio)), then pad the
+    bottom and right with the grey 0.447 up to a multiple of ``gs`` (or
+    back to the input size with ``same_shape``)."""
+    if ratio == 1.0:
+        return x
+    _, h, w, _ = x.shape
+    nh, nw = int(h * ratio), int(w * ratio)
+    y = F.interpolate(x.permute(0, 3, 1, 2).to(torch.float32), size=(nh, nw),
+                      mode='bilinear', align_corners=False).permute(0, 2, 3, 1)
+    if not same_shape:
+        h, w = math.ceil(h * ratio / gs) * gs, math.ceil(w * ratio / gs) * gs
+    return F.pad(y, (0, 0, 0, max(w - nw, 0), 0, max(h - nh, 0)), value=0.447)

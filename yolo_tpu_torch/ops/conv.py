@@ -7,6 +7,7 @@ the JAX package's NHWC array without a copy; weights are OIHW.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -56,6 +57,46 @@ def upsample_nearest(x, scale: int):
     return y.permute(0, 3, 1, 2)
 
 
+def se_block(x, fc1_w, fc2_w):
+    """Squeeze-and-excitation with a hard-sigmoid gate: the mean over H, W,
+    ``relu(y @ fc1.T) @ fc2.T``, then ``clip(y + 3, 0, 6) / 6`` scales the
+    channels. The fc weights are in ``Linear`` layout (out, in). The gate is
+    computed in f32 and cast to x's dtype."""
+    y = x.to(torch.float32).mean((2, 3))                          # (n, c)
+    y = torch.relu(y @ fc1_w.to(torch.float32).T)
+    y = y @ fc2_w.to(torch.float32).T
+    y = torch.clamp(y + 3.0, 0.0, 6.0) / 6.0
+    return x * y.to(x.dtype)[:, :, None, None]
+
+
+def global_avg_pool(x):
+    """The [avgpool] layer: the mean over H, W to 1x1, taken in f32 and cast
+    back to x's dtype."""
+    return x.to(torch.float32).mean((2, 3), keepdim=True).to(x.dtype)
+
+
+def mixconv2d(x, weights, *, stride: int = 1):
+    """MixConv: one conv per OIHW kernel of odd size k, 'same' padding
+    k // 2, outputs concatenated along the channels."""
+    return torch.cat([conv2d(x, w, stride=stride, padding=w.shape[-1] // 2)
+                      for w in weights], 1)
+
+
+def mixconv_channel_split(out_ch: int, ks=(3, 5, 7), method='equal_params'):
+    """Output channels of each MixConv branch: 'equal_ch' splits them
+    evenly, 'equal_params' solves for an equal parameter count."""
+    groups = len(ks)
+    if method == 'equal_ch':
+        i = np.floor(np.linspace(0, groups - 1e-6, out_ch))
+        return [int((i == g).sum()) for g in range(groups)]
+    b = [out_ch] + [0] * groups
+    a = np.eye(groups + 1, groups, k=-1)
+    a -= np.roll(a, 1, axis=1)
+    a *= np.array(ks) ** 2
+    a[0] = 1
+    return np.linalg.lstsq(a, b, rcond=None)[0].round().astype(int).tolist()
+
+
 def fuse_conv_bn(w, b, gamma, beta, mean, var, eps: float = 1e-5):
     """Fold inference BN into an OIHW conv: returns (w_fused, b_fused)."""
     scale = gamma / torch.sqrt(var + eps)
@@ -85,6 +126,16 @@ def max_pool_nhwc(x, size: int, stride: int):
     xf = x.to(torch.float32) if x.dtype == torch.int8 else x
     y = max_pool(xf.permute(0, 3, 1, 2), size, stride).permute(0, 2, 3, 1)
     return y.to(torch.int8).contiguous() if x.dtype == torch.int8 else y
+
+
+def se_block_nhwc(x, fc1_w, fc2_w):
+    """``se_block`` on an NHWC tensor; returns NHWC."""
+    return se_block(x.permute(0, 3, 1, 2), fc1_w, fc2_w).permute(0, 2, 3, 1)
+
+
+def global_avg_pool_nhwc(x):
+    """``global_avg_pool`` on an NHWC tensor: (n, 1, 1, c)."""
+    return global_avg_pool(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
 def upsample_nearest_nhwc(x, scale: int):

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from . import activations as act_mod
+from . import conv as conv_ops
 from .._build import load_library
 
 # activation codes of csrc/conv_int8.cu
@@ -154,16 +155,72 @@ def fused_conv_int8_reference(x8, w8, bias, scale, out_scale, *, stride: int,
     acc = F.conv2d(x8.permute(0, 3, 1, 2).to(torch.float64),
                    w8.permute(0, 3, 1, 2).to(torch.float64),
                    stride=stride, padding=k // 2)
-    acc = acc.permute(0, 2, 3, 1).to(torch.int32).to(torch.float32)
-    dev = x8.device
+    return _epilogue(acc.permute(0, 2, 3, 1).to(torch.int32), bias, scale,
+                     out_scale, act, maxabs, out_q, qmin, qmax)
+
+
+def _epilogue(acc, bias, scale, out_scale, act, maxabs, out_q, qmin, qmax):
+    """The kernel's f32 epilogue on s32 sums ``acc`` (NHWC)."""
+    dev = acc.device
     s = torch.tensor(_f32(scale), device=dev)
-    y = acc * s + bias.to(torch.float32)
+    y = acc.to(torch.float32) * s + bias.to(torch.float32)
     y = act_mod.get(act, maxabs)(y)
     if not out_q:
         return y.contiguous()
     oinv = torch.tensor(np.float32(1.0) / _f32(out_scale), device=dev)
     q = torch.clamp(round_half_away(y * oinv), qmin, qmax)
     return q.to(torch.int8).contiguous()
+
+
+def grouped_conv_s32(x8, w8, *, stride, pad: int, groups: int):
+    """The exact s32 sums of an int8 conv of any window, stride, padding
+    and group count, in plain PyTorch on every device: x8 int8 NHWC, w8
+    int8 (Cout, K, K, Cin // groups), zero padding ``pad``, ``stride`` an
+    int or an (sy, sx) pair; returns int32 NHWC. The sums are int32
+    products of shifted int8 slices, added tap by tap over the K x K
+    window: exact by construction, with no float conv algorithm between (a
+    cuDNN f32 conv may pick Winograd or FFT, which are not exact)."""
+    sy, sx = (stride, stride) if isinstance(stride, int) else stride
+    n, h, w, cin = x8.shape
+    cout, kh, kw, cg = w8.shape
+    og = cout // groups
+    if cin != cg * groups or cout != og * groups:
+        raise ValueError(f'grouped_conv_s32: x8 {tuple(x8.shape)} and w8 '
+                         f'{tuple(w8.shape)} do not match groups={groups}')
+    ho = (h + 2 * pad - kh) // sy + 1
+    wo = (w + 2 * pad - kw) // sx + 1
+    xp = F.pad(x8.to(torch.int32), (0, 0, pad, pad, pad, pad))
+    wg = w8.to(torch.int32).reshape(groups, og, kh, kw, cg)
+    acc = torch.zeros((n, ho, wo, groups, og), dtype=torch.int32,
+                      device=x8.device)
+    for dy in range(kh):
+        for dx in range(kw):
+            xs = xp[:, dy:dy + sy * (ho - 1) + 1:sy,
+                    dx:dx + sx * (wo - 1) + 1:sx]
+            if cg == 1:                  # depthwise: one multiply-add
+                acc.addcmul_(xs.reshape(n, ho, wo, groups, 1),
+                             wg[:, :, dy, dx, 0])
+            else:
+                prod = xs.reshape(n, ho, wo, groups, 1, cg) * wg[:, :, dy, dx]
+                acc += prod.sum(-1, dtype=torch.int32)
+    return acc.reshape(n, ho, wo, cout)
+
+
+def grouped_conv_int8(x8, w8, bias, scale, out_scale, *, stride, pad: int,
+                      groups: int, act: str = 'leaky', maxabs: bool = False,
+                      qmin: int = -128, qmax: int = 127):
+    """The int8 convs K2 does not take (depthwise and grouped ones, other
+    windows, strides or paddings): ``grouped_conv_s32``, then K2's f32
+    epilogue into int8 (the JAX package runs these through XLA's s8 conv
+    with s32 sums and the same epilogue). Plain PyTorch on every device;
+    each call adds one to ``grouped_conv_int8.calls``."""
+    acc = grouped_conv_s32(x8, w8, stride=stride, pad=pad, groups=groups)
+    grouped_conv_int8.calls += 1
+    return _epilogue(acc, bias, scale, out_scale, act, maxabs, True, qmin,
+                     qmax)
+
+
+grouped_conv_int8.calls = 0
 
 
 def _check(x8, w8, bias, stride, act, qmin, qmax):
@@ -261,3 +318,25 @@ def _launch(x8, w8, bias, out, stride, scale, oinv, act, slope, out_q, qmin,
 
 
 fused_conv_int8.launches = 0
+
+
+def float_edge_conv(x, w8, bias, sw, sa, *, stride, pad: int, groups: int,
+                    act: str, maxabs: bool, qmin: int, qmax: int):
+    """A conv on a float edge (f32 NHWC ``x``) into an int8 edge of scale
+    ``sa``: the conv of the bf16-rounded input with the dequantized int8
+    weights (exact in bf16), summed and kept in f32, then bias, activation
+    and requantization. That is the JAX engine as its jitted program
+    computes it: XLA keeps the bf16 conv's f32 sums without rounding them
+    to bf16 (its eager op does round them). Each call adds one to
+    ``float_edge_conv.calls``."""
+    wf = w8.permute(0, 3, 1, 2).to(torch.float32) * sw
+    xb = x.to(torch.bfloat16).to(torch.float32)
+    y = conv_ops.conv2d_nhwc(xb, wf, stride=stride, padding=pad,
+                             groups=groups)
+    y = act_mod.get(act, maxabs)(y + bias)
+    q = torch.clamp(round_half_away(y * (1.0 / sa)), qmin, qmax)
+    float_edge_conv.calls += 1
+    return q.to(torch.int8).contiguous()
+
+
+float_edge_conv.calls = 0

@@ -1,7 +1,8 @@
 """Model loading and the inference pipelines (counterpart of
 yolo_tpu/runtime.py): build the IR, initialise or load weights (.npz
-checkpoints of the JAX package, darknet .weights), and return a forward +
-decode + NMS callable on an explicit device.
+checkpoints of the JAX package, darknet .weights, .pt checkpoints of the
+PyTorch reference), and return a forward + decode + NMS callable on an
+explicit device.
 
 Float models: ``load_model`` -> ``fuse`` (BN folded) -> ``make_infer``.
 Quantized models (``quantized=1``, the google scheme): ``load_model``
@@ -10,8 +11,8 @@ calibration step; ``make_infer`` runs the true-int8 engine (default) or the
 fake-quant sim (``engine=False``).
 
 Every entry point runs on the card (``device='cuda'``) unless the caller
-asks for the CPU. Other quantization schemes, test-time augmentation and
-.pt weights are not ported yet (see ROADMAP.md).
+asks for the CPU. Other quantization schemes and the bf16 eval snap of the
+sim are not ported yet (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from .ir import NetworkIR, build_ir
 from .models.darknet_io import load_darknet_weights
 from .models.int8_engine import make_int8_apply, prepare_int8
 from .models.network import Darknet, fuse_params, init_params
+from .models.torch_import import load_torch_checkpoint
 from .ops.nms import non_max_suppression, non_max_suppression_heads
 from .utils.checkpoint import load_checkpoint
 
@@ -113,23 +115,30 @@ class ModelBundle:
         head maps (``non_max_suppression_heads``, cell mode via the slim
         objectness conv) over the dense decode of every anchor box. Dense
         is the default: on an H100 it measured faster for yolov3 @608 bs=8
-        (PERF.md).
+        (PERF.md). ``augment`` runs test-time augmentation
+        (``Darknet.forward_augment``: the input, its flip at 0.83 and its
+        0.67 scale, merged) into the dense NMS.
 
         Quantized bundles: ``engine`` (default: on, for the google scheme,
         on every device) runs the true-int8 engine with its int8 heads
         into the sparse NMS (``head_scales``); ``engine=False`` runs the
         f32 fake-quant sim and the dense NMS. The plan of the engine is
-        prepared here, from the current calibration."""
-        if augment:
-            raise NotImplementedError('test-time augmentation is not ported to '
-                                      'yolo_tpu_torch yet (see ROADMAP.md)')
+        prepared here, from the current calibration; ``augment`` prints a
+        warning and runs a single pass, as in the JAX package."""
+        if augment and self.quantized:
+            print('WARNING: --augment (TTA) is not supported with quantized '
+                  'inference; running single-pass')
         kw = dict(conf_thres=conf_thres, iou_thres=iou_thres, top_k=top_k,
                   max_det=max_det, multi_label=multi_label, agnostic=agnostic,
                   classes=classes)
         if self.quantized:
             return self._make_quant_infer(kw, engine)
         model = self.model()
-        if sparse:
+        if augment:
+            @torch.inference_mode()
+            def infer(x):
+                return non_max_suppression(model.forward_augment(x), **kw)
+        elif sparse:
             anchors = model.anchors()
             strides = self.strides
 
@@ -175,13 +184,17 @@ def load_model(cfg, weights=None, *, device='cuda', dtype=torch.bfloat16,
                shortcut_way: int = 1, steps: int = 0,
                is_gray_scale: bool = False, maxabsscaler: bool = False,
                generator: torch.Generator | None = None,
-               conv_scale: float = 1.0) -> ModelBundle:
+               conv_scale: float = 1.0, pt: bool = False,
+               prefer_ema: bool = True) -> ModelBundle:
     """Build a detector on ``device`` and load its weights.
 
-    ``weights``: a .npz checkpoint of the JAX package (its EMA params and
-    BN state when it holds both, as inference in the JAX package loads
-    them) or darknet .weights; None or '' keeps the random init of
-    ``init_params(generator, conv_scale)``.
+    ``weights``: a .npz checkpoint of the JAX package, a .pt/.pth
+    checkpoint of the PyTorch reference (``models/torch_import.py``; its
+    quantizer trackers restore ``qstate``) or darknet .weights (``pt``
+    skips the 255-channel heads of a pretrained file); None or '' keeps
+    the random init of ``init_params(generator, conv_scale)``. A .npz that
+    holds both the raw params/state and the EMA pair loads the EMA pair
+    unless ``prefer_ema`` is False (the raw trajectory, as a resume needs).
 
     ``quantized``: -1 float; 1 the google scheme with ``a_bit``/``w_bit``,
     ``shortcut_way`` and ``steps`` (the calibration length that sets the
@@ -208,7 +221,8 @@ def load_model(cfg, weights=None, *, device='cuda', dtype=torch.bfloat16,
         if w.endswith('.npz'):
             ck = load_checkpoint(w)
             src_params, src_state = ck['params'], ck['state']
-            if ck.get('ema') is not None and ck.get('ema_state') is not None:
+            if (prefer_ema and ck.get('ema') is not None
+                    and ck.get('ema_state') is not None):
                 src_params, src_state = ck['ema'], ck['ema_state']
             src_params, src_state = from_jax(net, src_params, src_state)
             params = _merge_compatible(params, src_params)
@@ -221,10 +235,11 @@ def load_model(cfg, weights=None, *, device='cuda', dtype=torch.bfloat16,
                 if saved is not None:
                     qstate = _merge_tree(qstate, qstate_from_jax(saved))
         elif w.endswith(('.pt', '.pth')):
-            raise NotImplementedError('.pt weights are not ported to '
-                                      'yolo_tpu_torch yet (see ROADMAP.md)')
+            params, state, qstate, _ = load_torch_checkpoint(
+                net, params, state, w, qstate=qstate)
         else:
-            params, state, _, _ = load_darknet_weights(net, params, state, w)
+            params, state, _, _ = load_darknet_weights(net, params, state, w,
+                                                       pt=pt)
     to = lambda tree: {k: {f: t.to(device) for f, t in d.items()}
                        for k, d in tree.items()}
     if qstate is not None:

@@ -7,14 +7,19 @@
     python -m yolo_tpu_torch.test --cfg ... --data ... \\
         --weights weights/calibrated.npz --quantized 1 [--int8-engine]
 
+    python -m yolo_tpu_torch.test --cfg ... --data ... \\
+        --weights weights/best.pt --augment
+
 Tasks: ``test`` (the P/R/mAP/F1 table), ``study`` (an image-size sweep at
 the CLI's IoU threshold -> ``study_<data>_<cfg>.txt``) and ``benchmark``
 (sizes 256-512 x NMS IoU {0.6, 0.7} -> ``benchmark.txt``). It runs on the
 card unless ``--device cpu``. ``--quantized 1`` evaluates the fake-quant
 sim of a calibrated google-scheme checkpoint, ``--int8-engine`` the
-true-int8 engine (K2 convs) on it. Other schemes, ``--augment`` (test-time
-augmentation) and ``--qat-eval-snap bf16`` are not ported yet (see
-ROADMAP.md).
+true-int8 engine (K2 convs) on it. ``--augment`` runs test-time
+augmentation on a float model (a quantized one warns and runs a single
+pass). ``--weights`` takes a .npz of the JAX package, a .pt of the PyTorch
+reference or darknet .weights. Other schemes and ``--qat-eval-snap bf16``
+are not ported yet (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -49,7 +54,7 @@ def parse_args(argv=None):
     p.add_argument('--maxabsscaler', '-mas', action='store_true')
     p.add_argument('--single-cls', action='store_true')
     p.add_argument('--augment', action='store_true',
-                   help='test-time augmentation (not ported yet)')
+                   help='test-time augmentation (float models)')
     p.add_argument('--device', type=str, default='cuda',
                    help="torch device ('cuda', 'cuda:1', 'cpu')")
     p.add_argument('--int8-engine', action='store_true',
@@ -66,8 +71,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     opt = parse_args(argv)
-    if opt.augment:
-        raise unported('--augment (test-time augmentation)')
     if opt.qat_eval_snap != 'f32':
         raise unported('--qat-eval-snap bf16')
     if opt.quantized not in (-1, 1):
@@ -100,7 +103,7 @@ def main(argv=None):
               fused=not bundle.quantized, single_cls=opt.single_cls,
               is_gray_scale=opt.gray_scale, maxabsscaler=opt.maxabsscaler,
               quant_apply=eval_qapply, qstate=eval_qstate,
-              device=bundle.device)
+              augment=opt.augment, device=bundle.device)
 
     if opt.task in ('benchmark', 'study'):
         import time
