@@ -106,6 +106,30 @@ Phases; any failure exits non-zero, and nothing runs on the CPU instead
    says which image decoders (``cv2``, ``PIL``, ``torchvision.io``) import
    on the machine, each tried in a process of its own.
 
+9. pruning (``compress/prune_drivers.py``, ``python -m yolo_tpu_torch.prune``),
+   in a child process (``chip_smoke.py --phase9 DIR``: the file loader
+   imports OpenCV, which this process must not), yolov3 @608 at full width,
+   bs=8, random weights from seed 0 (``conv_scale`` 0.85) with half of each
+   prunable layer's gammas set to U(1e-6, 1e-4) (``shrink_gammas``, the
+   stand-in for a sparsity-trained model): (a) 64 seeded images written as
+   JPEG files, read back and labelled with the model's own detections
+   (``pseudo_labels``), an image list and a .data file; (b) the loader
+   alone (``DetectionDataset`` + ``BatchLoader``, images/s, and
+   ``cv2.imread`` alone), and ``evaluate`` from the files against
+   ``evaluate`` from the same batches in memory, in turns (mAP@0.5 >= 0.99
+   from the files); (c) ``channel_prune('normal', 0.5)``: host seconds,
+   params and MACs, the compact model's f32 heads against the loose
+   model's at bs=2 (rtol 1e-3, atol 1e-3 of the head's largest magnitude),
+   mAP@0.5 before, loose and after, ``timed_forward`` before and after, and
+   fused bf16 ``make_infer`` before and after in turns with a profile of
+   each; (d) ``layer_prune(8)`` and ``eagle_eye_prune(normal, 0.5 +- 0.02,
+   2 candidates, default_rng(0))`` with their evaluations (the best
+   candidate kept); (e) ``python -m yolo_tpu_torch.prune --method normal``
+   and ``--method layer`` on the .data file, side by side, each in a
+   directory of its own: both exit 0, and their cfg and .weights, loaded
+   back, give the in-process compact models' detections bit for bit. K1
+   must launch once per batch of every evaluate there.
+
 A kernel's time is taken twice, on the same inputs: ``cuda_ms``, what its
 caller waits for (median CUDA-event time, the host's work to queue the
 call included), and ``device_ms``, the device alone (a sleep kernel keeps
@@ -113,7 +137,7 @@ the card busy while the host queues the call). A pipeline's time is
 ``cuda_ms``.
 
 The line before the last is a JSON object with each kernel's launches on
-the main paths (phases 4, 6, 7 and 8), error, times and bound (``ms``, ``plain_ms`` and
+the main paths (phases 4, 6, 7, 8 and 9), error, times and bound (``ms``, ``plain_ms`` and
 ``library_ms`` by ``cuda_ms``, ``device_ms`` beside them; for nms_suppress
 also its cluster and CTAs at k=512, bs=8, the wrapper's host time per call,
 the device time by cluster size and both times on the dense path's own
@@ -121,16 +145,19 @@ candidates; for conv_int8 also its 1x1 times beside ``torch._int_mm``'s,
 and its totals by class, and phase 8's engine by route);
 the line before it the card's name and power limit; the last line is the JSON device record. At the end the
 run checks that neither jax nor OpenCV nor any module of the JAX package
-``yolo_tpu`` was imported.
+``yolo_tpu`` was imported into this process (phase 9's child loads
+OpenCV).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -263,16 +290,22 @@ def images(seed, bs, size):
     return np.clip(x, 0, 255).astype(np.uint8)
 
 
-def phase_device():
-    print('[1/8] device')
+def device_setup():
+    """The card's name and power limit (nvidia-smi), with TF32 turned off
+    for matmuls and cuDNN convs."""
     if not torch.cuda.is_available():
         raise SmokeFailure('no CUDA device: this smoke run needs the card')
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, timeout=60, check=True)
-    card = smi.stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_device():
+    print('[1/9] device')
+    card = device_setup()
     print(f'  {torch.cuda.get_device_name(0)}; torch {torch.__version__}, '
           f'CUDA {torch.version.cuda}; TF32 off for matmul and cuDNN')
     return card
@@ -302,7 +335,7 @@ def conv_sass(lib_path):
 
 
 def phase_build():
-    print('[2/8] build')
+    print('[2/9] build')
     import re
     from yolo_tpu_torch import _build
     lib = _build.library_path()
@@ -393,7 +426,7 @@ def k1_compare(got, ref, what):
 
 
 def phase_kernel(dev):
-    print('[3/8] K1 nms_suppress vs plain version')
+    print('[3/9] K1 nms_suppress vs plain version')
     from yolo_tpu_torch.ops import nms_suppress as K1
     suppress, suppress_reference = K1.suppress, K1.suppress_reference
     rng = np.random.default_rng(0)
@@ -472,7 +505,7 @@ def phase_kernel(dev):
 
 
 def phase_pipeline(dev, card):
-    print('[4/8] yolov3 @608 float pipeline')
+    print('[4/9] yolov3 @608 float pipeline')
     from yolo_tpu_torch import runtime
     from yolo_tpu_torch.ops import nms
     from yolo_tpu_torch.ops.nms_suppress import suppress
@@ -689,7 +722,7 @@ def int_mm_ms(x8, w8, **timing):
 
 
 def phase_conv_kernel(dev):
-    print('[5/8] K2 conv_int8 vs plain version')
+    print('[5/9] K2 conv_int8 vs plain version')
     from yolo_tpu_torch.ops.conv_int8 import (fused_conv_int8,
                                               fused_conv_int8_reference)
     max_err = 0.0
@@ -1005,7 +1038,7 @@ def in_range(label, fn):
 
 
 def phase_int8(dev, card):
-    print('[6/8] yolov3 @608 int8 serving')
+    print('[6/9] yolov3 @608 int8 serving')
     from yolo_tpu_torch import runtime
     b, x = int8_bundle(dev, BS, SIZE)
     launches, plan, infer = int8_checks(b, x)
@@ -1109,9 +1142,10 @@ def memory_loader(batches, labels):
                         max(sum(len(l) for l in per) for per in labels))
 
 
-def timed_eval(net, params, state, loader, dev, **kw):
-    """``evaluate`` on ``loader`` with every launch count zeroed just
-    before it; returns (its result, the launches of the run, wall s)."""
+def timed_eval(net, params, state, loader, dev, data=DATA, **kw):
+    """``evaluate`` on ``loader`` (None: the files that ``data`` names)
+    with every launch count zeroed just before it; returns (its result,
+    the launches of the run, wall s)."""
     from yolo_tpu_torch.eval.evaluator import evaluate
     from yolo_tpu_torch.ops.conv_int8 import fused_conv_int8
     from yolo_tpu_torch.ops.nms_suppress import suppress
@@ -1119,7 +1153,7 @@ def timed_eval(net, params, state, loader, dev, **kw):
     sync()
     suppress.launches = fused_conv_int8.launches = 0
     t0 = time.perf_counter()
-    out = evaluate(net, params, state, DATA, batch_size=BS, img_size=SIZE,
+    out = evaluate(net, params, state, data, batch_size=BS, img_size=SIZE,
                    loader=loader, device=dev, **kw)
     sync()
     wall = time.perf_counter() - t0
@@ -1196,7 +1230,7 @@ def phase_eval(dev, card, qb, cfg=CFG, n_images=EVAL_IMAGES):
     """The evaluation path: ``evaluate`` on float yolov3 (device and host
     matching), the f32 QAT sim and the int8 engine of phase 6's calibrated
     bundle ``qb``, each against pseudo-labels made by the model itself."""
-    print(f'[7/8] mAP evaluation: yolov3 @{SIZE}, {n_images} images, bs={BS}')
+    print(f'[7/9] mAP evaluation: yolov3 @{SIZE}, {n_images} images, bs={BS}')
     from yolo_tpu_torch import runtime
     from yolo_tpu_torch.compress.quant import make_quant_apply
     from yolo_tpu_torch.eval.evaluator import evaluate, int8_engine_apply
@@ -1562,7 +1596,7 @@ def phase_new_cfgs(dev, card):
     from yolo_tpu_torch import runtime
     from yolo_tpu_torch.models.torch_import import save_torch_checkpoint
     t0 = time.perf_counter()
-    print(f'[8/8] more cfgs: (a) yolov3-mobilenet @{MOBILE_SIZE}, (b) '
+    print(f'[8/9] more cfgs: (a) yolov3-mobilenet @{MOBILE_SIZE}, (b) '
           f'yolov3-asff @{SIZE}, (c) TTA yolov3 @{SIZE}, (d) mobilenet int8, '
           '(e) .pt')
     k1 = 0
@@ -1592,6 +1626,371 @@ def phase_new_cfgs(dev, card):
 
 
 
+# ------------------------------------------------- phase 9: the pruning toolchain
+
+PRUNE_IMAGES = 64         # 8 batches of BS, JPEG files on disk
+JPEG_QUALITY = 95
+# the stand-in for a sparsity-trained model: this share of each prunable
+# layer's gammas goes to U(1e-6, 1e-4) (tests/test_prune.py::_shrink_gammas)
+PRUNE_SHRINK = 0.5
+# the shrunk channels carry no signal, so the random weights need a larger
+# scale than phase 4's 0.7: with the shrink, 0.7 leaves every confidence
+# below 0.001 (no pseudo-label at all, on the card); at 0.85 each image
+# keeps 20 or more boxes above 0.9 (phase 9 (a) prints the threshold)
+PRUNE_CONV_SCALE = 0.85
+PRUNE_PERCENT = 0.5       # normal prune: the global gamma percentile
+PRUNE_SHORTCUTS = 8       # layer prune: shortcut blocks removed
+EAGLE = dict(method='normal', remain_ratio=0.5, delta=0.02, candidates=2)
+# the compact model's f32 heads against the loose model's: rtol, and atol
+# as a share of the largest head magnitude (the sliced convs sum fewer
+# terms, the dead channels' constants arrive through the consumers' biases)
+PRUNE_HEADS_TOL = 1e-3
+
+
+def shrink_gammas(params, prune_idx, frac=PRUNE_SHRINK, seed=0):
+    """``frac`` of each listed layer's gammas to U(1e-6, 1e-4), drawn as
+    ``tests/test_prune.py::_shrink_gammas`` draws them; new tensors."""
+    rng = np.random.RandomState(seed)
+    out = {k: dict(v) for k, v in params.items()}
+    for i in prune_idx:
+        g = out[str(i)]['gamma']
+        a = g.cpu().numpy().copy()
+        n = max(int(len(a) * frac), 1)
+        idx = rng.choice(len(a), n, replace=False)
+        a[idx] = rng.uniform(1e-6, 1e-4, n)
+        out[str(i)]['gamma'] = torch.from_numpy(a).to(g.device)
+    return out
+
+
+def write_jpeg_set(root, infer, dev, n_images):
+    """``n_images`` seeded images as JPEG files under ``root/images``, read
+    back (the pixels the loader sees) and labelled with ``infer``'s own
+    detections (``pseudo_labels``) under ``root/labels``; an image list and
+    a .data file (80 classes, the COCO names). Returns (the .data path, the
+    batches read back, their labels)."""
+    import cv2
+    for d in ('images', 'labels'):
+        os.makedirs(os.path.join(root, d))
+    paths, batches = [], []
+    for b in range(n_images // BS):
+        back = []
+        for j, im in enumerate(images(40 + b, BS, SIZE)):
+            p = os.path.join(root, 'images', f'im{b}_{j}.jpg')
+            cv2.imwrite(p, im[..., ::-1], [cv2.IMWRITE_JPEG_QUALITY,
+                                           JPEG_QUALITY])
+            back.append(cv2.imread(p)[..., ::-1])       # BGR file -> RGB
+            paths.append(p)
+        batches.append(np.ascontiguousarray(np.stack(back)))
+    labels, thres, n_dup = pseudo_labels(infer, batches, dev)
+    flat = [lab for per in labels for lab in per]
+    for p, lab in zip(paths, flat):
+        np.savetxt(p.replace('images', 'labels').replace('.jpg', '.txt'),
+                   lab, fmt='%d %.9f %.9f %.9f %.9f')
+    with open(os.path.join(root, 'val.txt'), 'w') as f:
+        f.write('\n'.join(paths) + '\n')
+    data = os.path.join(root, 'set.data')
+    with open(data, 'w') as f:
+        f.write(f'classes=80\nvalid={root}/val.txt\n'
+                f'names={ROOT}/data_cfg/coco.names\n')
+    counts = [len(lab) for lab in flat]
+    check(min(counts) >= EVAL_LABELS - n_dup,
+          f'(a) {n_images} JPEG files, {sum(counts)} pseudo-labels, '
+          f'{min(counts)}-{max(counts)} per image (confidence >= '
+          f'{thres:.6f}; {n_dup} duplicates dropped)')
+    return data, batches, labels
+
+
+def time_loader(data, n_images, card):
+    """(b) The data layer alone: decode of every file, ``DetectionDataset``
+    set-up and one pass of ``BatchLoader``, twice; returns the loader's
+    images/s of the second pass."""
+    import cv2
+    from yolo_tpu_torch.config import parse_data_cfg
+    from yolo_tpu_torch.data.datasets import BatchLoader, DetectionDataset
+    valid = parse_data_cfg(data)['valid']
+    paths = open(valid).read().split()
+    t0 = time.perf_counter()
+    for p in paths:
+        cv2.imread(p)
+    decode = (time.perf_counter() - t0) / len(paths)
+    rates = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        ds = DetectionDataset(valid, SIZE, BS, rect=True)
+        t_ds = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n = sum(sum(bool(p) for p in b[3]) for b in BatchLoader(ds, BS))
+        t_it = time.perf_counter() - t0
+        check(n == n_images, f'(b) the loader gave {n} images')
+        rates.append(n / t_it)
+        print(f'  (b) loader: dataset set-up {t_ds:.4f} s, one pass '
+              f'{t_it:.4f} s = {n / t_it:.1f} images/s ({1e3 * t_it / n:.3f}'
+              f' ms an image; cv2.imread alone {1e3 * decode:.3f} ms an '
+              f'image; host, beside {card})')
+    return rates[-1]
+
+
+def prune_evals(counter, dev):
+    """``timed_eval`` from files with K1 checked once per batch; every
+    run's launches are added to ``counter``."""
+    def run(net, params, state, data, what, loader=None):
+        res, launches, wall = timed_eval(net, params, state, loader, dev,
+                                         data=data)
+        n_batches = PRUNE_IMAGES // BS
+        want = n_batches if dev.type == 'cuda' else 0   # the CPU runs the twin
+        check(launches['nms_suppress'] == want,
+              f'{what}: K1 launched {launches["nms_suppress"]} times for '
+              f'{n_batches} batches')
+        counter['nms_suppress'] += launches['nms_suppress']
+        return res, wall
+    return run
+
+
+def heads_f32(net, params, state, x):
+    from yolo_tpu_torch.runtime import ModelBundle
+    m = ModelBundle(net=net, params=params, state=state, device=x.device,
+                    dtype=torch.float32).model()
+    with torch.inference_mode():
+        return m.forward_heads(x)[0]
+
+
+def serving_turns(bundles, x, card, what):
+    """The fused bf16 ``make_infer`` of each bundle in turns (a b b a) by
+    ``cuda_ms``, then a profile of each; returns {name: (ms, profile)}."""
+    kw = dict(conf_thres=CONF_THRES, iou_thres=0.6, top_k=512, max_det=300)
+    infers = {n: b.fuse().make_infer(**kw) for n, b in bundles.items()}
+    names = list(infers)
+    runs = {n: [] for n in names}
+    for n in names + names[::-1]:
+        runs[n].append(cuda_ms(lambda: infers[n](x), iters=10))
+    out = {}
+    for n in names:
+        ms = statistics.median(runs[n])
+        print(f'  {what} {n}: {ms:.3f} ms per batch of {x.shape[0]} (runs '
+              f'{", ".join(f"{r:.3f}" for r in runs[n])}), '
+              f'{x.shape[0] * 1000.0 / ms:.1f} images/s bf16 dense ({card})')
+        out[n] = (ms, profile_device(lambda: infers[n](x), n=2))
+    return out
+
+
+def run_cli(method, cfg, weights, data, workdir, dev):
+    """Start ``python -m yolo_tpu_torch.prune --method ...`` in
+    ``workdir``; returns (the process, its log path)."""
+    os.makedirs(workdir)
+    log = os.path.join(workdir, 'cli.log')
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    cmd = [sys.executable, '-m', 'yolo_tpu_torch.prune', '--method', method,
+           '--cfg', cfg, '--weights', weights, '--data', data, '--img-size',
+           str(SIZE), '--batch-size', str(BS), '--device', str(dev)]
+    with open(log, 'w') as f:
+        return subprocess.Popen(cmd, cwd=workdir, env=env, stdout=f,
+                                stderr=subprocess.STDOUT), log
+
+
+def prune_child(root, dev):
+    """Phase 9 (in a process of its own: the file loader imports OpenCV).
+    Writes its numbers to ``root/phase9.json``."""
+    from yolo_tpu_torch import runtime
+    from yolo_tpu_torch.compress import prune as P
+    from yolo_tpu_torch.compress.prune_cli import timed_forward
+    from yolo_tpu_torch.compress.prune_drivers import (channel_prune,
+                                                       eagle_eye_prune,
+                                                       layer_prune)
+    from yolo_tpu_torch.models.darknet_io import save_darknet_weights
+    card = device_setup() if dev.type == 'cuda' else 'the CPU'
+    t_phase = time.perf_counter()
+    sync = torch.cuda.synchronize if dev.type == 'cuda' else (lambda: None)
+    out = {'nms_suppress': 0}
+    evaluate = prune_evals(out, dev)
+
+    raw = runtime.load_model(CFG, device=dev, conv_scale=PRUNE_CONV_SCALE,
+                             generator=torch.Generator().manual_seed(0))
+    net = raw.net
+    sets = P.prunable_sets_normal(net)
+    params = shrink_gammas(raw.params, sets.prune_idx)
+    state = raw.state
+    base = runtime.ModelBundle(net=net, params=params, state=state,
+                               device=dev)
+    kw = dict(conf_thres=CONF_THRES, iou_thres=0.6, top_k=512, max_det=300)
+    print(f'  {len(sets.prune_idx)} of {len(sets.cbl_idx)} conv+BN layers '
+          f'prunable (normal); {PRUNE_SHRINK:.0%} of their gammas set to '
+          'U(1e-6, 1e-4)')
+
+    # (a) the labelled set on disk, labelled by the unfused bf16 model that
+    # evaluate runs
+    data, batches, labels = write_jpeg_set(os.path.join(root, 'set'),
+                                           base.make_infer(**kw), dev,
+                                           PRUNE_IMAGES)
+
+    # (b) the loader alone, and evaluate from the files against evaluate
+    # from the same batches in memory, in turns
+    loader_rate = time_loader(data, PRUNE_IMAGES, card)
+    mem = memory_loader(batches, labels)
+    walls = {'files': [], 'memory': []}
+    for name in ('files', 'memory', 'memory', 'files'):
+        res, wall = evaluate(net, params, state, data, f'(b) {name}',
+                             loader=mem if name == 'memory' else None)
+        walls[name].append(wall)
+        if name == 'files':
+            before = res
+    rates = {n: PRUNE_IMAGES / statistics.median(w) for n, w in walls.items()}
+    for n, w in walls.items():
+        print(f'  (b) evaluate from {n}: {rates[n]:.1f} images/s (runs '
+              f'{", ".join(f"{v:.4f}" for v in w)} s; {card})')
+    check(before[0][2] >= EVAL_MAP_MIN,
+          f'(b) mAP@0.5 {before[0][2]:.6f} against its own pseudo-labels '
+          'through the file loader')
+    out.update(loader_images_per_s=loader_rate,
+               evaluate_images_per_s=rates, map_before=before[0][2])
+
+    # (c) normal channel prune
+    sync()
+    t0 = time.perf_counter()
+    res = channel_prune(net, params, state, method='normal',
+                        percent=PRUNE_PERCENT, img_size=SIZE)
+    sync()
+    t_prune = time.perf_counter() - t0
+    r = res.report
+    print(f'  (c) normal {PRUNE_PERCENT}: {t_prune:.3f} s on the host; '
+          f'params {r["params_before"]} -> {r["params_after"]}, MACs '
+          f'{r["macs_before"]} -> {r["macs_after"]} '
+          f'({r["macs_after"] / r["macs_before"]:.4f}); threshold '
+          f'{r["threshold"]:.3g}')
+    x2 = runtime.preprocess(batches[0][:2], device=dev)
+    for i, (c, l, o) in enumerate(zip(
+            heads_f32(res.net, res.params, res.state, x2),
+            heads_f32(net, res.loose_params, res.loose_state, x2),
+            heads_f32(net, params, state, x2))):
+        scale = float(l.abs().max())
+        err = float((c - l).abs().max())
+        check(torch.allclose(c, l, rtol=PRUNE_HEADS_TOL,
+                             atol=PRUNE_HEADS_TOL * scale),
+              f'(c) compact vs loose f32 head {i} at bs=2 (max abs err '
+              f'{err:.3g}, head max {scale:.3g})')
+        # what the shrunk channels still carried: gamma <= 1e-4 times the
+        # normalised input, whose scale the random running statistics do
+        # not bound (not gated)
+        d = (l - o).abs()
+        print(f'  (c) unpruned vs loose f32 head {i}: max abs diff '
+              f'{float(d.max()):.3g}, mean {float(d.mean()):.3g} (head max '
+              f'{float(o.abs().max()):.3g})')
+    loose, _ = evaluate(net, res.loose_params, res.loose_state, data,
+                        '(c) loose')
+    after, _ = evaluate(res.net, res.params, res.state, data, '(c) compact')
+    print(f'  (c) mAP@0.5 before {before[0][2]:.6f}, loose '
+          f'{loose[0][2]:.6f}, after {after[0][2]:.6f}')
+    t_fwd = [timed_forward(n, p, s, SIZE) * 1e3 for n, p, s in (
+        (net, params, state), (res.net, res.params, res.state))]
+    print(f'  (c) timed_forward (bs=16, bf16, BN unfused): before '
+          f'{t_fwd[0]:.3f} ms, after {t_fwd[1]:.3f} ms ({card})')
+    x = runtime.preprocess(batches[0], device=dev)
+    compact = runtime.ModelBundle(net=res.net, params=res.params,
+                                  state=res.state, device=dev)
+    serving = (serving_turns({'before': base, 'after': compact}, x, card,
+                             '(c) make_infer') if dev.type == 'cuda' else {})
+    out.update(prune_s=t_prune, report=r, map_loose=loose[0][2],
+               map_after=after[0][2], timed_forward_ms=t_fwd,
+               serving={n: {'ms': v[0], 'profile': v[1]}
+                        for n, v in serving.items()})
+
+    # (d) layer prune and EagleEye
+    sync()
+    t0 = time.perf_counter()
+    lres = layer_prune(net, params, state, n_shortcuts=PRUNE_SHORTCUTS,
+                       img_size=SIZE)
+    sync()
+    t_layer = time.perf_counter() - t0
+    lafter, t_leval = evaluate(lres.net, lres.params, lres.state, data,
+                               '(d) layer')
+    r = lres.report
+    print(f'  (d) layer {PRUNE_SHORTCUTS} shortcuts: {t_layer:.3f} s; '
+          f'{len(net.layers)} -> {len(lres.net.layers)} layers, MACs '
+          f'{r["macs_after"] / r["macs_before"]:.4f}; mAP@0.5 '
+          f'{lafter[0][2]:.6f} (evaluate {t_leval:.3f} s)')
+    maps = []
+
+    def eval_fn(cand):
+        m = evaluate(cand.net, cand.params, cand.state, data,
+                     '(d) EagleEye candidate')[0][0][2]
+        maps.append(m)
+        return m
+    sync()
+    t0 = time.perf_counter()
+    eres = eagle_eye_prune(net, params, state, img_size=SIZE,
+                           rng=np.random.default_rng(0), eval_fn=eval_fn,
+                           **EAGLE)
+    t_eagle = time.perf_counter() - t0
+    check(len(maps) == EAGLE['candidates']
+          and eres.report['best_map'] == max(maps),
+          f'(d) EagleEye: {len(maps)} candidates, mAP@0.5 '
+          f'{", ".join(f"{m:.6f}" for m in maps)}; kept the best, MACs '
+          f'ratio {eres.report["macs_ratio"]:.4f}; {t_eagle:.3f} s with '
+          'their evaluations')
+    out.update(layer_s=t_layer, map_layer=lafter[0][2], eagle_s=t_eagle,
+               eagle_maps=maps, eagle_ratio=eres.report['macs_ratio'])
+
+    # (e) the CLI on the same weights, normal and layer side by side
+    os.makedirs(os.path.join(root, 'cfg'))
+    cfg = os.path.join(root, 'cfg', os.path.basename(CFG))
+    shutil.copy(CFG, cfg)
+    weights = os.path.join(root, 'model.weights')
+    save_darknet_weights(net, params, state, weights)
+    t0 = time.perf_counter()
+    procs = {m: run_cli(m, cfg, weights, data, os.path.join(root, m), dev)
+             for m in ('normal', 'layer')}
+    try:
+        for m, (proc, log) in procs.items():
+            rc = proc.wait(timeout=600)
+            text = open(log).read()
+            table = [l for l in text.splitlines() if l.startswith((
+                'Metric', 'mAP', 'Parameters', 'MACs', 'Inference'))]
+            print('\n'.join(f'  (e) {m}: {l}' for l in table))
+            check(rc == 0, f'(e) python -m yolo_tpu_torch.prune --method {m}'
+                  f' exited {rc}' + ('' if rc == 0 else f':\n{text[-4000:]}'))
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    t_cli = time.perf_counter() - t0
+    tags = {'normal': f'normal_prune_{PRUNE_PERCENT}_',
+            'layer': f'layer_prune_{PRUNE_SHORTCUTS}_shortcut_'}
+    for m, r_in in (('normal', res), ('layer', lres)):
+        b = runtime.load_model(
+            os.path.join(root, 'cfg', tags[m] + os.path.basename(CFG)),
+            os.path.join(root, m, 'weights', tags[m].rstrip('_') + '.weights'),
+            device=dev).fuse()
+        got = b.make_infer(**kw)(x)
+        want = runtime.ModelBundle(net=r_in.net, params=r_in.params,
+                                   state=r_in.state, device=dev
+                                   ).fuse().make_infer(**kw)(x)
+        check(torch.equal(got, want), f'(e) {m}: the CLI\'s cfg and .weights'
+              ' give the in-process compact model\'s detections bit for bit'
+              f' ({int((got[..., 4] > 0).sum())} over the batch)')
+    out.update(cli_s=t_cli, seconds=time.perf_counter() - t_phase)
+    print(f'  (e) both CLI runs {t_cli:.1f} s; phase 9 (child) '
+          f'{out["seconds"]:.1f} s')
+    with open(os.path.join(root, 'phase9.json'), 'w') as f:
+        json.dump(out, f)
+
+
+def phase_prune():
+    """Phase 9 in a child process; returns its numbers."""
+    print(f'[9/9] pruning: yolov3 @{SIZE}, {PRUNE_IMAGES} JPEG files, '
+          f'bs={BS} (a child process)')
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        sys.stdout.flush()
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            '--phase9', root], timeout=900)
+        if r.returncode != 0:
+            raise SmokeFailure(f'phase 9 (child) exited {r.returncode}')
+        with open(os.path.join(root, 'phase9.json')) as f:
+            out = json.load(f)
+    print(f'  phase 9: {time.perf_counter() - t0:.1f} s')
+    return out
+
+
 def check_imports():
     bad = sorted(m for m in sys.modules if m in ('jax', 'cv2')
                  or m == 'yolo_tpu' or m.startswith(('jax.', 'yolo_tpu.')))
@@ -1613,6 +2012,7 @@ def main():
     launches, k2_tot, qb = phase_int8(dev, card)
     eval_launches = phase_eval(dev, card, qb)
     new_launches, routes = phase_new_cfgs(dev, card)
+    prune = phase_prune()
     check_imports()
     print(f'build {build_s:.2f} s; whole run {time.perf_counter() - t0:.1f} s')
     print(card)
@@ -1622,7 +2022,9 @@ def main():
          'replaces': 'yolo_tpu/ops/pallas_nms.py:33',
          'launches': (k1_float + launches['nms_suppress']
                       + eval_launches['nms_suppress']
-                      + new_launches['nms_suppress']), **k1,
+                      + new_launches['nms_suppress']
+                      + prune['nms_suppress']), **k1,
+         'launches_phase9': prune['nms_suppress'],
          'main_path_ms': k1_main['ms'],
          'main_path_device_ms': k1_main['device_ms']},
         {'name': 'conv_int8', 'route': 'cuda',
@@ -1644,9 +2046,20 @@ def main():
         'count': torch.cuda.device_count()}}))
 
 
+def main_phase9(root):
+    """The child process of phase 9 (``chip_smoke.py --phase9 DIR``)."""
+    dev = torch.device('cuda', 0)
+    torch.cuda.set_device(dev)
+    sys.path.insert(0, ROOT)
+    prune_child(root, dev)
+
+
 if __name__ == '__main__':
     try:
-        main()
+        if sys.argv[1:2] == ['--phase9']:
+            main_phase9(sys.argv[2])
+        else:
+            main()
     except SmokeFailure as e:
         print(f'FAILED: {e}', file=sys.stderr)
         sys.exit(1)

@@ -202,7 +202,9 @@ def test_port_never_imports_jax_or_cv2():
             "assert len(mods) > 25, mods; "
             "need = {'yolo_tpu_torch.' + m for m in ('eval.evaluator', "
             "'eval.matching', 'eval.metrics', 'train.loss', "
-            "'data.datasets', 'data.transforms', 'utils.plots', 'test')}; "
+            "'data.datasets', 'data.transforms', 'utils.plots', 'test', "
+            "'compress.prune', 'compress.prune_drivers', "
+            "'compress.prune_cli', 'prune', 'info', 'utils.profiling')}; "
             "assert need <= set(mods), need - set(mods); "
             "assert 'PIL' not in sys.modules; "
             "bad = [m for m in sys.modules if m in ('jax', 'cv2') "

@@ -80,7 +80,9 @@ def load_darknet_weights(net: NetworkIR, params, state, path,
 
 def save_darknet_weights(net: NetworkIR, params, state, path,
                          cutoff: int = -1, version=None, seen=None):
-    """Write (params, state) in darknet .weights layout."""
+    """Write (params, state) in darknet .weights layout. A conv+BN layer
+    without a ``state`` entry writes the running statistics kept in its
+    ``params`` (as a folded quantized model holds them)."""
     version = HEADER_VERSION if version is None else np.asarray(version, np.int32)
     seen = np.array([0], np.int64) if seen is None else np.asarray(seen, np.int64)
 
@@ -95,8 +97,8 @@ def save_darknet_weights(net: NetworkIR, params, state, path,
             if lyr.kind in ('conv', 'depthwise'):
                 p = params[k]
                 if lyr.bn:
-                    for t in (p['beta'], p['gamma'], state[k]['mean'],
-                              state[k]['var']):
+                    st = state.get(k, p)  # folded-quant keeps stats in params
+                    for t in (p['beta'], p['gamma'], st['mean'], st['var']):
                         put(f, t)
                 else:
                     put(f, p['b'])
