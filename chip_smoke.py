@@ -130,6 +130,37 @@ Phases; any failure exits non-zero, and nothing runs on the CPU instead
    back, give the in-process compact models' detections bit for bit. K1
    must launch once per batch of every evaluate there.
 
+10. float training (``yolo_tpu_torch/train``): (a) one f32 ``grad_fn``
+   step of yolov3 at full width, 320 px, bs=2, random weights from seed 0
+   (``conv_scale`` 0.7) and a seeded labelled batch, on the card and on
+   the CPU (TF32 off): the loss items within rtol 1e-5, the new BN state
+   within 1e-4 of its norm, the three head convs' gradients within 1e-3
+   of their norms, every other gradient (each behind a train-mode BN,
+   whose backward leaves a small difference of large sums at random init)
+   within 5e-2 of its norm and 2.5e-2 all together (``GRAD_BN_TOL``),
+   and, against an f64 ``grad_fn`` on the CPU, the card's gradients no
+   farther from it than 1.5 times the CPU's f32 ones, in all and in the
+   worst tensor (``GRAD_F64_RATIO``); (b) yolov3 @608, bs=8, bf16,
+   SGD (lr 0.001 in every group, momentum 0.937) on one fixed labelled
+   batch for 30 steps: the loss must fall (the mean of the last 5 below
+   that of the first 5); ``grad_fn`` and ``update_fn`` timed apart by CUDA
+   events after 5 warm-up steps, images/s by the host clock, the peak
+   device memory and a profile of one step; (c) in a child process
+   (``chip_smoke.py --phase10 DIR``; the file loader imports OpenCV): 64
+   seeded 608x608 JPEG files labelled by the model itself (as phase 9
+   (a)), the augmenting loader alone (mosaic, affine with the reference's
+   jitter, HSV, flip; images/s), then ``run_training`` (yolov3 @608, bs=8,
+   2 epochs, bf16) from the seed-0 weights with ``evaluate`` at each
+   epoch's end: K1 launched once per eval batch (2 epochs x 32 batches of
+   bs=2), finite ``results.txt`` rows, the set-up seconds, the loop's
+   images/s from its first to its last batch of each epoch (host clock of
+   the log lines), the evaluate and checkpoint seconds; ``last.npz`` reloads through ``load_model`` and
+   serves finite detections; ``resume`` runs a third epoch after the
+   carried-over rows; (d) the QAT sim with bf16 eval snaps on phase 6's
+   calibrated bundle, by phase 7's rule (``evaluate`` against its own
+   pseudo-labels: mAP@0.5 >= 0.99, K1 once a batch), its survivors at conf
+   0.1 beside the f32 sim's, both sims' ``make_infer`` timed in turns.
+
 A kernel's time is taken twice, on the same inputs: ``cuda_ms``, what its
 caller waits for (median CUDA-event time, the host's work to queue the
 call included), and ``device_ms``, the device alone (a sleep kernel keeps
@@ -137,7 +168,7 @@ the card busy while the host queues the call). A pipeline's time is
 ``cuda_ms``.
 
 The line before the last is a JSON object with each kernel's launches on
-the main paths (phases 4, 6, 7, 8 and 9), error, times and bound (``ms``, ``plain_ms`` and
+the main paths (phases 4, 6, 7, 8, 9 and 10), error, times and bound (``ms``, ``plain_ms`` and
 ``library_ms`` by ``cuda_ms``, ``device_ms`` beside them; for nms_suppress
 also its cluster and CTAs at k=512, bs=8, the wrapper's host time per call,
 the device time by cluster size and both times on the dense path's own
@@ -145,8 +176,8 @@ candidates; for conv_int8 also its 1x1 times beside ``torch._int_mm``'s,
 and its totals by class, and phase 8's engine by route);
 the line before it the card's name and power limit; the last line is the JSON device record. At the end the
 run checks that neither jax nor OpenCV nor any module of the JAX package
-``yolo_tpu`` was imported into this process (phase 9's child loads
-OpenCV).
+``yolo_tpu`` was imported into this process (the children of phases 9
+and 10 load OpenCV).
 """
 
 from __future__ import annotations
@@ -304,7 +335,7 @@ def device_setup():
 
 
 def phase_device():
-    print('[1/9] device')
+    print('[1/10] device')
     card = device_setup()
     print(f'  {torch.cuda.get_device_name(0)}; torch {torch.__version__}, '
           f'CUDA {torch.version.cuda}; TF32 off for matmul and cuDNN')
@@ -335,7 +366,7 @@ def conv_sass(lib_path):
 
 
 def phase_build():
-    print('[2/9] build')
+    print('[2/10] build')
     import re
     from yolo_tpu_torch import _build
     lib = _build.library_path()
@@ -426,7 +457,7 @@ def k1_compare(got, ref, what):
 
 
 def phase_kernel(dev):
-    print('[3/9] K1 nms_suppress vs plain version')
+    print('[3/10] K1 nms_suppress vs plain version')
     from yolo_tpu_torch.ops import nms_suppress as K1
     suppress, suppress_reference = K1.suppress, K1.suppress_reference
     rng = np.random.default_rng(0)
@@ -505,7 +536,7 @@ def phase_kernel(dev):
 
 
 def phase_pipeline(dev, card):
-    print('[4/9] yolov3 @608 float pipeline')
+    print('[4/10] yolov3 @608 float pipeline')
     from yolo_tpu_torch import runtime
     from yolo_tpu_torch.ops import nms
     from yolo_tpu_torch.ops.nms_suppress import suppress
@@ -722,7 +753,7 @@ def int_mm_ms(x8, w8, **timing):
 
 
 def phase_conv_kernel(dev):
-    print('[5/9] K2 conv_int8 vs plain version')
+    print('[5/10] K2 conv_int8 vs plain version')
     from yolo_tpu_torch.ops.conv_int8 import (fused_conv_int8,
                                               fused_conv_int8_reference)
     max_err = 0.0
@@ -1038,7 +1069,7 @@ def in_range(label, fn):
 
 
 def phase_int8(dev, card):
-    print('[6/9] yolov3 @608 int8 serving')
+    print('[6/10] yolov3 @608 int8 serving')
     from yolo_tpu_torch import runtime
     b, x = int8_bundle(dev, BS, SIZE)
     launches, plan, infer = int8_checks(b, x)
@@ -1230,7 +1261,7 @@ def phase_eval(dev, card, qb, cfg=CFG, n_images=EVAL_IMAGES):
     """The evaluation path: ``evaluate`` on float yolov3 (device and host
     matching), the f32 QAT sim and the int8 engine of phase 6's calibrated
     bundle ``qb``, each against pseudo-labels made by the model itself."""
-    print(f'[7/9] mAP evaluation: yolov3 @{SIZE}, {n_images} images, bs={BS}')
+    print(f'[7/10] mAP evaluation: yolov3 @{SIZE}, {n_images} images, bs={BS}')
     from yolo_tpu_torch import runtime
     from yolo_tpu_torch.compress.quant import make_quant_apply
     from yolo_tpu_torch.eval.evaluator import evaluate, int8_engine_apply
@@ -1596,7 +1627,7 @@ def phase_new_cfgs(dev, card):
     from yolo_tpu_torch import runtime
     from yolo_tpu_torch.models.torch_import import save_torch_checkpoint
     t0 = time.perf_counter()
-    print(f'[8/9] more cfgs: (a) yolov3-mobilenet @{MOBILE_SIZE}, (b) '
+    print(f'[8/10] more cfgs: (a) yolov3-mobilenet @{MOBILE_SIZE}, (b) '
           f'yolov3-asff @{SIZE}, (c) TTA yolov3 @{SIZE}, (d) mobilenet int8, '
           '(e) .pt')
     k1 = 0
@@ -1976,7 +2007,7 @@ def prune_child(root, dev):
 
 def phase_prune():
     """Phase 9 in a child process; returns its numbers."""
-    print(f'[9/9] pruning: yolov3 @{SIZE}, {PRUNE_IMAGES} JPEG files, '
+    print(f'[9/10] pruning: yolov3 @{SIZE}, {PRUNE_IMAGES} JPEG files, '
           f'bs={BS} (a child process)')
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as root:
@@ -1988,6 +2019,402 @@ def phase_prune():
         with open(os.path.join(root, 'phase9.json')) as f:
             out = json.load(f)
     print(f'  phase 9: {time.perf_counter() - t0:.1f} s')
+    return out
+
+
+# ------------------------------------------------- phase 10: float training
+
+GRAD_SIZE, GRAD_BS = 320, 2   # (a): card against CPU at full width
+LOSS_TOL = 1e-5               # (a): the loss items, relative
+BN_STATE_TOL = 1e-4           # (a): the new BN running statistics, of the norm
+GRAD_TOL = 1e-3               # (a): the head convs' gradients, of the norm
+# (a): every gradient behind a train-mode BN, card against CPU, of its norm
+# (the whole at half of it). At random init the objectness loss pushes
+# every cell alike; each BN's backward removes that per-channel mean, and
+# what is left is a small difference of large sums, so f32 rounding
+# anywhere shows in it. scripts/train_grad_spread.py measures it on these
+# inputs against an f64 grad_fn: the CPU's f32 is 1.4e-2 from f64 in all
+# and 2.2e-2 in its worst tensor, the card's 1.2e-2 and 1.6e-2 (with
+# cuDNN or without), so the card and the CPU differ by 1.6e-2 and 2.3e-2,
+# while the head convs agree to 5e-5 and the BN state to 5e-7 (PERF.md §6)
+GRAD_BN_TOL = 5e-2
+# (a): the card's distance from the f64 gradient, in all and in its worst
+# tensor, at most this times the CPU's f32 distance (0.81 and 0.76
+# measured): a fault of the card's own shows here, f32 rounding does not
+GRAD_F64_RATIO = 1.5
+TRAIN_STEPS = 30              # (b): SGD steps on one fixed batch
+TRAIN_WARMUP = 5              # (b): steps before the timed ones
+TRAIN_LR = 0.001              # (b): DEFAULT_HYP's lr0, every group
+TRAIN_IMAGES = 64             # (c): 8 batches of BS, JPEG files on disk
+TRAIN_EPOCHS = 2              # (c): then a resume for one more
+# (c): the affine jitter of the reference's hyp (DEFAULT_HYP zeroes it)
+TRAIN_AFFINE = dict(degrees=1.98, translate=0.05, scale=0.05, shear=0.641)
+
+
+def train_batch(seed, bs, size, dev, n=6, nc=80):
+    """(x (bs, size, size, 3) f32, targets (30*bs, 6), valid) on ``dev``: a
+    seeded image batch with ``n`` random boxes of random classes each."""
+    from yolo_tpu_torch.runtime import preprocess
+    from yolo_tpu_torch.train.loss import pad_targets
+    rng = np.random.default_rng(seed)
+    labels = [np.column_stack([rng.integers(0, nc, n),
+                               rng.uniform(0.2, 0.8, (n, 2)),
+                               rng.uniform(0.05, 0.4, (n, 2))])
+              for _ in range(bs)]
+    tgt, valid = pad_targets(labels, 30 * bs)
+    return (preprocess(images(seed, bs, size), device=dev),
+            torch.from_numpy(tgt).to(dev), torch.from_numpy(valid).to(dev))
+
+
+def train_functions(net):
+    from yolo_tpu_torch.config import DEFAULT_HYP
+    from yolo_tpu_torch.train.loss import LossHyp
+    from yolo_tpu_torch.train.trainer import make_train_functions
+    avecs = [np.asarray(l.anchors) / l.yolo_stride
+             for l in net.layers if l.kind == 'yolo']
+    return make_train_functions(net, avecs, net.nc,
+                                LossHyp.from_dict(DEFAULT_HYP, nc=net.nc))
+
+
+def rel_l2(got, want):
+    """||got - want|| / ||want|| over matching dicts of tensors, in f64:
+    (per key, the whole)."""
+    per = {k: float((got[k].double() - w.double()).norm())
+           / max(float(w.double().norm()), 1e-30) for k, w in want.items()}
+    num = sum(float((got[k].double() - w.double()).square().sum())
+              for k, w in want.items())
+    den = sum(float(w.double().square().sum()) for w in want.values())
+    return per, (num / max(den, 1e-60)) ** 0.5
+
+
+def grad_run(net, params, state, dev, dtype=None, size=GRAD_SIZE,
+             bs=GRAD_BS):
+    """One ``grad_fn`` of ``net`` from ``params``/``state`` on (a)'s
+    labelled batch (seed 70, ``bs`` images of ``size``²) on ``dev``, the
+    convs, BN and loss in ``dtype`` (None: f32; ``torch.float64`` gives
+    the reference): (gradients, new BN state, loss items), on the CPU,
+    the first two keyed 'layer.field'."""
+    from yolo_tpu_torch.train.trainer import init_train_state
+    grad_fn, _ = train_functions(net)
+    ts = init_train_state(net, params, state, compute_dtype=dtype, device=dev)
+    x, tgt, valid = train_batch(70, bs, size, dev)
+    ts, items = grad_fn(ts, x, tgt, valid, 1.0, bs / 64)
+    return ({f'{k}.{f}': p.grad.cpu() for k, g in ts.params.items()
+             for f, p in g.items()},
+            {f'{k}.{f}': t.cpu() for k, g in ts.bn_state.items()
+             for f, t in g.items()}, items.cpu())
+
+
+def grad_card_vs_cpu(dev, params, state, net):
+    """(a) One f32 ``grad_fn`` of yolov3 at full width on the card and on
+    the CPU from the same weights and batch (TF32 off), held as far as the
+    arithmetic allows: the loss items, the new BN state and the gradients
+    of the three head convs (no BN behind them) against the CPU's f32
+    tightly; every gradient within ``GRAD_BN_TOL`` of the CPU's, and no
+    farther from an f64 ``grad_fn`` on the CPU than ``GRAD_F64_RATIO``
+    times the CPU's f32 (see there)."""
+    out = {}
+    for name, d, dtype in (('cpu', torch.device('cpu'), None),
+                           ('cuda', dev, None),
+                           ('f64', torch.device('cpu'), torch.float64)):
+        t0 = time.perf_counter()
+        out[name] = grad_run(net, params, state, d, dtype)
+        print(f'  (a) grad_fn {"f64" if dtype else "f32"} @{GRAD_SIZE} '
+              f'bs={GRAD_BS} on {d.type}: '
+              f'{time.perf_counter() - t0:.2f} s with set-up')
+    (g_card, bn_card, it_card), (g_cpu, bn_cpu, it_cpu) = (out['cuda'],
+                                                          out['cpu'])
+    check(torch.allclose(it_card, it_cpu, rtol=LOSS_TOL),
+          f'(a) loss items card {it_card.tolist()} against CPU '
+          f'{it_cpu.tolist()} (rtol {LOSS_TOL:g})')
+    bn_err, bn_all = rel_l2(bn_card, bn_cpu)
+    k_bn = max(bn_err, key=bn_err.get)
+    check(bn_err[k_bn] <= BN_STATE_TOL,
+          f'(a) new BN state card against CPU: {len(bn_err)} tensors, the '
+          f'worst {k_bn} at {bn_err[k_bn]:.2e} of its norm (<= '
+          f'{BN_STATE_TOL:g}; all {bn_all:.2e})')
+    heads = {str(l.index) for l in net.layers if l.kind == 'conv'
+             and not l.bn}
+    err, err_all = rel_l2(g_card, g_cpu)
+    head_err = {k: e for k, e in err.items() if k.split('.')[0] in heads}
+    k_h = max(head_err, key=head_err.get)
+    check(head_err[k_h] <= GRAD_TOL,
+          f'(a) head-conv gradients card against CPU: {len(head_err)} '
+          f'tensors, the worst {k_h} at {head_err[k_h]:.2e} of its norm '
+          f'(<= {GRAD_TOL:g})')
+    k_w = max(err, key=err.get)
+    check(err[k_w] <= GRAD_BN_TOL and err_all <= GRAD_BN_TOL / 2,
+          f'(a) every gradient card against CPU: {len(err)} tensors, the '
+          f'worst {k_w} at {err[k_w]:.2e} of its norm, all together '
+          f'{err_all:.2e} (<= {GRAD_BN_TOL:g}, {GRAD_BN_TOL / 2:g})')
+    g64 = out['f64'][0]
+    e_card, e_card_all = rel_l2(g_card, g64)
+    e_cpu, e_cpu_all = rel_l2(g_cpu, g64)
+    k_c, k_p = max(e_card, key=e_card.get), max(e_cpu, key=e_cpu.get)
+    check(e_card_all <= GRAD_F64_RATIO * e_cpu_all
+          and e_card[k_c] <= GRAD_F64_RATIO * e_cpu[k_p],
+          f'(a) every gradient against f64: the card {e_card_all:.2e} in '
+          f'all, the worst {k_c} at {e_card[k_c]:.2e}; the CPU f32 '
+          f'{e_cpu_all:.2e}, the worst {k_p} at {e_cpu[k_p]:.2e} (the card '
+          f'<= {GRAD_F64_RATIO:g}x the CPU)')
+    return {'grad_err_all': err_all, 'grad_err_worst': err[k_w],
+            'head_grad_err': head_err[k_h], 'bn_err': bn_err[k_bn],
+            'f64_err_card': e_card_all, 'f64_err_cpu': e_cpu_all,
+            'f64_worst_card': e_card[k_c], 'f64_worst_cpu': e_cpu[k_p]}
+
+
+def train_steps(dev, card, params, state, net):
+    """(b) yolov3 @608 bs=8 bf16 SGD on one fixed labelled batch: the loss
+    must fall over ``TRAIN_STEPS`` steps; grad_fn and update_fn timed
+    apart by CUDA events after ``TRAIN_WARMUP`` steps, images/s, peak
+    memory and a profile of one step."""
+    from yolo_tpu_torch.train.optim import PerGroupScalars
+    from yolo_tpu_torch.train.trainer import init_train_state
+    grad_fn, update_fn = train_functions(net)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ts = init_train_state(net, params, state, compute_dtype=torch.bfloat16,
+                          device=dev)
+    x, tgt, valid = train_batch(71, BS, SIZE, dev)
+    sc = PerGroupScalars(lr=(TRAIN_LR,) * 4,
+                         weight_decay=(0.000484, 0.0, 0.0, 0.0),
+                         momentum=0.937)
+    losses, evs = [], []
+    for i in range(TRAIN_STEPS):
+        if i == TRAIN_WARMUP:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        e[0].record()
+        ts, items = grad_fn(ts, x, tgt, valid, 1.0, BS / 64)
+        e[1].record()
+        ts = update_fn(ts, sc)
+        e[2].record()
+        losses.append(items)
+        evs.append(e)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / (TRAIN_STEPS - TRAIN_WARMUP)
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.stack(losses).cpu().numpy()
+    g_ms = statistics.median(e[0].elapsed_time(e[1])
+                             for e in evs[TRAIN_WARMUP:])
+    u_ms = statistics.median(e[1].elapsed_time(e[2])
+                             for e in evs[TRAIN_WARMUP:])
+    first, last = losses[:5, 3].mean(), losses[-5:, 3].mean()
+    check(np.isfinite(losses).all() and last < first,
+          f'(b) loss falls over {TRAIN_STEPS} steps: {first:.4f} (first 5) '
+          f'-> {last:.4f} (last 5); giou/obj/cls at the end '
+          f'{losses[-1, 0]:.4f}/{losses[-1, 1]:.4f}/{losses[-1, 2]:.4f}')
+    print(f'  (b) step @{SIZE} bs={BS} bf16 SGD: grad_fn {g_ms:.3f} ms, '
+          f'update_fn {u_ms:.3f} ms (CUDA events, median of '
+          f'{TRAIN_STEPS - TRAIN_WARMUP}); {wall * 1e3:.3f} ms a step by the '
+          f'host clock = {BS / wall:.1f} images/s; peak memory '
+          f'{peak / 2**30:.2f} GiB ({card})')
+
+    def step():
+        grad_fn(ts, x, tgt, valid, 1.0, BS / 64)
+        update_fn(ts, sc)
+    print('  (b) one step, profiled:')
+    prof = profile_device(step, n=3)
+    return {'grad_ms': g_ms, 'update_ms': u_ms, 'step_ms': wall * 1e3,
+            'images_per_s': BS / wall, 'peak_gib': peak / 2**30,
+            'loss_first': float(first), 'loss_last': float(last),
+            'profile': prof}
+
+
+def snap_sim(dev, card, qb):
+    """(d) The QAT sim with bf16 eval snaps (``eval_snap_dtype``) on phase
+    6's calibrated bundle, by phase 7's rule: ``evaluate`` of the snapped
+    sim (its eval params prepared once) against its own pseudo-labels must
+    score mAP@0.5 >= 0.99 with K1 once a batch; its survivors at conf 0.1
+    beside the f32 sim's, and both sims timed in turns."""
+    import dataclasses
+
+    from yolo_tpu_torch.runtime import preprocess
+    from yolo_tpu_torch.train.loss import LossHyp
+    q16 = dataclasses.replace(qb, eval_snap_dtype=torch.bfloat16)
+    kw = dict(conf_thres=CONF_THRES, iou_thres=0.6, top_k=512, max_det=300)
+    n_batches = EVAL_IMAGES // BS
+    batches = [images(10 + i, BS, SIZE) for i in range(n_batches)]
+    labels, thres, n_dup = pseudo_labels(q16.make_infer(engine=False, **kw),
+                                         batches, dev)
+    avecs = [np.asarray(l.anchors, np.float32) / l.yolo_stride
+             for l in qb.net.layers if l.kind == 'yolo']
+    res, launches, wall = timed_eval(
+        qb.net, qb.params, qb.state, memory_loader(batches, labels), dev,
+        quant_apply=q16.quant_apply(), qstate=qb.qstate,
+        loss_hyp=LossHyp(), anchor_vecs=avecs, **kw)
+    check_eval(res, launches, n_batches, '(d) bf16-snap sim')
+    x = preprocess(images(3, BS, SIZE), device=dev)
+    ks = {**kw, 'conf_thres': SURVIVOR_CONF}
+    infers = {'f32': qb.make_infer(engine=False, **ks),
+              'bf16': q16.make_infer(engine=False, **ks)}
+    n = {k: int((f(x)[..., 4] > 0).sum()) for k, f in infers.items()}
+    runs = {k: [] for k in infers}
+    for k in ('f32', 'bf16', 'bf16', 'f32'):
+        runs[k].append(cuda_ms(lambda: infers[k](x), iters=5, warmup=1))
+    for k, r in runs.items():
+        print(f'  (d) {k}-snap sim make_infer: {statistics.median(r):.3f} ms '
+              f'per batch of {BS} (runs {", ".join(f"{v:.3f}" for v in r)})'
+              f' = {BS * 1000 / statistics.median(r):.1f} images/s, '
+              f'{n[k]} survivors at conf {SURVIVOR_CONF} ({card})')
+    print(f'  (d) bf16-snap sim evaluate: {EVAL_IMAGES / wall:.1f} images/s '
+          f'(one run, {EVAL_IMAGES} images)')
+    return {'ms': {k: statistics.median(r) for k, r in runs.items()},
+            'survivors': n, 'eval_images_per_s': EVAL_IMAGES / wall,
+            'nms_suppress': launches['nms_suppress']}
+
+
+def train_child(root, dev):
+    """Phase 10 (c), in a process of its own (the file loader imports
+    OpenCV): ``run_training`` on JPEG files, then a resume. Writes its
+    numbers to ``root/phase10.json``."""
+    from yolo_tpu_torch import runtime
+    from yolo_tpu_torch.config import DEFAULT_HYP
+    from yolo_tpu_torch.convert import to_jax
+    from yolo_tpu_torch.data.datasets import BatchLoader, DetectionDataset
+    from yolo_tpu_torch.ops.nms_suppress import suppress
+    from yolo_tpu_torch.train import loop
+    from yolo_tpu_torch.utils.checkpoint import save_checkpoint
+    card = device_setup() if dev.type == 'cuda' else 'the CPU'
+    sync = torch.cuda.synchronize if dev.type == 'cuda' else (lambda: None)
+    t_phase = time.perf_counter()
+    raw = runtime.load_model(CFG, device=dev, conv_scale=CONV_SCALE,
+                             generator=torch.Generator().manual_seed(0))
+    kw = dict(conf_thres=CONF_THRES, iou_thres=0.6, top_k=512, max_det=300)
+    data, _, labels = write_jpeg_set(os.path.join(root, 'set'),
+                                     raw.fuse().make_infer(**kw), dev,
+                                     TRAIN_IMAGES)
+    per_image = max(len(lab) for per in labels for lab in per)
+    lst = os.path.join(root, 'set', 'val.txt')
+    with open(data, 'a') as f:
+        f.write(f'train={lst}\n')
+    init = os.path.join(root, 'init.npz')
+    p, s = to_jax(raw.net, raw.params, raw.state)
+    save_checkpoint(init, params=p, state=s)
+    del raw
+
+    # the augmenting loader alone, one pass
+    hyp = {**DEFAULT_HYP, **TRAIN_AFFINE}
+    ds = DetectionDataset(lst, SIZE, BS, augment=True, hyp=hyp, seed=0)
+    t0 = time.perf_counter()
+    n = sum(len(b[0]) for b in BatchLoader(ds, BS, max_targets=4 * per_image
+                                           * BS, shuffle=True, drop_last=True,
+                                           seed=0))
+    loader_rate = n / (time.perf_counter() - t0)
+    print(f'  (c) augmenting loader alone (mosaic, affine, HSV, flip): '
+          f'{loader_rate:.1f} images/s over {n} images (host, beside {card})')
+
+    secs = {'evaluate': [], 'save': []}
+
+    def timed(label, fn):      # ``fn`` timed to a synchronise, into secs
+        def call(*a, **k):
+            sync()
+            t = time.perf_counter()
+            r = fn(*a, **k)
+            sync()
+            secs[label].append(time.perf_counter() - t)
+            return r
+        return call
+
+    logged = []
+
+    def log(m):
+        logged.append((time.perf_counter(), m))
+        print(f'    [{logged[-1][0] - t0:7.3f} s] {m}')
+
+    os.chdir(root)
+    # a mosaic holds the labels of four images: room for all of them
+    opts = dict(cfg=CFG, data=data, batch_size=BS, img_size=(SIZE,) * 3,
+                max_targets=4 * per_image * BS,
+                hyp_override=TRAIN_AFFINE, device=str(dev),
+                weights_dir=os.path.join(root, 'weights'),
+                results_file=os.path.join(root, 'results.txt'), log_fn=log)
+    with patched({'evaluate': (loop, 'evaluate'),
+                  'save': (loop, 'save_train_checkpoint')}, timed):
+        sync()
+        suppress.launches = 0
+        t0 = time.perf_counter()
+        loop.run_training(loop.TrainOptions(weights=init,
+                                            epochs=TRAIN_EPOCHS, **opts))
+        sync()
+        wall = time.perf_counter() - t0
+        k1 = suppress.launches
+    n_eval_batches = TRAIN_EPOCHS * TRAIN_IMAGES // max(BS // 4, 1)
+    want = n_eval_batches if dev.type == 'cuda' else 0
+    check(k1 == want, f'(c) K1 launched {k1} times in the loop\'s evaluate '
+          f'for {n_eval_batches} eval batches')
+    rows = np.loadtxt(os.path.join(root, 'results.txt'), ndmin=2)
+    check(rows.shape == (TRAIN_EPOCHS, 12) and np.isfinite(rows).all(),
+          f'(c) results.txt: {rows.shape[0]} rows, finite; train loss '
+          f'{rows[0, 4]:.4f} -> {rows[-1, 4]:.4f}, val losses '
+          f'{rows[-1, 9]:.4f}/{rows[-1, 10]:.4f}/{rows[-1, 11]:.4f}')
+    # the loop's pace: its batch log lines (one a batch here), first to last
+    # of each epoch
+    steps = [t for t, m in logged if ' batch ' in m]
+    nb = TRAIN_IMAGES // BS
+    rates = [(nb - 1) * BS / (steps[e * nb + nb - 1] - steps[e * nb])
+             for e in range(TRAIN_EPOCHS)]
+    setup = steps[0] - t0
+    print(f'  (c) run_training: {wall:.2f} s for {TRAIN_EPOCHS} epochs: '
+          f'set-up to the first batch {setup:.2f} s, the loop '
+          f'{", ".join(f"{r:.1f}" for r in rates)} images/s by epoch '
+          f'(batches 0 to {nb - 1}), evaluate '
+          f'{", ".join(f"{e:.2f}" for e in secs["evaluate"])} s, '
+          f'checkpoints {", ".join(f"{e:.2f}" for e in secs["save"])} s '
+          f'({card})')
+
+    last = os.path.join(root, 'weights', 'last.npz')
+    b = runtime.load_model(CFG, last, device=dev)
+    dets = b.fuse().make_infer(**kw)(runtime.preprocess(
+        images(72, BS, SIZE), device=dev))
+    sync()
+    check(bool(torch.isfinite(dets).all()),
+          f'(c) last.npz reloads through load_model (the EMA pair) and '
+          f'serves: {int((dets[..., 4] > 0).sum())} detections over a batch')
+    t0 = time.perf_counter()
+    loop.run_training(loop.TrainOptions(weights=last, resume=True,
+                                        epochs=TRAIN_EPOCHS + 1, **opts))
+    sync()
+    t_resume = time.perf_counter() - t0
+    rows2 = np.loadtxt(os.path.join(root, 'results.txt'), ndmin=2)
+    check(rows2.shape == (TRAIN_EPOCHS + 1, 12)
+          and np.array_equal(rows2[:TRAIN_EPOCHS], rows)
+          and np.isfinite(rows2).all(),
+          f'(c) --resume ran epoch {TRAIN_EPOCHS} in {t_resume:.2f} s after '
+          f'the carried-over rows')
+    out = {'nms_suppress': k1, 'loop_s': wall, 'setup_s': setup,
+           'eval_s': secs['evaluate'], 'save_s': secs['save'],
+           'loop_images_per_s': rates, 'loader_images_per_s': loader_rate,
+           'resume_s': t_resume,
+           'seconds': time.perf_counter() - t_phase}
+    print(f'  (c) child {out["seconds"]:.1f} s')
+    with open(os.path.join(root, 'phase10.json'), 'w') as f:
+        json.dump(out, f)
+
+
+def phase_train(dev, card, qb):
+    """Phase 10: the train step on the card against the CPU, the step at
+    full size, the loop from files in a child process, the eval snap."""
+    print(f'[10/10] float training: yolov3 @{SIZE}, bs={BS}')
+    from yolo_tpu_torch.ir import build_ir
+    from yolo_tpu_torch.models.network import init_params
+    t0 = time.perf_counter()
+    net = build_ir(CFG)
+    params, state = init_params(net, torch.Generator().manual_seed(0),
+                                conv_scale=CONV_SCALE)
+    out = grad_card_vs_cpu(dev, params, state, net)
+    out.update(train_steps(dev, card, params, state, net))
+    with tempfile.TemporaryDirectory() as root:
+        sys.stdout.flush()
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            '--phase10', root], timeout=900)
+        if r.returncode != 0:
+            raise SmokeFailure(f'phase 10 (child) exited {r.returncode}')
+        with open(os.path.join(root, 'phase10.json')) as f:
+            out['loop'] = json.load(f)
+    out['snap'] = snap_sim(dev, card, qb)
+    print(f'  phase 10: {time.perf_counter() - t0:.1f} s')
     return out
 
 
@@ -2013,6 +2440,7 @@ def main():
     eval_launches = phase_eval(dev, card, qb)
     new_launches, routes = phase_new_cfgs(dev, card)
     prune = phase_prune()
+    train = phase_train(dev, card, qb)
     check_imports()
     print(f'build {build_s:.2f} s; whole run {time.perf_counter() - t0:.1f} s')
     print(card)
@@ -2023,8 +2451,12 @@ def main():
          'launches': (k1_float + launches['nms_suppress']
                       + eval_launches['nms_suppress']
                       + new_launches['nms_suppress']
-                      + prune['nms_suppress']), **k1,
+                      + prune['nms_suppress']
+                      + train['loop']['nms_suppress']
+                      + train['snap']['nms_suppress']), **k1,
          'launches_phase9': prune['nms_suppress'],
+         'launches_phase10': (train['loop']['nms_suppress']
+                              + train['snap']['nms_suppress']),
          'main_path_ms': k1_main['ms'],
          'main_path_device_ms': k1_main['device_ms']},
         {'name': 'conv_int8', 'route': 'cuda',
@@ -2046,18 +2478,21 @@ def main():
         'count': torch.cuda.device_count()}}))
 
 
-def main_phase9(root):
-    """The child process of phase 9 (``chip_smoke.py --phase9 DIR``)."""
+def main_child(child, root):
+    """The child process of phase 9 or 10 (``chip_smoke.py --phase9 DIR``,
+    ``--phase10 DIR``)."""
     dev = torch.device('cuda', 0)
     torch.cuda.set_device(dev)
     sys.path.insert(0, ROOT)
-    prune_child(root, dev)
+    child(root, dev)
 
 
 if __name__ == '__main__':
     try:
         if sys.argv[1:2] == ['--phase9']:
-            main_phase9(sys.argv[2])
+            main_child(prune_child, sys.argv[2])
+        elif sys.argv[1:2] == ['--phase10']:
+            main_child(train_child, sys.argv[2])
         else:
             main()
     except SmokeFailure as e:

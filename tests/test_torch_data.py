@@ -139,11 +139,16 @@ def test_plot_images_matches_jax(tmp_path):
 
 
 def test_unported_dataset_options_raise(synth_list):
+    """``process_shard`` (the multi-host split) raises NotImplementedError
+    naming ROADMAP.md; the training options, which the evaluation slice
+    refused, build (their batches are held to JAX's in
+    ``test_torch_augment.py``)."""
     from yolo_tpu_torch.data.datasets import DetectionDataset
-    for kw in (dict(augment=True), dict(image_weights=True),
-               dict(process_shard=(0, 2))):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            DetectionDataset(synth_list, **kw)
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        DetectionDataset(synth_list, process_shard=(0, 2))
+    assert DetectionDataset(synth_list, augment=True).mosaic
+    ds = DetectionDataset(synth_list, image_weights=True)
+    assert ds.image_weights and not ds.rect
 
 
 def test_loader_surfaces_a_failing_image(tmp_path):

@@ -192,8 +192,8 @@ def test_unported_paths_raise(toy_cfg, toy_checkpoint, tmp_path):
 
 
 def test_port_never_imports_jax_or_cv2():
-    """Importing every module of the port (the evaluation path's included)
-    loads neither jax, nor OpenCV or PIL (imported inside functions only),
+    """Importing every module of the port (the evaluation and training
+    paths' included) loads neither jax, nor OpenCV or PIL (imported inside functions only),
     nor any module of the JAX package."""
     code = ('import pkgutil, importlib, sys, yolo_tpu_torch; '
             'mods = [m.name for m in pkgutil.walk_packages('
@@ -204,7 +204,9 @@ def test_port_never_imports_jax_or_cv2():
             "'eval.matching', 'eval.metrics', 'train.loss', "
             "'data.datasets', 'data.transforms', 'utils.plots', 'test', "
             "'compress.prune', 'compress.prune_drivers', "
-            "'compress.prune_cli', 'prune', 'info', 'utils.profiling')}; "
+            "'compress.prune_cli', 'prune', 'info', 'utils.profiling', "
+            "'train.optim', 'train.schedules', 'train.ema', "
+            "'train.trainer', 'train.loop', 'train.__main__')}; "
             "assert need <= set(mods), need - set(mods); "
             "assert 'PIL' not in sys.modules; "
             "bad = [m for m in sys.modules if m in ('jax', 'cv2') "

@@ -6,8 +6,11 @@ BN-fold quantized conv (grouped and depthwise ones included), the
 requantized shortcut (ways 1 and 2) and concat, and ``make_quant_apply``
 in train mode (the calibration step: it returns the new BN state and
 quantizer state) and in eval mode (the sim the int8 engine is held
-against). SE, global avgpool and scale_channels stay float, as in the JAX
-package's sim.
+against). SE, global avgpool, scale_channels and a standalone [batchnorm]
+stay float, as in the JAX package's sim (the [batchnorm] on batch
+statistics in train mode). The eval mode takes the bf16 grid snap
+(``eval_snap_dtype``: the activation quantize chains run in that dtype)
+and the hoisted per-conv work of ``prepare_eval_params``.
 
 Quantizer state lives in an explicit ``qstate`` dict of 0-d f32 tensors
 (scale, zero point, tracker min/max, step counters), keyed by layer-index
@@ -16,10 +19,7 @@ mutates none. Activations are NHWC, as in the JAX package; conv weights
 are the port's OIHW. All quantized scales snap to powers of two.
 
 Not ported yet (see ROADMAP.md): the other schemes (tpsq, ptq_cos, dorefa,
-wbin, ternary), the straight-through gradient as an autograd Function
-(QAT training), ``prepare_eval_params``, the bf16 eval snaps, ASFF heads
-and a standalone [batchnorm] layer (its train mode needs the batch-
-statistics BN of the training slice).
+wbin, ternary), QAT training through the sim, and ASFF heads.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ from ..ir import NetworkIR
 from ..models.yolo_head import anchors_on, decode_yolo_nhwc, reshape_pred
 from ..ops import activations as act_mod
 from ..ops import conv as conv_ops
+from ..ops.conv import LONE_BN_EPS, LONE_BN_MOM
 from ..ops.conv_int8 import round_half_away
 
 BN_EPS = 1e-5
@@ -42,7 +43,7 @@ SCHEMES = {1: 'google', 2: 'tpsq', 3: 'ptq_cos', 4: 'dorefa', 5: 'wbin',
            6: 'ternary'}
 # layer kinds the sim and the int8 engine run; the rest raise
 # NotImplementedError
-QUANT_KINDS = ('conv', 'depthwise', 'maxpool', 'se', 'avgpool',
+QUANT_KINDS = ('conv', 'depthwise', 'batchnorm', 'maxpool', 'se', 'avgpool',
                'scale_channels', 'route', 'shortcut', 'upsample', 'yolo',
                'reorg3d', 'dropout')
 
@@ -72,18 +73,28 @@ def qrange(bits: int, sign: bool = True):
     return 0, (1 << bits) - 1
 
 
-def fq(x, scale, zero_point, bits: int, sign: bool = True):
+def fq(x, scale, zero_point, bits: int, sign: bool = True, snap_dtype=None):
     """Fake quantize: quantize, round half away, clamp, dequantize; the
     arithmetic runs in f32 and the result keeps x's dtype.
 
     The result is written ``x + (dq - x)``, the JAX package's
     straight-through form, so that it is the same float as there: where
     the clamp moves x by more than a factor of two that sum is not
-    bit-equal to ``dq``."""
+    bit-equal to ``dq``.
+
+    ``snap_dtype`` (eval only): the whole chain runs in that dtype, the
+    scale and zero point cast to it too, and ``dq`` is returned as it is.
+    In bf16 the division by the scale (a power of two over 127) rounds to
+    8 mantissa bits first, so a value within ~0.4% of a rounding boundary
+    can land one step off the f32 grid; the value stays on the int8 grid."""
     qmin, qmax = qrange(bits, sign)
-    xf = x.to(torch.float32)
-    q = torch.clamp(round_half_away(xf / scale + zero_point), qmin, qmax)
-    dq = ((q - zero_point) * scale).to(x.dtype)
+    dt = snap_dtype or torch.float32
+    cast = lambda v: v.to(dt) if torch.is_tensor(v) else v   # host numbers stay
+    xf, sc, zp = x.to(dt), cast(scale), cast(zero_point)
+    q = torch.clamp(round_half_away(xf / sc + zp), qmin, qmax)
+    dq = ((q - zp) * sc).to(x.dtype)
+    if snap_dtype is not None:
+        return dq
     return x + (dq - x).detach()
 
 
@@ -131,10 +142,11 @@ def _update_scale(qs, bits: int, sym: bool, sign: bool):
 
 
 def google_quantize(x, qs, *, bits: int, train: bool, freeze_step: float,
-                    sym: bool = True, sign: bool = True, track: str = 'ema'):
+                    sym: bool = True, sign: bool = True, track: str = 'ema',
+                    snap_dtype=None):
     """One tracker-quantizer application. In train mode the range and scale
-    update while ``step < freeze_step``, and ``step`` counts up. Returns
-    (y, qs')."""
+    update while ``step < freeze_step``, and ``step`` counts up; eval
+    snaps in ``snap_dtype`` when given. Returns (y, qs')."""
     if bits == 32:
         return x, qs
     if train:
@@ -143,7 +155,8 @@ def google_quantize(x, qs, *, bits: int, train: bool, freeze_step: float,
                                 sym, sign)
         qs = {k: torch.where(do_update, updated[k], v) for k, v in qs.items()}
         qs['step'] = qs['step'] + 1
-    return fq(x, qs['scale'], qs['zp'], bits, sign), qs
+    return fq(x, qs['scale'], qs['zp'], bits, sign,
+              snap_dtype=None if train else snap_dtype), qs
 
 
 # --------------------------------------------------------------------------
@@ -267,6 +280,24 @@ def _fold_quant_weights(cfg, lyr, p, st, qs, *, train, x=None):
     return qw, qb, st, qs
 
 
+def prepare_eval_params(net: NetworkIR, cfg: QuantConfig, params, state,
+                        qstate):
+    """The eval-constant work of each quantized conv hoisted out of the
+    batch: a copy of ``params`` whose convs also hold ``qw``/``qb``, the
+    BN-folded, fake-quantized weight and bias that the eval sim then uses
+    as they are (the same floats as the unprepared eval)."""
+    out = {k: dict(v) for k, v in params.items()}
+    for lyr in net.layers:
+        if lyr.kind not in ('conv', 'depthwise'):
+            continue
+        k = str(lyr.index)
+        qw, qb, _, _ = _fold_quant_weights(cfg, lyr, params[k],
+                                           state.get(k, {}), qstate[k],
+                                           train=False)
+        out[k]['qw'], out[k]['qb'] = qw, qb
+    return out
+
+
 def _add_sliced(x, a):
     """Darknet shortcut add with channel mismatch: add into the leading
     channels, or slice the added map."""
@@ -279,7 +310,7 @@ def _add_sliced(x, a):
 
 
 def make_quant_apply(net: NetworkIR, cfg: QuantConfig,
-                     heads_only: bool = False):
+                     heads_only: bool = False, eval_snap_dtype=None):
     """Build the google-scheme fake-quant apply on NHWC f32 inputs:
 
     apply(params, state, qstate, x, train=False) ->
@@ -289,24 +320,34 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig,
 
     conv and depthwise conv -> BN-fold quantized conv with a quantized
     activation; shortcut -> requantized add (min or max way); multi-route
-    -> requantized concat; SE, avgpool and scale_channels -> float.
-    Train mode is calibration: range trackers, scales and BN statistics
-    update; nothing is differentiated here."""
+    -> requantized concat; SE, avgpool, scale_channels and [batchnorm] ->
+    float. Train mode is calibration: range trackers, scales and BN
+    statistics update; nothing is differentiated here.
+
+    ``eval_snap_dtype`` (e.g. ``torch.bfloat16``): in eval mode the
+    activation, shortcut and concat quantize chains run in that dtype
+    (``fq(snap_dtype=...)``); train mode keeps f32. A conv whose params
+    hold ``qw``/``qb`` (``prepare_eval_params``) uses them in eval."""
     check_supported(net, cfg.scheme)
     layers = net.layers
     bits = cfg.a_bits
     qmin, qmax = qrange(bits, True)
     qr = max(abs(qmin), abs(qmax))
 
+    snap = lambda train: None if train else eval_snap_dtype
+
     def qconv(lyr, p, st, qs, x, train):
-        qw, qb, st, qs = _fold_quant_weights(cfg, lyr, p, st, qs, train=train,
-                                             x=x)
+        if not train and 'qw' in p:
+            qw, qb = p['qw'], p['qb']
+        else:
+            qw, qb, st, qs = _fold_quant_weights(cfg, lyr, p, st, qs,
+                                                 train=train, x=x)
         out = conv_ops.conv2d_nhwc(x, qw, stride=lyr.stride_xy or lyr.stride,
                                    padding=lyr.pad, groups=lyr.groups)
         out = act_mod.get(lyr.activation, cfg.maxabsscaler)(out + qb)
         out, qs['aq'] = google_quantize(out, qs['aq'], bits=bits, train=train,
                                         freeze_step=cfg.scale_freeze_step,
-                                        track='ema')
+                                        track='ema', snap_dtype=eval_snap_dtype)
         qs['step'] = qs['step'] + 1
         return out, st, qs
 
@@ -345,10 +386,16 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig,
                     fmin = torch.maximum(qs['x']['min'], qs['a']['min'])
                     qs['input_scale'] = pow2_snap(torch.maximum(
                         torch.abs(fmin), torch.abs(fmax))) / qr
+            sd = snap(train)
             if cfg.shortcut_way == 2:
                 in_scale = qs['scale']
-                xq = fq(x, in_scale, 0.0, bits)
-                aq = fq(a, in_scale, 0.0, bits)
+                xq = fq(x, in_scale, 0.0, bits, snap_dtype=sd)
+                aq = fq(a, in_scale, 0.0, bits, snap_dtype=sd)
+            elif sd is not None:
+                # the min way's round without clamp, in the snap dtype
+                scd = qs['input_scale'].to(sd)
+                xq = (round_half_away(x.to(sd) / scd) * scd).to(x.dtype)
+                aq = (round_half_away(a.to(sd) / scd) * scd).to(a.dtype)
             else:   # min way: round without clamp
                 in_scale = qs['input_scale']
                 xq = x + (round_half_away(x / in_scale) * in_scale - x).detach()
@@ -359,7 +406,7 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig,
                 qs['scale'] = pow2_snap(torch.maximum(
                     torch.abs(qs['sum']['min']),
                     torch.abs(qs['sum']['max']))) / qr
-            x = fq(s, qs['scale'], 0.0, bits)
+            x = fq(s, qs['scale'], 0.0, bits, snap_dtype=sd)
         return x, qs
 
     def qconcat(lyr, qs, outs, train):
@@ -376,7 +423,8 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig,
                                          + m * EMA_MOMENTUM))
             fl = torch.stack(fmaxs)
             qs = {**qs, 'float_max': fl, 'scale': pow2_snap(torch.max(fl)) / qr}
-        parts = [fq(t, qs['scale'], 0.0, bits) for t in parts]
+        parts = [fq(t, qs['scale'], 0.0, bits, snap_dtype=snap(train))
+                 for t in parts]
         return torch.cat(parts, -1), qs
 
     yolos = [l for l in layers if l.kind == 'yolo']
@@ -397,6 +445,19 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig,
                                             prev, train)
                 if st:
                     new_state[k] = st2
+            elif kind == 'batchnorm':
+                p, st = params[k], state[k]
+                xc = prev.permute(0, 3, 1, 2)
+                if train:
+                    y, m, v = conv_ops.batch_norm_train(
+                        xc, p['gamma'], p['beta'], st['mean'], st['var'],
+                        LONE_BN_EPS, LONE_BN_MOM)
+                    new_state[k] = {'mean': m, 'var': v}
+                else:
+                    y = conv_ops.batch_norm_infer(xc, p['gamma'], p['beta'],
+                                                  st['mean'], st['var'],
+                                                  LONE_BN_EPS)
+                prev = y.permute(0, 2, 3, 1)
             elif kind == 'maxpool':
                 prev = conv_ops.max_pool_nhwc(prev, lyr.size, lyr.stride)
             elif kind == 'se':
@@ -439,4 +500,5 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig,
         return io, yolo_p, feats
 
     apply.qcfg = cfg
+    apply.eval_snap_dtype = eval_snap_dtype
     return apply

@@ -1,7 +1,9 @@
-"""Darknet ``.cfg`` / ``.data`` / ``.names`` parsing.
+"""Darknet ``.cfg`` / ``.data`` / ``.names`` parsing and the training
+hyper-parameters.
 
-The port's own copy of the parsers in ``yolo_tpu/config.py`` (numpy only),
-with the reference parser's quirks kept:
+The port's own copy of the parsers, ``DEFAULT_HYP`` and ``load_hyp`` in
+``yolo_tpu/config.py`` (numpy only), with the reference parser's quirks
+kept:
 
 - ``anchors`` -> float ndarray reshaped (-1, 2).
 - ``from``/``layers``/``mask`` (and comma ``size``) -> list[int].
@@ -121,3 +123,38 @@ def find_file(path: str, roots: tuple[str, ...] = ('.', 'cfg', 'data_cfg', 'data
         if hits:
             return str(hits[0])
     raise FileNotFoundError(path)
+
+
+# Default training hyper-parameters (the coco-tuned set of the JAX package).
+DEFAULT_HYP = {
+    'giou': 3.54,        # giou loss gain
+    'cls': 37.4,         # cls loss gain
+    'cls_pw': 1.0,       # cls BCELoss positive_weight
+    'obj': 64.3,         # obj loss gain (*=img_size/320 if img_size != 320)
+    'obj_pw': 1.0,       # obj BCELoss positive_weight
+    'iou_t': 0.20,       # iou training threshold
+    'lr0': 0.001,        # initial learning rate
+    'lrf': 0.0005,       # final learning rate
+    'momentum': 0.937,
+    'weight_decay': 0.000484,
+    'fl_gamma': 0.0,     # focal loss gamma
+    'hsv_h': 0.0138,     # image HSV-Hue augmentation (fraction)
+    'hsv_s': 0.678,      # image HSV-Saturation augmentation (fraction)
+    'hsv_v': 0.36,       # image HSV-Value augmentation (fraction)
+    'degrees': 1.98 * 0, # image rotation (+/- deg)
+    'translate': 0.05 * 0,
+    'scale': 0.05 * 0,
+    'shear': 0.641 * 0,
+}
+
+
+def load_hyp(hyp_txt: str | None = None) -> dict:
+    """``DEFAULT_HYP``, with the values of a hyp*.txt file (two header
+    lines, then ``name value`` rows) over it."""
+    hyp = dict(DEFAULT_HYP)
+    if hyp_txt:
+        for line in Path(hyp_txt).read_text().splitlines()[2:]:
+            parts = line.split()
+            if len(parts) >= 2:
+                hyp[parts[0]] = float(parts[1])
+    return hyp

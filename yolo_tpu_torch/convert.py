@@ -10,6 +10,12 @@ BN gamma/beta/mean/var, conv biases, weighted-shortcut ``w`` and SE
 The quantizer state (``qstate``) is a nested dict of scalars and, for a
 concat, a ``float_max`` vector: ``qstate_from_jax``/``qstate_to_jax`` copy
 it leaf by leaf as f32.
+
+The optimizer state (``opt_state_from_jax``/``opt_state_to_jax``) holds
+params-shaped trees under the JAX package's names, ``momentum_buf`` (SGD)
+or ``m`` and ``v`` with a ``step`` count (Adam, AdaBound), converted as
+the params are. The EMA pair is a (params, state) pair: ``from_jax`` and
+``to_jax`` carry it.
 """
 
 from __future__ import annotations
@@ -71,3 +77,35 @@ def qstate_to_jax(qstate):
     if isinstance(qstate, dict):
         return {k: qstate_to_jax(v) for k, v in qstate.items()}
     return np.asarray(qstate.detach().to('cpu', torch.float32).numpy())
+
+
+# the fields of the JAX package's optimizer-state NamedTuples, in order: a
+# checkpoint it writes holds them as a list
+_OPT_FIELDS = {1: ('momentum_buf',), 3: ('step', 'm', 'v')}
+
+
+def opt_state_from_jax(net: NetworkIR, opt_state):
+    """JAX optimizer state -> ``{'momentum_buf': tree}`` or ``{'step': int,
+    'm': tree, 'v': tree}`` of f32 CPU tensors in the port's layout. Takes
+    the NamedTuple, a dict of its fields, or the positional list that a
+    JAX checkpoint holds."""
+    if hasattr(opt_state, '_fields'):
+        opt_state = opt_state._asdict()
+    elif isinstance(opt_state, (list, tuple)):
+        opt_state = dict(zip(_OPT_FIELDS[len(opt_state)], opt_state))
+    out = {}
+    for name, tree in opt_state.items():
+        out[name] = (int(np.asarray(tree)) if name == 'step'
+                     else from_jax(net, tree, {})[0])
+    return out
+
+
+def opt_state_to_jax(net: NetworkIR, opt_state):
+    """Inverse of ``opt_state_from_jax``: the port optimizer's
+    ``state_tree()`` -> a dict of the JAX field names with numpy trees in
+    the JAX layout (``step`` an int32 array)."""
+    out = {}
+    for name, tree in opt_state.items():
+        out[name] = (np.asarray(int(tree), np.int32) if name == 'step'
+                     else to_jax(net, tree, {})[0])
+    return out

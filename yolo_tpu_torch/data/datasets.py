@@ -1,19 +1,25 @@
 """Image sources of the port (copies from ``yolo_tpu/data/datasets.py``).
 
 - ``LoadImages``: the detection CLI's image and video source.
-- ``DetectionDataset`` (eval mode): an image-list txt with its label txt
-  files, the label cache and its validation, rectangular batching by
-  aspect ratio (the ``.shapes`` sidecar), ``subset_len`` sampling, the
-  letterbox and the label math.
+- ``DetectionDataset``: an image-list txt with its label txt files, the
+  label cache and its validation, rectangular batching by aspect ratio
+  (the ``.shapes`` sidecar), ``subset_len`` sampling, the letterbox and
+  the label math; for training, ``augment=True`` with ``hyp``: the
+  4-image mosaic, ``random_affine``, ``augment_hsv``, the left-right flip
+  and, when asked, the up-down flip and ``cutout``; ``image_weights=True``
+  with ``update_image_weights``.
 - ``BatchLoader``: fixed-shape batches (uint8 NHWC images, capacity-padded
   targets and their mask, paths, shapes) from a background prefetch
   thread; a ragged tail is padded with empty images and empty paths.
+  Training takes ``shuffle``, ``drop_last`` and ``seed``.
 
-OpenCV and PIL are imported inside the functions only. Not ported yet (see
-ROADMAP.md): the training augmentations (``augment=True``: mosaic, affine,
-HSV, flips), ``image_weights=True`` resampling, ``process_shard`` (the
-multi-host split), the loader's shuffling and ``drop_last`` (training),
-and the JAX package's native C++ batch letterbox.
+Every random draw of the augmentations goes through the dataset's
+``random.Random(seed)`` (the batch order through the loader's), in the JAX
+package's order, and one prefetch thread draws them in batch order, so a
+seed gives the JAX package's batches bit for bit. OpenCV and PIL are
+imported inside the functions only. Not ported yet (see ROADMAP.md):
+``process_shard`` (the multi-host split) and the JAX package's native C++
+batch letterbox.
 """
 
 from __future__ import annotations
@@ -29,7 +35,8 @@ from pathlib import Path
 import numpy as np
 
 from ..compress.quant import unported
-from .transforms import (letterbox, resize_to, xywhn_to_xyxy_pixels,
+from .transforms import (PAD_VALUE, augment_hsv, cutout, letterbox,
+                         random_affine, resize_to, xywhn_to_xyxy_pixels,
                          xyxy2xywh_np)
 
 IMG_FORMATS = ['.bmp', '.jpg', '.jpeg', '.png', '.tif', '.dng']
@@ -118,18 +125,14 @@ class LoadImages:
 
 
 class DetectionDataset:
-    """Evaluation dataset over an image-list txt; labels are read from the
-    sibling ``labels/`` txt of each image (``images`` -> ``labels``)."""
+    """Dataset over an image-list txt; labels are read from the sibling
+    ``labels/`` txt of each image (``images`` -> ``labels``)."""
 
     def __init__(self, path, img_size=416, batch_size=16, augment=False,
-                 rect=False, image_weights=False, cache_images=False,
-                 is_gray_scale=False, subset_len=-1, seed=None,
-                 process_shard=None):
-        if augment:
-            raise unported('DetectionDataset(augment=True) (mosaic, affine, '
-                            'HSV and flips)')
-        if image_weights:
-            raise unported('DetectionDataset(image_weights=True)')
+                 hyp=None, rect=False, image_weights=False,
+                 cache_images=False, is_gray_scale=False, subset_len=-1,
+                 seed=None, process_shard=None, cutout=False,
+                 ud_flip=False):
         if process_shard is not None:
             raise unported('DetectionDataset(process_shard=...) (multi-host '
                             'evaluation)')
@@ -154,10 +157,14 @@ class DetectionDataset:
         self.n = n
         self.batch = bi
         self.img_size = img_size
-        self.augment = False
-        self.image_weights = False
-        self.rect = rect
+        self.augment = augment
+        self.hyp = hyp or {}
+        self.image_weights = image_weights
+        self.rect = False if image_weights else rect
+        self.mosaic = self.augment and not self.rect
         self.is_gray_scale = is_gray_scale
+        self.cutout = cutout
+        self.ud_flip = ud_flip
         self.indices = list(range(n))
 
         self.label_files = [
@@ -255,27 +262,108 @@ class DetectionDataset:
         self.imgs[index], self.img_hw0[index], self.img_hw[index] = img, hw0, hw
         return img, hw0, hw
 
+    def _affine_kw(self):
+        h = self.hyp
+        return dict(degrees=h.get('degrees', 0), translate=h.get('translate', 0),
+                    scale=h.get('scale', 0), shear=h.get('shear', 0))
+
+    def _load_mosaic(self, index):
+        """The 4-image mosaic: ``index`` and three random images around a
+        random centre of a 2s x 2s grey canvas, their labels moved with
+        them, then ``random_affine`` with a -s/2 border (back to s x s).
+        Returns (img BGR, labels (n, 5) [cls, xyxy] pixels)."""
+        s = self.img_size
+        xc = int(self.rnd.uniform(s * 0.5, s * 1.5))
+        yc = int(self.rnd.uniform(s * 0.5, s * 1.5))
+        indices = [index] + [self.rnd.randint(0, self.n - 1) for _ in range(3)]
+        labels4 = []
+        img4 = None
+        for i, idx in enumerate(indices):
+            img, _, (h, w) = self._load_image(idx)
+            if i == 0:      # top left
+                img4 = np.full((s * 2, s * 2, img.shape[2]), PAD_VALUE, np.uint8)
+                x1a, y1a, x2a, y2a = max(xc - w, 0), max(yc - h, 0), xc, yc
+                x1b, y1b = w - (x2a - x1a), h - (y2a - y1a)
+                x2b, y2b = w, h
+            elif i == 1:    # top right
+                x1a, y1a, x2a, y2a = xc, max(yc - h, 0), min(xc + w, s * 2), yc
+                x1b, y1b = 0, h - (y2a - y1a)
+                x2b, y2b = min(w, x2a - x1a), h
+            elif i == 2:    # bottom left
+                x1a, y1a, x2a, y2a = max(xc - w, 0), yc, xc, min(s * 2, yc + h)
+                x1b, y1b = w - (x2a - x1a), 0
+                x2b, y2b = max(xc, w), min(y2a - y1a, h)
+            else:           # bottom right
+                x1a, y1a = xc, yc
+                x2a, y2a = min(xc + w, s * 2), min(s * 2, yc + h)
+                x1b, y1b = 0, 0
+                x2b, y2b = min(w, x2a - x1a), min(y2a - y1a, h)
+            img4[y1a:y2a, x1a:x2a] = img[y1b:y2b, x1b:x2b]
+            padw, padh = x1a - x1b, y1a - y1b
+            lab = self.labels[idx]
+            if lab.size:
+                labels4.append(xywhn_to_xyxy_pixels(lab, w, h, padw, padh))
+        labels4 = (np.concatenate(labels4, 0) if labels4
+                   else np.zeros((0, 5), np.float32))
+        if len(labels4):
+            np.clip(labels4[:, 1:], 0, 2 * s, out=labels4[:, 1:])
+        return random_affine(img4, labels4, border=-s // 2, rnd=self.rnd,
+                             **self._affine_kw())
+
     def __len__(self):
         return self.n
 
     def __getitem__(self, index):
         """(img HWC RGB uint8, labels (n, 5) [cls, xywh normalised], path,
-        shapes ((h0, w0), ((h / h0, w / w0), pad)))."""
-        img, (h0, w0), (h, w) = self._load_image(index)
-        shape = (self.batch_shapes[self.batch[index]] if self.rect
-                 else self.img_size)
-        img, ratio, pad = letterbox(img, shape, auto=False, scaleup=False,
-                                    is_gray_scale=self.is_gray_scale)
-        shapes = (h0, w0), ((h / h0, w / w0), pad)
-        lab = self.labels[index]
-        labels = (xywhn_to_xyxy_pixels(lab, w, h, pad[0], pad[1],
-                                       ratio[0], ratio[1])
-                  if lab.size else np.zeros((0, 5), np.float32))
+        shapes ((h0, w0), ((h / h0, w / w0), pad)), None for a mosaic)."""
+        if self.image_weights:
+            index = self.indices[index]
+        if self.mosaic:
+            img, labels = self._load_mosaic(index)
+            shapes = None
+        else:
+            img, (h0, w0), (h, w) = self._load_image(index)
+            shape = (self.batch_shapes[self.batch[index]] if self.rect
+                     else self.img_size)
+            img, ratio, pad = letterbox(img, shape, auto=False,
+                                        scaleup=self.augment,
+                                        is_gray_scale=self.is_gray_scale)
+            shapes = (h0, w0), ((h / h0, w / w0), pad)
+            lab = self.labels[index]
+            labels = (xywhn_to_xyxy_pixels(lab, w, h, pad[0], pad[1],
+                                           ratio[0], ratio[1])
+                      if lab.size else np.zeros((0, 5), np.float32))
+
+        if self.augment:
+            if not self.mosaic:
+                img, labels = random_affine(img, labels, rnd=self.rnd,
+                                            **self._affine_kw())
+            if not self.is_gray_scale:
+                img = np.ascontiguousarray(img)
+                augment_hsv(img, self.hyp.get('hsv_h', 0),
+                            self.hyp.get('hsv_s', 0),
+                            self.hyp.get('hsv_v', 0), rnd=self.rnd)
+            if self.cutout and self.rnd.random() < 0.9:
+                img = np.ascontiguousarray(img)
+                labels = cutout(img,
+                                np.asarray(labels, np.float32).reshape(-1, 5),
+                                rnd=self.rnd)
+
         labels = np.asarray(labels, np.float32).reshape(-1, 5)
         if len(labels):
             labels[:, 1:5] = xyxy2xywh_np(labels[:, 1:5])
             labels[:, [2, 4]] /= img.shape[0]
             labels[:, [1, 3]] /= img.shape[1]
+
+        if self.augment and self.rnd.random() < 0.5:        # left-right
+            img = np.fliplr(img)
+            if len(labels):
+                labels[:, 1] = 1 - labels[:, 1]
+        if self.augment and self.ud_flip and self.rnd.random() < 0.5:
+            img = np.flipud(img)
+            if len(labels):
+                labels[:, 2] = 1 - labels[:, 2]
+
         if not self.is_gray_scale:
             img = img[:, :, ::-1]  # BGR -> RGB, HWC
         return np.ascontiguousarray(img), labels, self.path_of(index), shapes
@@ -289,15 +377,19 @@ class DetectionDataset:
         return w / w.sum()
 
     def update_image_weights(self, nc, maps):
-        """Image-weighted resampling indices from the per-class mAPs."""
+        """Image-weighted resampling indices from the per-class mAPs: each
+        image drawn with the weight of its labels' classes, a class
+        weighing its inverse frequency times (1 - its mAP)^2, from a fresh
+        unseeded generator, as in the JAX package."""
         cw = self.class_weights(nc) * (1 - maps) ** 2
         iw = np.array([
             (np.bincount(l[:, 0].astype(int), minlength=nc) * cw).sum()
             for l in self.labels])
         tot = iw.sum()
         probs = iw / tot if tot > 0 else None
-        self.indices = list(np.random.default_rng().choice(
-            self.n, self.n, p=probs)) if probs is not None else list(range(self.n))
+        rng = np.random.default_rng()
+        self.indices = list(rng.choice(self.n, self.n, p=probs)) \
+            if probs is not None else list(range(self.n))
 
 
 class BatchLoader:
@@ -308,13 +400,19 @@ class BatchLoader:
     zero images, no labels and empty paths."""
 
     def __init__(self, dataset: DetectionDataset, batch_size: int,
-                 max_targets: int = 0, prefetch: int = 2):
+                 max_targets: int = 0, shuffle: bool = False,
+                 prefetch: int = 2, drop_last: bool = False, seed=None):
         self.ds = dataset
         self.bs = batch_size
         self.max_t = max_targets or (30 * batch_size)
+        self.shuffle = shuffle
         self.prefetch = prefetch
+        self.drop_last = drop_last
+        self.rnd = random.Random(seed)
 
     def __len__(self):
+        if self.drop_last:
+            return self.ds.n // self.bs
         return math.ceil(self.ds.n / self.bs)
 
     def _assemble(self, idxs):
@@ -335,8 +433,12 @@ class BatchLoader:
         return np.stack(imgs), tgt, valid, paths, shapes
 
     def __iter__(self):
-        batches = [list(range(i, min(i + self.bs, self.ds.n)))
-                   for i in range(0, self.ds.n, self.bs)]
+        order = list(range(self.ds.n))
+        if self.shuffle and not self.ds.rect:
+            self.rnd.shuffle(order)
+        batches = [order[i:i + self.bs] for i in range(0, len(order), self.bs)]
+        if self.drop_last:
+            batches = [b for b in batches if len(b) == self.bs]
 
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = object()

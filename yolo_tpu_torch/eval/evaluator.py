@@ -17,9 +17,12 @@ n's statistics while the device computes batch n+1. Nothing on the path
 copies from pageable host memory or reads a device value, either of which
 would synchronise the stream.
 
-Not ported yet (see ROADMAP.md): mesh and multi-process evaluation, the
-quantized apply's sparse twin (``make_heads_only``) and
-``prepare_eval_params``.
+A fake-quant sim's eval-constant work (each conv's BN fold and weight
+quantization) is hoisted out of the batches by ``prepare_eval_params``, as
+the JAX package's evaluator does.
+
+Not ported yet (see ROADMAP.md): mesh and multi-process evaluation and the
+quantized apply's sparse twin (``make_heads_only``).
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..compress.quant import unported
+from ..compress.quant import prepare_eval_params, unported
 from ..config import load_classes, parse_data_cfg
 from ..data.datasets import BatchLoader, DetectionDataset
 from ..models.network import Darknet
@@ -251,6 +254,12 @@ def evaluate(net, params, state, data, *, batch_size=16, img_size=416,
         sparse = want_loss = False
     if quant_apply is not None:
         sparse = False          # the port's quantized applies have no sparse twin
+    if quant_apply is not None and qstate is not None \
+            and getattr(quant_apply, 'qcfg', None) is not None:
+        # the sim's BN fold and weight quantization, once (the same floats)
+        with torch.inference_mode():
+            params = prepare_eval_params(net, quant_apply.qcfg, params, state,
+                                         qstate)
     avecs = ([torch.as_tensor(a, dtype=torch.float32, device=device)
               for a in anchor_vecs] if want_loss else None)
     infer = _build_infer(

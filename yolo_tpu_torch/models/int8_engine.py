@@ -16,10 +16,11 @@ float. This engine runs the calibrated model with int8 tensors end to end:
     int32 sums (the JAX package runs them through XLA's s8 conv);
   - shortcuts and concats follow the sim's requantization chains (min/max
     shortcut ways, a common concat scale) in f32;
-  - SE, global avgpool and scale_channels are float edges, as in the sim.
+  - SE, global avgpool, scale_channels and a standalone [batchnorm] (on
+    its running statistics) are float edges, as in the sim.
 
 A conv on a float edge (the network input, or the output of an SE,
-avgpool or scale_channels layer) runs on the bf16-rounded input and the
+avgpool, scale_channels or [batchnorm] layer) runs on the bf16-rounded input and the
 dequantized int8 weights, summed in f32 (cuDNN on the card), then
 requantizes (``ops/conv_int8.float_edge_conv``). Scales are read from a
 calibrated qstate when the plan is prepared and baked in as Python floats.
@@ -29,8 +30,7 @@ every int8 conv that K2 takes goes through it, which is the JAX
 ``backend='pallas'`` routing with ``pallas_min_hw=0`` (its oracle is
 ``backend='xla'``).
 
-Not ported yet (see ROADMAP.md): schemes other than google, and a
-standalone [batchnorm] layer.
+Not ported yet (see ROADMAP.md): schemes other than google.
 """
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ from ..compress.quant import (QuantConfig, check_supported, qrange,
                               round_half_away, unported)
 from ..ir import NetworkIR
 from ..ops import conv as conv_ops
+from ..ops.conv import LONE_BN_EPS
 from ..ops.conv_int8 import (float_edge_conv, fused_conv_int8,
                               grouped_conv_int8, supported)
 from .yolo_head import anchors_on, decode_yolo_nhwc, reshape_pred
@@ -126,6 +127,9 @@ def prepare_int8(net: NetworkIR, params, state, qstate, cfg: QuantConfig,
         elif lyr.kind == 'se':
             arrays[k] = {f: params[k][f].detach().to(device, torch.float32)
                          for f in ('fc1', 'fc2')}
+        elif lyr.kind == 'batchnorm':
+            arrays[k] = {f: t.detach().to(device, torch.float32)
+                         for f, t in (*params[k].items(), *state[k].items())}
     return Int8Plan(arrays=arrays, meta=meta, a_bits=cfg.a_bits,
                     shortcut_way=cfg.shortcut_way,
                     maxabsscaler=cfg.maxabsscaler, scheme=cfg.scheme)
@@ -248,6 +252,12 @@ def make_int8_apply(net: NetworkIR, plan: Int8Plan, heads_only: bool = False,
                     _as_float(prev), arrays[k]['fc1'], arrays[k]['fc2']))
             elif kind == 'avgpool':
                 prev = ('f', conv_ops.global_avg_pool_nhwc(_as_float(prev)))
+            elif kind == 'batchnorm':   # a float edge (eps 1e-4)
+                a = arrays[k]
+                prev = ('f', conv_ops.batch_norm_infer(
+                    _as_float(prev).permute(0, 3, 1, 2), a['gamma'],
+                    a['beta'], a['mean'], a['var'],
+                    LONE_BN_EPS).permute(0, 2, 3, 1))
             elif kind == 'scale_channels':
                 prev = ('f', _as_float(outs[lyr.layers[0]]) * _as_float(prev))
             elif kind == 'maxpool':

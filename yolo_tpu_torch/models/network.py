@@ -1,9 +1,12 @@
 """Darknet detector as an ``nn.Module`` built from a ``NetworkIR``.
 
-Counterpart of ``yolo_tpu/models/network.py`` for inference: the eval
-forward (with BN, or with BN folded by ``fuse_params``), the ``heads_only``
-outputs that feed the sparse-decode NMS, and test-time augmentation
-(``Darknet.forward_augment``, the JAX package's ``make_augmented_apply``).
+Counterpart of ``yolo_tpu/models/network.py``: the eval forward (with BN,
+or with BN folded by ``fuse_params``), the ``heads_only`` outputs that feed
+the sparse-decode NMS, test-time augmentation (``Darknet.forward_augment``,
+the JAX package's ``make_augmented_apply``) and the train forward
+(``Darknet.forward_train``, JAX's ``apply(..., train=True)``: BN on batch
+statistics, trainable f32 parameters cast to the compute dtype at each
+use).
 Every layer kind of the cfgs under ``cfg/`` runs: conv and depthwise conv,
 standalone BN, maxpool, SE, global avgpool, scale_channels, reorg3d,
 route, shortcut, upsample, dropout, and yolo heads, ASFF ones included.
@@ -26,11 +29,8 @@ from .. import ir as ir_mod
 
 from ..ops import activations as act_mod
 from ..ops import conv as conv_ops
-from .yolo_head import decode_yolo_nhwc
-
-# per-conv BN vs standalone [BatchNorm2d] blocks (as in the JAX package)
-CONV_BN_EPS = 1e-5
-LONE_BN_EPS = 1e-4
+from ..ops.conv import CONV_BN_EPS, CONV_BN_MOM, LONE_BN_EPS, LONE_BN_MOM
+from .yolo_head import decode_yolo_nhwc, reshape_pred
 
 SUPPORTED_KINDS = ('conv', 'depthwise', 'batchnorm', 'maxpool', 'se',
                    'avgpool', 'scale_channels', 'reorg3d', 'route',
@@ -139,16 +139,18 @@ def fuse_params(net: ir_mod.NetworkIR, params, state):
 
 
 class _LayerTensors(nn.Module):
-    """One layer's tensors: params as frozen Parameters in ``dtype``, BN
-    state as f32 buffers."""
+    """One layer's tensors: params as frozen Parameters in ``dtype`` (or,
+    ``trainable``, as trainable f32 copies), BN state as f32 buffers."""
 
-    def __init__(self, params: dict, state: dict, dtype: torch.dtype):
+    def __init__(self, params: dict, state: dict, dtype: torch.dtype,
+                 trainable: bool = False):
         super().__init__()
         for name, t in params.items():
-            self.register_parameter(
-                name, nn.Parameter(t.to(dtype), requires_grad=False))
+            self.register_parameter(name, nn.Parameter(
+                t.detach().to(torch.float32, copy=True) if trainable
+                else t.to(dtype), requires_grad=trainable))
         for name, t in state.items():
-            self.register_buffer(name, t.to(torch.float32))
+            self.register_buffer(name, t.to(torch.float32, copy=trainable))
 
 
 class Darknet(nn.Module):
@@ -166,11 +168,18 @@ class Darknet(nn.Module):
     to it), BN statistics and anchors in f32, as in the JAX package. Move
     it with ``.to(device, memory_format=torch.channels_last)``, without a
     dtype: the anchors live on the device, so the decode copies nothing
-    from the host (a host-to-device copy would synchronise the stream)."""
+    from the host (a host-to-device copy would synchronise the stream).
+
+    ``trainable``: the parameters are trainable f32 copies under the JAX
+    key names (``layer[k].w``, ``gamma``, ``beta``, ``b``, ``fc1``/``fc2``,
+    the weighted shortcut's ``w``) and every use casts them to ``dtype``
+    (``None``: f32, no cast), so that the compute-dtype gradient flows back
+    into the f32 master weight; ``forward_train`` runs the train mode."""
 
     def __init__(self, net: ir_mod.NetworkIR, params, state=None, *,
                  fused: bool = False, maxabsscaler: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype | None = torch.float32,
+                 trainable: bool = False):
         super().__init__()
         check_supported(net)
         state = state or {}
@@ -185,8 +194,9 @@ class Darknet(nn.Module):
                                      f'fused={fused} (need {want})')
         self.net = net
         self.fused = fused
-        self.dtype = dtype
-        self.layer = nn.ModuleDict({k: _LayerTensors(v, state.get(k, {}), dtype)
+        self.dtype = torch.float32 if dtype is None else dtype
+        self.layer = nn.ModuleDict({k: _LayerTensors(v, state.get(k, {}),
+                                                     self.dtype, trainable)
                                     for k, v in params.items()})
         self._act = {l.index: act_mod.get(l.activation, maxabsscaler)
                      for l in net.layers if l.kind in CONV_KINDS}
@@ -211,36 +221,57 @@ class Darknet(nn.Module):
         """Per-scale (na, 2) pixel anchors, f32, on the module's device."""
         return [getattr(self, f'anchors{i}') for i in range(len(self._yolos))]
 
-    def _run(self, x, want_obj: bool):
+    def _c(self, t):
+        """A parameter in the compute dtype (a no-op for a frozen model)."""
+        return t if t.dtype == self.dtype else t.to(self.dtype)
+
+    def _bn(self, lyr, t, y, eps, momentum, train, new_state):
+        if not train:
+            return conv_ops.batch_norm_infer(y, t.gamma, t.beta, t.mean,
+                                             t.var, eps)
+        y, m, v = conv_ops.batch_norm_train(y, t.gamma, t.beta, t.mean, t.var,
+                                            eps, momentum)
+        new_state[str(lyr.index)] = {'mean': m, 'var': v}
+        return y
+
+    def _run(self, x, want_obj: bool, train: bool = False,
+             head_layout: str = 'anchor_major'):
         prev = x.permute(0, 3, 1, 2).to(self.dtype)
         outs, pending = {}, {}
         heads, objs = [], []
+        feats, new_state = [], {}
         head_convs = self._head_conv if want_obj else {}
         for lyr in self.net.layers:
             kind = lyr.kind
             if kind in CONV_KINDS:
                 t = self.layer[str(lyr.index)]
                 stride = lyr.stride_xy or lyr.stride
+                w = self._c(t.w)
                 if lyr.index in head_convs:
                     y = head_convs[lyr.index]
                     sl = slice(4, y.na * y.no, y.no)
                     pending[lyr.index] = conv_ops.conv2d(
-                        prev, t.w[sl], stride=stride, padding=lyr.pad,
-                        bias=t.b[sl])
+                        prev, w[sl], stride=stride, padding=lyr.pad,
+                        bias=self._c(t.b)[sl])
                 if lyr.bn and not self.fused:
-                    y = conv_ops.conv2d(prev, t.w, stride=stride,
+                    y = conv_ops.conv2d(prev, w, stride=stride,
                                         padding=lyr.pad, groups=lyr.groups)
-                    y = conv_ops.batch_norm_infer(y, t.gamma, t.beta, t.mean,
-                                                  t.var, CONV_BN_EPS)
+                    y = self._bn(lyr, t, y, CONV_BN_EPS, CONV_BN_MOM, train,
+                                 new_state)
+                elif train:
+                    # the JAX train forward adds the bias after the conv
+                    y = conv_ops.conv2d(prev, w, stride=stride,
+                                        padding=lyr.pad, groups=lyr.groups)
+                    y = y + self._c(t.b)[:, None, None]
                 else:
-                    y = conv_ops.conv2d(prev, t.w, stride=stride,
+                    y = conv_ops.conv2d(prev, w, stride=stride,
                                         padding=lyr.pad, groups=lyr.groups,
-                                        bias=t.b)
+                                        bias=self._c(t.b))
                 prev = self._act[lyr.index](y)
             elif kind == 'batchnorm':
                 t = self.layer[str(lyr.index)]
-                prev = conv_ops.batch_norm_infer(prev, t.gamma, t.beta, t.mean,
-                                                 t.var, LONE_BN_EPS)
+                prev = self._bn(lyr, t, prev, LONE_BN_EPS, LONE_BN_MOM, train,
+                                new_state)
             elif kind == 'maxpool':
                 prev = conv_ops.max_pool(prev, lyr.size, lyr.stride)
             elif kind == 'se':
@@ -269,10 +300,21 @@ class Darknet(nn.Module):
                              else prev.permute(0, 2, 3, 1))
                 o = pending.get(lyr.index - 1)
                 objs.append(None if o is None else o.permute(0, 2, 3, 1))
-            # dropout: identity at inference
+            # dropout: the identity, in train mode too (as in the JAX
+            # package, which never drops)
             if lyr.is_routed:
                 outs[lyr.index] = prev
-        return heads, objs
+            if train and lyr.feature_out:
+                feats.append(prev.permute(0, 2, 3, 1))
+        if not train:
+            return heads, objs
+        yolo_p = []
+        for h, l in zip(heads, self._yolos):
+            bs, ny, nx, _ = h.shape
+            yolo_p.append(h.reshape(bs, ny, nx, l.na, l.no)
+                          if head_layout == 'nhwc'
+                          else reshape_pred(h, l.na, l.no))
+        return (yolo_p, feats), new_state
 
     @staticmethod
     def _asff_fuse(lyr, outs):
@@ -327,6 +369,17 @@ class Darknet(nn.Module):
 
     def forward_heads(self, x):
         return self._run(x, want_obj=True)
+
+    def forward_train(self, x, head_layout: str = 'anchor_major'):
+        """The train forward (JAX ``apply(params, state, x, train=True)``):
+        BN on batch statistics, no slim objectness conv. Returns
+        ((yolo_p, feature_out), new_state): yolo_p per scale (bs, na, ny,
+        nx, no), or (bs, ny, nx, na, no) with ``head_layout='nhwc'``;
+        feature_out the NHWC maps of the ``feature_out`` layers; new_state
+        the BN layers' new running mean and var (detached; the buffers are
+        left as they are)."""
+        return self._run(x, want_obj=False, train=True,
+                         head_layout=head_layout)
 
     def forward_augment(self, x):
         """Test-time augmentation (the JAX package's

@@ -29,6 +29,44 @@ def batch_norm_infer(x, gamma, beta, mean, var, eps: float = 1e-5):
             + shift.to(x.dtype)[:, None, None])
 
 
+# eps and momentum of the per-conv BN and of the standalone [batchnorm]
+# block (as in the JAX package)
+CONV_BN_EPS, CONV_BN_MOM = 1e-5, 0.1
+LONE_BN_EPS, LONE_BN_MOM = 1e-4, 0.03
+
+
+def batch_norm_train(x, gamma, beta, running_mean, running_var,
+                     eps: float = 1e-5, momentum: float = 0.1):
+    """Training-mode BN over (N, H, W) of an NCHW tensor, in plain tensor
+    ops so that autograd gives the JAX package's VJP (``F.batch_norm``
+    would follow cuDNN's rules for the variance and the running update).
+
+    Returns (y, new_running_mean, new_running_var), the running ones
+    detached. The statistics are f32 (f64 for an f64 input, which serves
+    as a reference); y is cast back to x's dtype. y uses the biased batch
+    variance, the running variance the unbiased one, and running = (1 -
+    momentum) * running + momentum * batch. An f32 or f64 input takes the
+    two-pass variance; a bf16 one the one-pass ``E[x^2] - mean^2``,
+    clamped at 0, as in the JAX package (the one-pass form cancels when
+    |mean| >> std, which f32 parity cannot afford)."""
+    n = x.shape[0] * x.shape[2] * x.shape[3]
+    axes = (0, 2, 3)
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    mean = xf.mean(axes)
+    c = lambda t: t[:, None, None]
+    if x.dtype == xf.dtype:
+        var = (xf - c(mean)).square().mean(axes)
+    else:
+        var = torch.clamp_min(xf.square().mean(axes) - mean.square(), 0.0)
+    y = ((xf - c(mean)) * c(torch.rsqrt(var + eps)) * c(gamma)
+         + c(beta)).to(x.dtype)
+    with torch.no_grad():
+        unbiased = var * (n / max(n - 1, 1))
+        new_mean = (1.0 - momentum) * running_mean + momentum * mean
+        new_var = (1.0 - momentum) * running_var + momentum * unbiased
+    return y, new_mean, new_var
+
+
 def max_pool(x, size: int, stride: int):
     """Darknet maxpool: -inf padding of (size - 1) // 2, except the tiny
     k=2/s=1 case, which pads one zero row and column at the bottom/right."""

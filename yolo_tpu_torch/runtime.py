@@ -11,8 +11,8 @@ calibration step; ``make_infer`` runs the true-int8 engine (default) or the
 fake-quant sim (``engine=False``).
 
 Every entry point runs on the card (``device='cuda'``) unless the caller
-asks for the CPU. Other quantization schemes and the bf16 eval snap of the
-sim are not ported yet (see ROADMAP.md).
+asks for the CPU. Other quantization schemes are not ported yet (see
+ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -42,7 +42,9 @@ class ModelBundle:
     ``params``/``state`` are dicts of f32 tensors on ``device`` (see
     ``models/network.py``); an empty ``state`` means BN is folded.
     ``dtype`` is the compute dtype of the float forward. A quantized
-    bundle also holds ``qcfg`` and ``qstate`` (``compress/quant.py``)."""
+    bundle also holds ``qcfg`` and ``qstate`` (``compress/quant.py``) and
+    the dtype of its sim's eval grid snaps (``eval_snap_dtype``, None for
+    f32)."""
     net: NetworkIR
     params: dict
     state: dict
@@ -51,6 +53,7 @@ class ModelBundle:
     maxabsscaler: bool = False
     qcfg: QuantConfig | None = None
     qstate: dict | None = None
+    eval_snap_dtype: torch.dtype | None = None
 
     @property
     def nc(self) -> int:
@@ -91,12 +94,18 @@ class ModelBundle:
         if not self.quantized:
             raise ValueError('apply is the quantized sim: load the model '
                              'with quantized=1')
-        fn = make_quant_apply(self.net, self.qcfg)
+        fn = self.quant_apply()
         if not train:
             return fn(self.params, self.state, self.qstate, x, False)
         out, self.state, self.qstate = fn(self.params, self.state,
                                           self.qstate, x, True)
         return out
+
+    def quant_apply(self):
+        """The bundle's fake-quant sim (``make_quant_apply`` with its eval
+        snap dtype)."""
+        return make_quant_apply(self.net, self.qcfg,
+                                eval_snap_dtype=self.eval_snap_dtype)
 
     def anchors(self):
         """Per-scale (na, 2) pixel anchors, f32, on ``device``."""
@@ -157,7 +166,7 @@ class ModelBundle:
         if engine is None:
             engine = self.qcfg.scheme == 'google'
         if not engine:
-            sim = make_quant_apply(self.net, self.qcfg)
+            sim = self.quant_apply()
             params, state, qstate = self.params, self.state, self.qstate
 
             @torch.inference_mode()
@@ -185,7 +194,8 @@ def load_model(cfg, weights=None, *, device='cuda', dtype=torch.bfloat16,
                is_gray_scale: bool = False, maxabsscaler: bool = False,
                generator: torch.Generator | None = None,
                conv_scale: float = 1.0, pt: bool = False,
-               prefer_ema: bool = True) -> ModelBundle:
+               prefer_ema: bool = True,
+               eval_snap_dtype: torch.dtype | None = None) -> ModelBundle:
     """Build a detector on ``device`` and load its weights.
 
     ``weights``: a .npz checkpoint of the JAX package, a .pt/.pth
@@ -200,7 +210,9 @@ def load_model(cfg, weights=None, *, device='cuda', dtype=torch.bfloat16,
     ``shortcut_way`` and ``steps`` (the calibration length that sets the
     freeze steps). Its quantizer state comes from the checkpoint's
     ``qstate`` key or from a sibling ``<name>_qstate.npz``, else it starts
-    uncalibrated. Other schemes raise NotImplementedError."""
+    uncalibrated; ``eval_snap_dtype`` (e.g. ``torch.bfloat16``) runs its
+    sim's eval grid snaps in that dtype. Other schemes raise
+    NotImplementedError."""
     device = torch.device(device)
     net = build_ir(cfg, is_gray_scale=is_gray_scale)
     params, state = init_params(net, generator, conv_scale=conv_scale)
@@ -246,7 +258,8 @@ def load_model(cfg, weights=None, *, device='cuda', dtype=torch.bfloat16,
         qstate = _to_device(qstate, device)
     return ModelBundle(net=net, params=to(params), state=to(state),
                        device=device, dtype=dtype, maxabsscaler=maxabsscaler,
-                       qcfg=qcfg, qstate=qstate)
+                       qcfg=qcfg, qstate=qstate,
+                       eval_snap_dtype=eval_snap_dtype if qcfg else None)
 
 
 def _to_device(tree, device):

@@ -15,18 +15,21 @@ the CLI's IoU threshold -> ``study_<data>_<cfg>.txt``) and ``benchmark``
 (sizes 256-512 x NMS IoU {0.6, 0.7} -> ``benchmark.txt``). It runs on the
 card unless ``--device cpu``. ``--quantized 1`` evaluates the fake-quant
 sim of a calibrated google-scheme checkpoint, ``--int8-engine`` the
-true-int8 engine (K2 convs) on it. ``--augment`` runs test-time
-augmentation on a float model (a quantized one warns and runs a single
-pass). ``--weights`` takes a .npz of the JAX package, a .pt of the PyTorch
-reference or darknet .weights. Other schemes and ``--qat-eval-snap bf16``
-are not ported yet (see ROADMAP.md).
+true-int8 engine (K2 convs) on it; ``--qat-eval-snap bf16`` runs the
+sim's eval grid snaps in bf16. ``--augment`` runs test-time augmentation
+on a float model (a quantized one warns and runs a single pass).
+``--weights`` takes a .npz of the JAX package, a .pt of the PyTorch
+reference or darknet .weights. Other schemes are not ported yet (see
+ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import os
 
-from .compress.quant import make_quant_apply, unported
+import torch
+
+from .compress.quant import unported
 from .utils.cli import FlexParser
 
 
@@ -62,8 +65,8 @@ def parse_args(argv=None):
                         'the fake-quant sim; needs --quantized 1 and a '
                         'calibrated checkpoint')
     p.add_argument('--qat-eval-snap', default='f32', choices=['f32', 'bf16'],
-                   help="fake-quant eval grid-snap dtype; only 'f32' is "
-                        'ported')
+                   help='fake-quant eval grid-snap dtype (bf16 rounds the '
+                        'quantize chains in bf16; --quantized only)')
     p.add_argument('--no-plot', action='store_true',
                    help='skip the test_batch0_gt/pred.jpg mosaics')
     return p.parse_args(argv)
@@ -71,8 +74,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     opt = parse_args(argv)
-    if opt.qat_eval_snap != 'f32':
-        raise unported('--qat-eval-snap bf16')
     if opt.quantized not in (-1, 1):
         raise unported(f'--quantized {opt.quantized}')
     if opt.int8_engine and opt.quantized != 1:
@@ -85,14 +86,17 @@ def main(argv=None):
                         quantized=opt.quantized, a_bit=opt.a_bit,
                         w_bit=opt.w_bit, shortcut_way=opt.shortcut_way,
                         is_gray_scale=opt.gray_scale,
-                        maxabsscaler=opt.maxabsscaler)
+                        maxabsscaler=opt.maxabsscaler,
+                        eval_snap_dtype=(torch.bfloat16
+                                         if opt.qat_eval_snap == 'bf16'
+                                         else None))
     if not bundle.quantized:
         bundle = bundle.fuse()      # BN folded for eval
 
     eval_params, eval_state = bundle.params, bundle.state
     eval_qapply = eval_qstate = None
     if bundle.quantized:
-        eval_qapply = make_quant_apply(bundle.net, bundle.qcfg)
+        eval_qapply = bundle.quant_apply()
         eval_qstate = bundle.qstate
     if opt.int8_engine:
         eval_params, eval_qapply = int8_engine_apply(

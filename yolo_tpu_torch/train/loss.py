@@ -1,4 +1,4 @@
-"""YOLO detection loss, forward only (counterpart of yolo_tpu/train/loss.py).
+"""YOLO detection loss (counterpart of yolo_tpu/train/loss.py).
 
 Fixed-shape, as in the JAX package: every (anchor, target-slot) pair is
 scored densely and the selection is a boolean mask, so shapes never depend
@@ -17,9 +17,12 @@ JAX ``mode='drop'``): their flat index points at a dump slot past the end.
 Nothing here reads a tensor back to the host or copies one from it, so a
 caller can queue the loss behind a forward without a stream synchronise.
 
-This slice serves the evaluator's val losses. The backward pass through
-autograd and its checks against JAX's gradients wait for the training
-slice (see ROADMAP.md).
+It serves the evaluator's val losses and the trainer, whose backward
+runs through autograd. JAX's ``stop_gradient``s are ``detach``es here:
+the giou inside the objectness target and the returned loss items. The
+objectness target carries no gradient, as in JAX: its winner is an
+integer index (``scatter_reduce_``, then a gather of the detached
+values).
 """
 
 from __future__ import annotations
@@ -125,11 +128,12 @@ def compute_loss(p: Sequence[torch.Tensor], targets, valid, anchor_vecs,
 
     p: per-layer raw predictions (bs, na, ny, nx, no), or (bs, ny, nx, na,
     no) with ``layout='nhwc'``; heads may be bf16, the loss math runs in
-    f32 on the gathered rows and the objectness slice. targets: (T, 6)
-    padded; valid: (T,) bool; anchor_vecs: per-layer (na, 2) anchors /
-    stride, tensors on the heads' device. gr: the giou ratio of the
-    objectness target. img_weight: optional (bs,) 0/1 mask that drops the
-    batch's pad slots from every loss mean (the evaluator's ragged tail).
+    f32 (f64 for f64 heads) on the gathered rows and the objectness slice.
+    targets: (T, 6) padded; valid: (T,) bool; anchor_vecs: per-layer
+    (na, 2) anchors / stride, tensors on the heads' device. gr: the giou
+    ratio of the objectness target. img_weight: optional (bs,) 0/1 mask
+    that drops the batch's pad slots from every loss mean (the evaluator's
+    ragged tail).
     Returns (loss, loss_items (4,) = [lbox, lobj, lcls, total], detached)."""
     cp, cn = smooth_bce(hyp.smooth_eps)
     dev = targets.device
@@ -152,8 +156,9 @@ def compute_loss(p: Sequence[torch.Tensor], targets, valid, anchor_vecs,
         gj = lt.gj.reshape(-1).clamp(0, ny - 1)
         gi = lt.gi.reshape(-1).clamp(0, nx - 1)
 
+        ldt = torch.promote_types(pi.dtype, torch.float32)
         ps = (pi[b, gj, gi, a] if nhwc
-              else pi[b, a, gj, gi]).to(torch.float32)             # (na*T, no)
+              else pi[b, a, gj, gi]).to(ldt)                       # (na*T, no)
         pxy = torch.sigmoid(ps[:, 0:2])
         pwh = torch.exp(ps[:, 2:4]).clamp(max=1e3) * lt.av.reshape(-1, 2)
         pbox = torch.cat([pxy, pwh], 1)
@@ -180,7 +185,7 @@ def compute_loss(p: Sequence[torch.Tensor], targets, valid, anchor_vecs,
         win = win[:n_cells].reshape(shape)
         tobj = torch.where(win >= 0, tobj_val[win.clamp(min=0)], 0.0)
 
-        obj_logit = pi[..., 4].to(torch.float32)
+        obj_logit = pi[..., 4].to(ldt)
         obj_bce = bce_with_logits(obj_logit, tobj, hyp.obj_pw)
         if hyp.fl_gamma > 0:
             obj_bce = obj_bce * focal_scale(obj_logit, tobj, hyp.fl_gamma)
