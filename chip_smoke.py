@@ -161,6 +161,44 @@ Phases; any failure exits non-zero, and nothing runs on the CPU instead
    pseudo-labels: mAP@0.5 >= 0.99, K1 once a batch), its survivors at conf
    0.1 beside the f32 sim's, both sims' ``make_infer`` timed in turns.
 
+11. the rest of quantization, in a child process (``chip_smoke.py
+   --phase11 DIR``; JPEG files and the file loader need OpenCV): (a)
+   ``cfg/yolov4/yolov4.cfg`` at full width, 608 px, seeded random weights
+   (the smallest ``conv_scale`` of ``V4_SCALES`` that keeps 20 boxes an
+   image above conf 0.001 with bounded heads, printed; BN running
+   statistics of one seeded batch), 64 seeded JPEG
+   files labelled by the float model, then ``python -m
+   yolo_tpu_torch.ptq --img-size 608 --batch-size 8 --subset-len 32
+   --int8-engine`` (its ``main``): the calibration's seconds, the cos-PTQ
+   winners per quantizer kind, float / sim / engine mAP@0.5 on the float
+   model's labels (the float model >= 0.99), K1 once and K2 109 times per
+   engine batch of each evaluate; the sim and the engine each >= 0.99 on
+   their own labels; ``PTQ.npz`` and ``PTQ_qstate.npz`` reload to the
+   same engine heads; (b) yolov4's ptq_cos engine: one batch with zeroed
+   counts (K2 109, K1 1), every K2 call against its plain version on its
+   own input (leaky and linear bit-equal, mish within 1 LSB, the share
+   printed) and timed alone, summed beside the bound; the whole engine
+   through K2 against through its plain version (the share of int8 head
+   values that differ printed); survivors against the sim by phase 6's
+   rule; ``make_infer`` float bf16 against the engine in turns; a
+   profile; (c) QAT of yolov3 @608, google, bs=8, bf16 MACs, Adam, one
+   seeded batch, ``QuantConfig(steps=10)``: 12 steps, the last 3 through
+   ``make_bn_frozen()``; ``grad_fn``/``update_fn`` by CUDA events before
+   and after the switch, a profile of each, the peak memory, the loss
+   falling, every conv's qstate step at 12; the f32 gradient at 320 px,
+   bs=2, from frozen quantizer scales, card (with and without cuDNN)
+   against CPU (at its threads and at 1), the full step and the BN-frozen
+   one (``QAT_FROZEN_TOL``, ``QAT_FULL_*``); (d)
+   TPSQ on yolov3 @608: ``tpsq_warmup`` on one batch (timed), 3 QAT
+   steps, the engine (K2 on the convs on int8 edges, on the [-127, 127]
+   grid with the 127/128 multiplier, the others on float edges; K1 once),
+   each K2 call bit-equal to its plain version, survivors against the
+   TPSQ sim (the engine's and the sim's through the same sparse NMS, at
+   the confidence ``SURVIVOR_CONFS`` gives); (e) ``run_training --quantized 1`` on (a)'s files, bs=8, 2
+   epochs (the scale freeze at step 1, the BN freeze at 14): K1 once per
+   eval batch of the sim, ``last.npz`` holding qstate (every conv at step
+   16), then a resume for a third epoch (steps to 24).
+
 A kernel's time is taken twice, on the same inputs: ``cuda_ms``, what its
 caller waits for (median CUDA-event time, the host's work to queue the
 call included), and ``device_ms``, the device alone (a sleep kernel keeps
@@ -168,16 +206,17 @@ the card busy while the host queues the call). A pipeline's time is
 ``cuda_ms``.
 
 The line before the last is a JSON object with each kernel's launches on
-the main paths (phases 4, 6, 7, 8, 9 and 10), error, times and bound (``ms``, ``plain_ms`` and
+the main paths (phases 4, 6, 7, 8, 9, 10 and 11), error, times and bound (``ms``, ``plain_ms`` and
 ``library_ms`` by ``cuda_ms``, ``device_ms`` beside them; for nms_suppress
 also its cluster and CTAs at k=512, bs=8, the wrapper's host time per call,
 the device time by cluster size and both times on the dense path's own
 candidates; for conv_int8 also its 1x1 times beside ``torch._int_mm``'s,
-and its totals by class, and phase 8's engine by route);
+and its totals by class, phase 8's engine by route, and yolov4's
+ptq_cos engine's K2 calls summed and the TPSQ engine's count, phase 11);
 the line before it the card's name and power limit; the last line is the JSON device record. At the end the
 run checks that neither jax nor OpenCV nor any module of the JAX package
-``yolo_tpu`` was imported into this process (the children of phases 9
-and 10 load OpenCV).
+``yolo_tpu`` was imported into this process (the children of phases 9,
+10 and 11 load OpenCV).
 """
 
 from __future__ import annotations
@@ -335,7 +374,7 @@ def device_setup():
 
 
 def phase_device():
-    print('[1/10] device')
+    print('[1/11] device')
     card = device_setup()
     print(f'  {torch.cuda.get_device_name(0)}; torch {torch.__version__}, '
           f'CUDA {torch.version.cuda}; TF32 off for matmul and cuDNN')
@@ -366,7 +405,7 @@ def conv_sass(lib_path):
 
 
 def phase_build():
-    print('[2/10] build')
+    print('[2/11] build')
     import re
     from yolo_tpu_torch import _build
     lib = _build.library_path()
@@ -457,7 +496,7 @@ def k1_compare(got, ref, what):
 
 
 def phase_kernel(dev):
-    print('[3/10] K1 nms_suppress vs plain version')
+    print('[3/11] K1 nms_suppress vs plain version')
     from yolo_tpu_torch.ops import nms_suppress as K1
     suppress, suppress_reference = K1.suppress, K1.suppress_reference
     rng = np.random.default_rng(0)
@@ -536,7 +575,7 @@ def phase_kernel(dev):
 
 
 def phase_pipeline(dev, card):
-    print('[4/10] yolov3 @608 float pipeline')
+    print('[4/11] yolov3 @608 float pipeline')
     from yolo_tpu_torch import runtime
     from yolo_tpu_torch.ops import nms
     from yolo_tpu_torch.ops.nms_suppress import suppress
@@ -753,7 +792,7 @@ def int_mm_ms(x8, w8, **timing):
 
 
 def phase_conv_kernel(dev):
-    print('[5/10] K2 conv_int8 vs plain version')
+    print('[5/11] K2 conv_int8 vs plain version')
     from yolo_tpu_torch.ops.conv_int8 import (fused_conv_int8,
                                               fused_conv_int8_reference)
     max_err = 0.0
@@ -1069,7 +1108,7 @@ def in_range(label, fn):
 
 
 def phase_int8(dev, card):
-    print('[6/10] yolov3 @608 int8 serving')
+    print('[6/11] yolov3 @608 int8 serving')
     from yolo_tpu_torch import runtime
     b, x = int8_bundle(dev, BS, SIZE)
     launches, plan, infer = int8_checks(b, x)
@@ -1130,7 +1169,7 @@ class MemoryLoader:
         return iter(self.items)
 
 
-def pseudo_labels(infer, batches, dev, n=EVAL_LABELS):
+def pseudo_labels(infer, batches, dev, n=EVAL_LABELS, cap=None):
     """Per batch, per image: the model's own detections as [cls, x, y, w, h]
     labels normalised by the (square) image size, clipped to the image.
 
@@ -1143,12 +1182,17 @@ def pseudo_labels(infer, batches, dev, n=EVAL_LABELS):
     other, and the model scores mAP@0.5 = 1 up to rounding. Two detections
     of one class that clip to the same box (boxes far larger than the
     image) give one label: only one prediction can claim it, the other is
-    a false positive either way. Returns (labels, the threshold, the
-    duplicates dropped)."""
+    a false positive either way. ``cap``: the threshold is raised until no
+    image keeps more than ``cap`` labels (a loader's target capacity; the
+    ``n`` per image then no longer holds). Returns (labels, the threshold,
+    the duplicates dropped)."""
     from yolo_tpu_torch.runtime import preprocess
     dets = [infer(preprocess(imgs, device=dev)).cpu().numpy()
             for imgs in batches]
     thres = min(d[d[:, 4] > 0][:n, 4].min() for db in dets for d in db)
+    if cap is not None:
+        thres = max([thres] + [d[cap - 1, 4] * (1 + 1e-6) for db in dets
+                               for d in db if d[cap - 1, 4] > 0])
     out, n_dup = [], 0
     for imgs, db in zip(batches, dets):
         size = imgs.shape[1]
@@ -1261,7 +1305,7 @@ def phase_eval(dev, card, qb, cfg=CFG, n_images=EVAL_IMAGES):
     """The evaluation path: ``evaluate`` on float yolov3 (device and host
     matching), the f32 QAT sim and the int8 engine of phase 6's calibrated
     bundle ``qb``, each against pseudo-labels made by the model itself."""
-    print(f'[7/10] mAP evaluation: yolov3 @{SIZE}, {n_images} images, bs={BS}')
+    print(f'[7/11] mAP evaluation: yolov3 @{SIZE}, {n_images} images, bs={BS}')
     from yolo_tpu_torch import runtime
     from yolo_tpu_torch.compress.quant import make_quant_apply
     from yolo_tpu_torch.eval.evaluator import evaluate, int8_engine_apply
@@ -1627,7 +1671,7 @@ def phase_new_cfgs(dev, card):
     from yolo_tpu_torch import runtime
     from yolo_tpu_torch.models.torch_import import save_torch_checkpoint
     t0 = time.perf_counter()
-    print(f'[8/10] more cfgs: (a) yolov3-mobilenet @{MOBILE_SIZE}, (b) '
+    print(f'[8/11] more cfgs: (a) yolov3-mobilenet @{MOBILE_SIZE}, (b) '
           f'yolov3-asff @{SIZE}, (c) TTA yolov3 @{SIZE}, (d) mobilenet int8, '
           '(e) .pt')
     k1 = 0
@@ -1693,12 +1737,13 @@ def shrink_gammas(params, prune_idx, frac=PRUNE_SHRINK, seed=0):
     return out
 
 
-def write_jpeg_set(root, infer, dev, n_images):
+def write_jpeg_set(root, infer, dev, n_images, cap=None):
     """``n_images`` seeded images as JPEG files under ``root/images``, read
     back (the pixels the loader sees) and labelled with ``infer``'s own
     detections (``pseudo_labels``) under ``root/labels``; an image list and
-    a .data file (80 classes, the COCO names). Returns (the .data path, the
-    batches read back, their labels)."""
+    a .data file (80 classes, the COCO names); ``cap`` as in
+    ``pseudo_labels``. Returns (the .data path, the batches read back,
+    their labels)."""
     import cv2
     for d in ('images', 'labels'):
         os.makedirs(os.path.join(root, d))
@@ -1712,7 +1757,7 @@ def write_jpeg_set(root, infer, dev, n_images):
             back.append(cv2.imread(p)[..., ::-1])       # BGR file -> RGB
             paths.append(p)
         batches.append(np.ascontiguousarray(np.stack(back)))
-    labels, thres, n_dup = pseudo_labels(infer, batches, dev)
+    labels, thres, n_dup = pseudo_labels(infer, batches, dev, cap=cap)
     flat = [lab for per in labels for lab in per]
     for p, lab in zip(paths, flat):
         np.savetxt(p.replace('images', 'labels').replace('.jpg', '.txt'),
@@ -1724,7 +1769,8 @@ def write_jpeg_set(root, infer, dev, n_images):
         f.write(f'classes=80\nvalid={root}/val.txt\n'
                 f'names={ROOT}/data_cfg/coco.names\n')
     counts = [len(lab) for lab in flat]
-    check(min(counts) >= EVAL_LABELS - n_dup,
+    check(min(counts) >= (EVAL_LABELS if cap is None else 1) - n_dup
+          and max(counts) <= (cap or max(counts)),
           f'(a) {n_images} JPEG files, {sum(counts)} pseudo-labels, '
           f'{min(counts)}-{max(counts)} per image (confidence >= '
           f'{thres:.6f}; {n_dup} duplicates dropped)')
@@ -2007,7 +2053,7 @@ def prune_child(root, dev):
 
 def phase_prune():
     """Phase 9 in a child process; returns its numbers."""
-    print(f'[9/10] pruning: yolov3 @{SIZE}, {PRUNE_IMAGES} JPEG files, '
+    print(f'[9/11] pruning: yolov3 @{SIZE}, {PRUNE_IMAGES} JPEG files, '
           f'bs={BS} (a child process)')
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as root:
@@ -2396,7 +2442,7 @@ def train_child(root, dev):
 def phase_train(dev, card, qb):
     """Phase 10: the train step on the card against the CPU, the step at
     full size, the loop from files in a child process, the eval snap."""
-    print(f'[10/10] float training: yolov3 @{SIZE}, bs={BS}')
+    print(f'[10/11] float training: yolov3 @{SIZE}, bs={BS}')
     from yolo_tpu_torch.ir import build_ir
     from yolo_tpu_torch.models.network import init_params
     t0 = time.perf_counter()
@@ -2415,6 +2461,762 @@ def phase_train(dev, card, qb):
             out['loop'] = json.load(f)
     out['snap'] = snap_sim(dev, card, qb)
     print(f'  phase 10: {time.perf_counter() - t0:.1f} s')
+    return out
+
+
+# ------------------------------------ phase 11: the rest of quantization
+
+CFG_V4 = os.path.join(ROOT, 'cfg', 'yolov4', 'yolov4.cfg')
+# (a): yolov4's random weights. With init_params' random BN running
+# statistics yolov4 is chaotic: on the card (seed 0, bs=2) up to
+# conv_scale 0.8 no box passes conf 0.001, at 0.86 the heads reach 10, at
+# 0.9 47, at 1.0 6048, and the cos-PTQ sim of the 0.86 model keeps no box
+# at all. So its BN running statistics are those of one seeded batch (the
+# sim's first calibration step copies them in while they are zero), as
+# phase 6 does for yolov3; of V4_SCALES the smallest that gives every
+# image EVAL_LABELS boxes above conf 0.001 with its heads below
+# V4_HEAD_MAX is taken (printed)
+V4_SCALES = (0.6, 0.8, 1.0)
+V4_HEAD_MAX = 30.0
+PTQ_IMAGES = 64           # (a): 8 batches of BS, JPEG files on disk
+PTQ_SUBSET = 32           # (a): calibration images (4 batches)
+# (a): at most this many labels an image: the CLI's loader holds 30 targets
+# an image (30 * bs a batch), and a truncated label costs recall
+PTQ_LABEL_CAP = 30
+QAT_STEPS = 12            # (c): steps on one batch ...
+QAT_CFG_STEPS = 10        # ... with QuantConfig(steps=10): the BN freeze
+                          # (int(0.9 * 10) = 9) falls inside
+QAT_LR = 5e-4             # (c), (d): Adam, every group
+QAT_GRAD_SIZE = 320       # (c): the f32 gradient, card against CPU
+TPSQ_STEPS = 3            # (d): QAT steps after the warmup
+# (c): the f32 QAT gradient, card against CPU, from frozen quantizer
+# scales (PERF.md §6, measured on these inputs). The BN-frozen step
+# (the fold on running statistics) is deterministic up to f32 sums: the
+# loss items equal, the head convs' gradients 6.3e-6 and all together
+# 1.4e-6 of their norms apart; held to QAT_FROZEN_TOL (loss items rtol,
+# head convs, all together). The full step folds BN on batch statistics,
+# whose sums in another order move folded weights across their
+# quantization boundaries: the CPU at 1 and at 8 threads is 1.4e-2 apart
+# in the loss items and 0.60 of the norm in the gradient, the card 3.1e-2
+# and 1.24 from the CPU; held to QAT_FULL_LOSS_TOL and to QAT_FULL_RATIO
+# times the CPU's own spread
+QAT_FROZEN_TOL = (1e-5, 1e-4, 1e-4)
+QAT_FULL_LOSS_TOL = 5e-2
+QAT_FULL_RATIO = 3.0
+
+
+def v4_model(dev):
+    """(a) yolov4 at full width from seed 0: the conv_scale (see V4_SCALES)
+    and the float bundle, its BN running statistics those of one seeded
+    batch."""
+    from yolo_tpu_torch import runtime
+    x = runtime.preprocess(images(80, 2, SIZE), device=dev)
+    xs = runtime.preprocess(images(81, BS, SIZE), device=dev)
+    kw = dict(conf_thres=CONF_THRES, iou_thres=0.6, top_k=512, max_det=300)
+    for s in V4_SCALES:
+        gen = lambda: torch.Generator().manual_seed(0)
+        q = runtime.load_model(CFG_V4, device=dev, quantized=3,
+                               conv_scale=s, generator=gen())
+        q.state = {k: {f: torch.zeros_like(t) for f, t in d.items()}
+                   for k, d in q.state.items()}
+        q.apply(xs, train=True)
+        b = runtime.load_model(CFG_V4, device=dev, conv_scale=s,
+                               generator=gen())
+        b.state = q.state
+        del q
+        with torch.inference_mode():
+            heads = b.model().forward_heads(x)[0]
+        hmax = max(float(h.float().abs().max()) for h in heads)
+        dets = b.make_infer(**kw)(x)
+        n = int((dets[..., 4] > 0).sum(1).min())
+        ok = n >= EVAL_LABELS and np.isfinite(hmax) and hmax < V4_HEAD_MAX
+        print(f'  (a) yolov4 conv_scale {s}, BN statistics of one batch: '
+              f'heads max |{hmax:.2f}|, {n} boxes above conf {CONF_THRES} '
+              f'in the poorer image{" <- taken" if ok else ""}')
+        if ok:
+            return s, b
+    raise SmokeFailure(f'(a) no yolov4 conv_scale in {V4_SCALES} keeps '
+                       f'{EVAL_LABELS} boxes an image')
+
+
+def votes_histogram(qstate_path):
+    """The cos-PTQ winners (float range 2^(i-5) of the most-voted
+    candidate) per quantizer kind, counted over the convs."""
+    from yolo_tpu_torch.utils.checkpoint import load_checkpoint
+    qs = load_checkpoint(qstate_path)['params']
+    out = {}
+    for q in ('aq', 'wq', 'bq'):
+        hist = {}
+        for v in qs.values():
+            if q in v:
+                e = int(np.argmax(np.asarray(v[q]['votes']))) - 5
+                hist[e] = hist.get(e, 0) + 1
+        out[q] = dict(sorted(hist.items()))
+        print(f'  (a) cos-PTQ {q} winners (float range 2^e: convs): '
+              + ', '.join(f'2^{e}: {n}' for e, n in out[q].items()))
+    return out
+
+
+def record_k2(net, plan, x):
+    """Every K2 call of one engine batch (args, kwargs, output), through
+    the engine's ``conv`` hook."""
+    from yolo_tpu_torch.models.int8_engine import make_int8_apply
+    from yolo_tpu_torch.ops.conv_int8 import fused_conv_int8
+    calls = []
+
+    def record(*args, **kw):
+        out = fused_conv_int8(*args, **kw)
+        calls.append((args, kw, out))
+        return out
+    with torch.inference_mode():
+        make_int8_apply(net, plan, heads_only=True, conv=record)(
+            plan.arrays, x)
+    return calls
+
+
+def k2_calls_vs_plain(calls, what, timed=False):
+    """Each recorded K2 call against its plain version on the same int8
+    input: bit-equal unless its activation is mish (then at most 1 LSB);
+    with ``timed`` each call is timed alone on the device and summed
+    beside its bound. Returns the totals."""
+    from yolo_tpu_torch.ops.conv_int8 import (fused_conv_int8,
+                                              fused_conv_int8_reference)
+    n_diff = {'mish': 0, 'other': 0}
+    n_val = {'mish': 0, 'other': 0}
+    worst = 0.0
+    tot = {'dev': 0.0, 'ms': 0.0, 'bound': 0.0, 'ops': 0.0, 'by_ops': 0,
+           'calls': len(calls), 'max_abs_err': 0.0}
+    with torch.inference_mode():
+        for args, kw, out in calls:
+            want = fused_conv_int8_reference(*args, **kw)
+            d = (out.to(torch.int32) - want.to(torch.int32)).abs()
+            kind = 'mish' if kw['act'] == 'mish' else 'other'
+            n_diff[kind] += int((d > 0).sum())
+            n_val[kind] += d.numel()
+            worst = max(worst, float(d.max()))
+            if kind == 'other' and int(d.max()) != 0:
+                raise SmokeFailure(f'{what}: a {kw["act"]} K2 call differs '
+                                   'from its plain version')
+            if int(d.max()) > 1:
+                raise SmokeFailure(f'{what}: a mish K2 call is '
+                                   f'{int(d.max())} LSB from its plain '
+                                   'version')
+            if timed:
+                x8, w8 = args[0], args[1]
+                k = w8.shape[1]
+                tot['dev'] += device_ms(lambda: fused_conv_int8(*args, **kw),
+                                        iters=5, warmup=1)
+                tot['ms'] += cuda_ms(lambda: fused_conv_int8(*args, **kw),
+                                     iters=5, warmup=1)
+                b_ms, b_by = k2_bound(x8, w8, out)
+                tot['bound'] += b_ms
+                tot['by_ops'] += b_by == 'operations'
+                tot['ops'] += 2.0 * out.numel() * k * k * w8.shape[3]
+    tot['max_abs_err'] = worst
+    share = {k: n_diff[k] / max(n_val[k], 1) for k in n_diff}
+    check(True, f'{what}: {len(calls)} K2 calls against the plain version '
+          f'on their own inputs: leaky/linear bit-equal ({n_val["other"]} '
+          f'values), mish within 1 LSB ({share["mish"]:.2e} of '
+          f'{n_val["mish"]} values differ)')
+    tot['mish_share'] = share['mish']
+    if timed:
+        print(f'  {what}: the {len(calls)} K2 calls timed alone, summed: '
+              f'device {tot["dev"]:.4f} ms, caller\'s wait {tot["ms"]:.4f} '
+              f'ms, bound {tot["bound"]:.4f} ms ({tot["by_ops"]} calls bound'
+              f' by operations; {tot["ops"] / 1e12:.4f} T int8 operations, '
+              f'{tot["ops"] / tot["dev"] / 1e9:.1f} TOP/s on the device)')
+    return tot
+
+
+# phase 11: the survivors' confidence, the highest of these at which the
+# sim keeps at least SURVIVOR_MIN boxes over the batch, and fewer than half
+# the batch's max_det slots (at phase 6's 0.1 the random yolov4 keeps
+# none, the TPSQ yolov3 fills every slot up to 0.5, and the count says
+# nothing)
+SURVIVOR_CONFS = (0.99, 0.95, 0.9, 0.8, 0.7, 0.5, 0.3, 0.2, 0.1, 0.05, 0.02,
+                  0.01, 0.005, 0.002)
+SURVIVOR_MIN = 40
+# where no confidence of SURVIVOR_CONFS does (the TPSQ yolov3: every slot
+# from 0.99 down), the engine's decoded probabilities against the sim's,
+# the mean over every row and class: measured 2.4e-3 there and 3.5e-3 on
+# yolov4's cos-PTQ engine (PERF.md §6)
+SIM_PROB_TOL = 1e-2
+
+
+def survivors_vs_sim(b, x, what):
+    """The engine's survivors against the f32 sim's through the same
+    sparse NMS in cell mode (the sim's heads from ``make_heads_only``, its
+    objectness maps sliced from them as the engine's are), within max(2,
+    SURVIVOR_TOL), at the confidence SURVIVOR_CONFS gives; the engine's
+    int8 heads against the sim's in quanta; the sim's count through the
+    dense NMS printed beside (where the candidates outnumber top_k the two
+    NMS modes keep different ones)."""
+    from yolo_tpu_torch.compress.quant import make_quant_apply
+    from yolo_tpu_torch.models.int8_engine import make_int8_apply, prepare_int8
+    from yolo_tpu_torch.ops.nms import non_max_suppression_heads
+    with torch.inference_mode():
+        plan = prepare_int8(b.net, b.params, b.state, b.qstate, b.qcfg)
+        eng = make_int8_apply(b.net, plan, heads_only=True)
+        heads = eng(plan.arrays, x)[0]
+        sim = make_quant_apply(b.net, b.qcfg, heads_only=True)(
+            b.params, b.state, b.qstate, x)[0]
+        objs = [h[..., 4::b.nc + 5] for h in sim]
+        for conf in SURVIVOR_CONFS:
+            ks = dict(conf_thres=conf, iou_thres=0.6, top_k=512, max_det=300)
+            n_sim = int((non_max_suppression_heads(
+                sim, b.anchors(), b.strides, b.nc + 5, objs=objs,
+                **ks)[..., 4] > 0).sum())
+            if SURVIVOR_MIN <= n_sim < x.shape[0] * 300 / 2:
+                break
+        n_eng = int((b.make_infer(engine=True, **ks)(x)[..., 4] > 0).sum())
+        n_dense = int((b.make_infer(engine=False, **ks)(x)[..., 4] > 0).sum())
+        io_eng = make_int8_apply(b.net, plan)(plan.arrays, x)[0]
+        io_sim = make_quant_apply(b.net, b.qcfg)(b.params, b.state, b.qstate,
+                                                 x)[0]
+        d_prob = (io_eng[..., 4:] - io_sim[..., 4:]).abs()
+        prob = (float(d_prob.mean()), float(d_prob.max()))
+    shares = []
+    for h, s, sa in zip(heads, sim, eng.head_scales):
+        dq = (h.float() - torch.round(s.float() / sa)).abs()
+        shares.append(float((dq > 0).double().mean()))
+    print(f'  {what}: int8 heads against the sim: '
+          f'{", ".join(f"{v:.4f}" for v in shares)} of the values differ '
+          f'(cuDNN\'s f32 conv algorithms round the sim\'s sums; a value '
+          f'on a requant boundary carries down); decoded probabilities '
+          f'|engine - sim| mean {prob[0]:.2e}, max {prob[1]:.2e}')
+    if SURVIVOR_MIN <= n_sim < x.shape[0] * 300 / 2:
+        check(abs(n_sim - n_eng) <= max(2, int(SURVIVOR_TOL * n_sim)),
+              f'{what}: survivors at conf {conf} through the sparse NMS: '
+              f'engine {n_eng}, f32 sim {n_sim} (within max(2, '
+              f'{SURVIVOR_TOL:.0%}); the sim through the dense NMS '
+              f'{n_dense})')
+    else:
+        # every confidence keeps too few or fills the slots: the decoded
+        # probabilities instead
+        check(prob[0] <= SIM_PROB_TOL,
+              f'{what}: the sim keeps {n_sim} boxes at conf {conf} (no '
+              f'confidence of {SURVIVOR_CONFS} gives between {SURVIVOR_MIN} '
+              f'and half the slots); the mean |engine - sim| of the decoded '
+              f'probabilities {prob[0]:.2e} (<= {SIM_PROB_TOL:g})')
+    return {'conf': conf, 'engine': n_eng, 'sim': n_sim, 'sim_dense': n_dense,
+            'head_share': shares, 'prob_mean': prob[0], 'prob_max': prob[1]}
+
+
+def ptq_yolov4(root, dev, card, out):
+    """(a) and (b): yolov4 @608 PTQ through the CLI's ``main``, then its
+    engine on the card."""
+    from yolo_tpu_torch import ptq, runtime
+    from yolo_tpu_torch.compress.quant import make_quant_apply
+    from yolo_tpu_torch.convert import to_jax
+    from yolo_tpu_torch.eval import evaluator
+    from yolo_tpu_torch.ir import build_ir
+    from yolo_tpu_torch.models.int8_engine import make_int8_apply, prepare_int8
+    from yolo_tpu_torch.ops.conv_int8 import fused_conv_int8
+    from yolo_tpu_torch.ops.nms import non_max_suppression
+    from yolo_tpu_torch.ops.nms_suppress import suppress
+    from yolo_tpu_torch.utils.checkpoint import save_checkpoint
+    sync = torch.cuda.synchronize
+    kw = dict(conf_thres=CONF_THRES, iou_thres=0.6, top_k=512, max_det=300)
+    t0 = time.perf_counter()
+    scale, raw = v4_model(dev)
+    data, batches, labels = write_jpeg_set(os.path.join(root, 'set'),
+                                           raw.make_infer(**kw), dev,
+                                           PTQ_IMAGES, cap=PTQ_LABEL_CAP)
+    with open(data, 'a') as f:
+        f.write(f'train={os.path.join(root, "set", "val.txt")}\n')
+    init = os.path.join(root, 'yolov4.npz')
+    p, s = to_jax(raw.net, raw.params, raw.state)
+    save_checkpoint(init, params=p, state=s)
+    del raw
+    n_conv = sum(l.kind == 'conv' for l in build_ir(CFG_V4).layers)
+    print(f'  (a) set-up {time.perf_counter() - t0:.1f} s')
+
+    evals, bundles, calib = [], [], []
+
+    def wrap(label, fn):
+        if label == 'evaluate':
+            def call(*a, **k):
+                sync()
+                suppress.launches = fused_conv_int8.launches = 0
+                t = time.perf_counter()
+                r = fn(*a, **k)
+                sync()
+                evals.append((r, {'nms_suppress': suppress.launches,
+                                  'conv_int8': fused_conv_int8.launches},
+                              time.perf_counter() - t))
+                return r
+        elif label == 'load':
+            def call(*a, **k):
+                b = fn(*a, **k)
+                bundles.append(b)
+                return b
+        else:
+            def call(self, x, train=False):
+                sync()
+                t = time.perf_counter()
+                r = fn(self, x, train)
+                sync()
+                if train:
+                    calib.append(time.perf_counter() - t)
+                return r
+        return call
+
+    out_npz = os.path.join(root, 'PTQ.npz')
+    t0 = time.perf_counter()
+    with patched({'evaluate': (evaluator, 'evaluate'),
+                  'load': (runtime, 'load_model'),
+                  'apply': (runtime.ModelBundle, 'apply')}, wrap):
+        res = ptq.main(['--cfg', CFG_V4, '--data', data, '--weights', init,
+                        '--img-size', str(SIZE), '--batch-size', str(BS),
+                        '--subset-len', str(PTQ_SUBSET), '--int8-engine',
+                        '--device', str(dev), '--out', out_npz])
+    t_cli = time.perf_counter() - t0
+    n_b = PTQ_IMAGES // BS
+    names = ('float', 'sim', 'engine')
+    for (r, la, wall), name, k2 in zip(evals, names, (0, 0, n_conv - 1)):
+        check(la['nms_suppress'] == n_b and la['conv_int8'] == k2 * n_b,
+              f'(a) {name} evaluate: K1 {la["nms_suppress"]}, K2 '
+              f'{la["conv_int8"]} launches for {n_b} batches; mAP@0.5 '
+              f'{r[0][2]:.6f} on the float model\'s labels; '
+              f'{PTQ_IMAGES / wall:.1f} images/s')
+        out['nms_suppress'] += la['nms_suppress']
+        out['conv_int8'] += la['conv_int8']
+    check(res['float'][2] >= EVAL_MAP_MIN,
+          f'(a) float yolov4: mAP@0.5 {res["float"][2]:.6f} >= '
+          f'{EVAL_MAP_MIN} on its own labels')
+    print(f'  (a) calibration: {len(calib)} batches in {sum(calib):.2f} s '
+          f'({", ".join(f"{c:.2f}" for c in calib)}); the CLI {t_cli:.1f} s'
+          f' ({card})')
+    out['ptq'] = {'conv_scale': scale, 'calib_s': calib, 'cli_s': t_cli,
+                  'map': {n: res[n][2] for n in names},
+                  'votes': votes_histogram(out_npz.replace('.npz',
+                                                           '_qstate.npz'))}
+    qb = bundles[1]
+    check(qb.qcfg.scheme == 'ptq_cos', '(a) the calibrated bundle is cos-PTQ')
+
+    # each model against its own labels, from the read-back batches
+    mem = lambda lab: memory_loader(batches, lab)
+    arrays, eng_apply = evaluator.int8_engine_apply(
+        qb.net, qb.params, qb.state, qb.qstate, qb.qcfg, dev)
+    own = {'sim': (qb.make_infer(engine=False, **kw),
+                   dict(quant_apply=qb.quant_apply(), qstate=qb.qstate),
+                   qb.params, qb.state),
+           'engine': (lambda x: non_max_suppression(
+                          eng_apply(arrays, None, None, x, False)[0], **kw),
+                      dict(quant_apply=eng_apply, qstate=None), arrays, {})}
+    for name, (infer, qkw, params, state) in own.items():
+        with torch.inference_mode():
+            lab = pseudo_labels(infer, batches, dev)[0]
+        r, la, wall = timed_eval(qb.net, params, state, mem(lab), dev,
+                                 data=data, **qkw, **kw)
+        check(r[0][2] >= EVAL_MAP_MIN,
+              f'(a) yolov4 {name}: mAP@0.5 {r[0][2]:.6f} >= {EVAL_MAP_MIN}'
+              f' on its own labels (K1 {la["nms_suppress"]}, K2 '
+              f'{la["conv_int8"]})')
+
+    # the files reload to the same engine
+    x = runtime.preprocess(batches[0], device=dev)
+    rb = runtime.load_model(CFG_V4, out_npz, device=dev, quantized=3)
+    with torch.inference_mode():
+        heads = []
+        for b in (qb, rb):
+            plan = prepare_int8(b.net, b.params, b.state, b.qstate, b.qcfg)
+            heads.append(make_int8_apply(b.net, plan, heads_only=True)(
+                plan.arrays, x)[0])
+    check(all(torch.equal(a, c) for a, c in zip(*heads)),
+          '(a) PTQ.npz and PTQ_qstate.npz reload through load_model to the '
+          'same engine heads, bit for bit')
+
+    # (b) the engine on the card: the main path with zeroed counts
+    infer = qb.make_infer(**kw)
+    sync()
+    suppress.launches = fused_conv_int8.launches = 0
+    dets = infer(x)
+    sync()
+    la = {'nms_suppress': suppress.launches,
+          'conv_int8': fused_conv_int8.launches}
+    check(la['conv_int8'] == n_conv - 1 and la['nms_suppress'] == 1
+          and bool(torch.isfinite(dets).all()),
+          f'(b) yolov4 ptq_cos engine, one batch: K2 {la["conv_int8"]} '
+          f'launches ({n_conv} convs less the float stem), K1 '
+          f'{la["nms_suppress"]}; {int((dets[..., 4] > 0).sum())} detections')
+    out['nms_suppress'] += la['nms_suppress']
+    out['conv_int8'] += la['conv_int8']
+    plan = prepare_int8(qb.net, qb.params, qb.state, qb.qstate, qb.qcfg)
+    calls = record_k2(qb.net, plan, x)
+    k2 = k2_calls_vs_plain(calls, '(b) yolov4', timed=True)
+    from yolo_tpu_torch.ops.conv_int8 import fused_conv_int8_reference
+    with torch.inference_mode():
+        via = [make_int8_apply(qb.net, plan, heads_only=True, conv=c)(
+            plan.arrays, x)[0] for c in (fused_conv_int8,
+                                         fused_conv_int8_reference)]
+    shares = [float((a != c).double().mean()) for a, c in zip(*via)]
+    print(f'  (b) the whole engine through K2 against through its plain '
+          f'version: {", ".join(f"{v:.2e}" for v in shares)} of the int8 '
+          'head values differ (mish rounding carried down)')
+    surv = survivors_vs_sim(qb, x, '(b) yolov4 ptq_cos')
+    with torch.inference_mode():
+        fh = runtime.ModelBundle(net=qb.net, params=qb.params, state=qb.state,
+                                 device=dev, dtype=torch.float32
+                                 ).model().forward_heads(x)[0]
+        sh = make_quant_apply(qb.net, qb.qcfg, heads_only=True)(
+            qb.params, qb.state, qb.qstate, x)[0]
+    cosines = [float(torch.nn.functional.cosine_similarity(
+        a.flatten().double(), c.flatten().double(), dim=0))
+        for a, c in zip(fh, sh)]
+    print(f'  (b) the f32 sim\'s heads against the f32 float model\'s: cosine '
+          f'{", ".join(f"{c:.4f}" for c in cosines)} (per scale)')
+    fb = runtime.ModelBundle(net=qb.net, params=qb.params, state=qb.state,
+                             device=dev).fuse()
+    finfer = fb.make_infer(**kw)
+    runs = {'bf16': [], 'int8': []}
+    for name in ('bf16', 'int8', 'int8', 'bf16'):
+        fn = finfer if name == 'bf16' else infer
+        runs[name].append(cuda_ms(lambda: fn(x), iters=10))
+    for name, r in runs.items():
+        print(f'  (b) yolov4 {name} make_infer: {statistics.median(r):.3f} '
+              f'ms per batch of {BS} (runs {", ".join(f"{v:.3f}" for v in r)}'
+              f') = {BS * 1000 / statistics.median(r):.1f} images/s ({card})')
+    print('  (b) the ptq_cos engine, profiled:')
+    prof = profile_device(lambda: infer(x))
+    out['yolov4'] = {'k2': k2, 'survivors': surv, 'via_plain_share': shares,
+                     'head_cosine': cosines,
+                     'ms': {n: statistics.median(r) for n, r in runs.items()},
+                     'profile': prof, 'k2_launches_per_batch': n_conv - 1}
+    return data, max(len(lab) for per in labels for lab in per)
+
+
+def qat_functions(net, qcfg, compute_dtype):
+    """(grad_fn, update_fn, frozen grad_fn, the apply) of QAT in bf16 MACs
+    (or f32), NHWC heads, as ``run_training`` builds them."""
+    from yolo_tpu_torch.compress.quant import make_quant_apply
+    from yolo_tpu_torch.config import DEFAULT_HYP
+    from yolo_tpu_torch.train.loss import LossHyp
+    from yolo_tpu_torch.train.trainer import make_train_functions
+    avecs = [np.asarray(l.anchors) / l.yolo_stride
+             for l in net.layers if l.kind == 'yolo']
+    apply = make_quant_apply(net, qcfg, compute_dtype=compute_dtype,
+                             eval_snap_dtype=compute_dtype, head_layout='nhwc')
+    hyp = LossHyp.from_dict(DEFAULT_HYP, nc=net.nc)
+    g, u = make_train_functions(net, avecs, net.nc, hyp, quant_apply=apply)
+    gf, _ = make_train_functions(net, avecs, net.nc, hyp,
+                                 quant_apply=apply.make_bn_frozen())
+    return g, u, gf, apply
+
+
+def qat_grad_card_vs_cpu(dev, b):
+    """(c) One f32 QAT ``grad_fn`` (google) of yolov3 at full width,
+    QAT_GRAD_SIZE px, bs=2, from calibrated, frozen quantizer scales (2
+    calibration steps on the card), through the full step (the BN fold on
+    batch statistics) and the BN-frozen one, on the CPU (at its threads
+    and at 1) and on the card (with cuDNN and without), from the same
+    weights, state and batch: the loss items, the quantizer state and the
+    gradients of each against the CPU's."""
+    from yolo_tpu_torch.convert import qstate_to_jax
+    from yolo_tpu_torch.train.trainer import init_train_state
+    x, tgt, valid = train_batch(70, GRAD_BS, QAT_GRAD_SIZE, dev)
+    for _ in range(2):
+        b.apply(x, train=True)
+    runs = (('cpu', 'cpu', True, 0), ('cpu1', 'cpu', True, 1),
+            ('cuda', dev, True, 0), ('cuda_nocudnn', dev, False, 0))
+    heads = {str(l.index) for l in b.net.layers if l.kind == 'conv'
+             and not l.bn}
+    res = {}
+    for mode in ('full', 'frozen'):
+        g, _, gf, _ = qat_functions(b.net, b.qcfg, None)
+        fn = g if mode == 'full' else gf
+        out = {}
+        for name, d, cudnn, threads in runs:
+            old = torch.get_num_threads()
+            torch.backends.cudnn.enabled = cudnn
+            if threads:
+                torch.set_num_threads(threads)
+            try:
+                d = torch.device(d)
+                ts = init_train_state(b.net, b.params, b.state,
+                                      compute_dtype=None, device=d,
+                                      optimizer='adam', qstate=b.qstate)
+                t0 = time.perf_counter()
+                ts, items = fn(ts, x.to(d), tgt.to(d), valid.to(d), 1.0,
+                               GRAD_BS / 64)
+                items = items.cpu()
+                secs = time.perf_counter() - t0
+                out[name] = ({f'{k}.{f}': p.grad.cpu() for k, gg in
+                              ts.params.items() for f, p in gg.items()},
+                             items, qstate_to_jax(ts.qstate))
+            finally:
+                torch.backends.cudnn.enabled = True
+                torch.set_num_threads(old)
+            print(f'  (c) QAT grad_fn ({mode}) f32 @{QAT_GRAD_SIZE} '
+                  f'bs={GRAD_BS} on {name}: {secs:.2f} s')
+        g_cpu, it_cpu, q_cpu = out['cpu']
+        for name in ('cpu1', 'cuda', 'cuda_nocudnn'):
+            g_c, it_c, q_c = out[name]
+            err, err_all = rel_l2(g_c, g_cpu)
+            head = max(e for k, e in err.items() if k.split('.')[0] in heads)
+            k_w = max(err, key=err.get)
+            loss_rel = float(((it_c - it_cpu).abs() / it_cpu.abs()).max())
+            same_q = all(np.array_equal(q_c[k][f]['scale'], v['scale'])
+                         for k, d in q_cpu.items() for f, v in d.items()
+                         if isinstance(v, dict))
+            print(f'  (c) {mode}, {name} against the CPU: loss items rel '
+                  f'{loss_rel:.2e}; quantizer scales '
+                  f'{"equal" if same_q else "DIFFER"}; head-conv gradients '
+                  f'{head:.2e} of their norm, the worst gradient {k_w} '
+                  f'{err[k_w]:.2e}, all together {err_all:.2e}')
+            res[f'{mode}_{name}'] = {'loss_rel': loss_rel, 'head': head,
+                                     'worst': err[k_w], 'all': err_all,
+                                     'scales_equal': same_q}
+    fr, fu, spread = res['frozen_cuda'], res['full_cuda'], res['full_cpu1']
+    check(fr['scales_equal'] and fr['loss_rel'] <= QAT_FROZEN_TOL[0]
+          and fr['head'] <= QAT_FROZEN_TOL[1]
+          and fr['all'] <= QAT_FROZEN_TOL[2],
+          f'(c) the BN-frozen QAT step, card against CPU: loss items '
+          f'{fr["loss_rel"]:.2e}, head convs {fr["head"]:.2e}, all '
+          f'{fr["all"]:.2e} (<= {QAT_FROZEN_TOL})')
+    check(fu['scales_equal'] and fu['loss_rel'] <= QAT_FULL_LOSS_TOL
+          and fu['all'] <= QAT_FULL_RATIO * spread['all'],
+          f'(c) the full QAT step, card against CPU: loss items '
+          f'{fu["loss_rel"]:.2e} (<= {QAT_FULL_LOSS_TOL:g}), the gradient '
+          f'{fu["all"]:.2e} of its norm (<= {QAT_FULL_RATIO:g} x the CPU\'s '
+          f'own spread at 1 and 8 threads, {spread["all"]:.2e})')
+    return res
+
+
+def qat_steps(dev, card, b, steps, what, cfg_steps, must_fall=True):
+    """QAT steps (bf16 MACs, Adam at QAT_LR in every group) on one seeded
+    batch of BS at SIZE; the BN-frozen step once the quantizer steps pass
+    ``bn_freeze_step``; the loss must fall (``must_fall``) or stay finite.
+    Returns the TrainState, the numbers and the step's pieces."""
+    from yolo_tpu_torch.train.optim import PerGroupScalars
+    from yolo_tpu_torch.train.trainer import init_train_state
+    g, u, gf, _ = qat_functions(b.net, b.qcfg, torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ts = init_train_state(b.net, b.params, b.state, optimizer='adam',
+                          compute_dtype=torch.bfloat16, device=dev,
+                          qstate=b.qstate)
+    x, tgt, valid = train_batch(72, BS, SIZE, dev)
+    sc = PerGroupScalars(lr=(QAT_LR,) * 4,
+                         weight_decay=(0.000484, 0.0, 0.0, 0.0),
+                         momentum=0.937)
+    freeze = b.qcfg.bn_freeze_step
+    losses, evs, kinds = [], [], []
+    for i in range(steps):
+        fn = gf if i >= freeze else g
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        e[0].record()
+        ts, items = fn(ts, x, tgt, valid, 1.0, BS / 64)
+        e[1].record()
+        ts = u(ts, sc)
+        e[2].record()
+        losses.append(items)
+        evs.append(e)
+        kinds.append('frozen' if i >= freeze else 'full')
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = torch.stack(losses).cpu().numpy()
+    times = {}
+    for kind in ('full', 'frozen'):
+        es = [e for e, k in zip(evs, kinds) if k == kind][1:]
+        if es:
+            times[kind] = (statistics.median(e[0].elapsed_time(e[1])
+                                             for e in es),
+                           statistics.median(e[1].elapsed_time(e[2])
+                                             for e in es))
+            print(f'  {what} {kind} step ({len(es) + 1} steps): grad_fn '
+                  f'{times[kind][0]:.3f} ms, update_fn {times[kind][1]:.3f} '
+                  f'ms (CUDA events, median after the first; {card})')
+    n = max(2, steps // 4)
+    first, last = losses[:n, 3].mean(), losses[-n:, 3].mean()
+    qsteps = {int(float(v['step'])) for v in ts.qstate.values() if 'step' in v}
+    check(np.isfinite(losses).all() and (last < first or not must_fall)
+          and qsteps == {steps},
+          f'{what}: loss {first:.4f} (first {n}) -> {last:.4f} (last {n}) '
+          f'over {steps} steps ({kinds.count("frozen")} of them BN-frozen, '
+          f'bn_freeze_step {freeze} of QuantConfig(steps={cfg_steps})); '
+          f'every conv\'s qstate step at {qsteps}; peak {peak:.2f} GiB')
+    return ts, {'ms': times, 'peak_gib': peak, 'loss_first': float(first),
+                'loss_last': float(last), 'losses': losses[:, 3].tolist()}, (
+        g, gf, u, x, tgt, valid, sc)
+
+
+def qat_google(dev, card, out):
+    """(c) QAT of yolov3 @608, google: the steps across the freeze, their
+    profiles, and the f32 gradient card against CPU."""
+    from yolo_tpu_torch import runtime
+    b = runtime.load_model(CFG, device=dev, quantized=1, steps=QAT_CFG_STEPS,
+                           conv_scale=CONV_SCALE,
+                           generator=torch.Generator().manual_seed(0))
+    ts, res, (g, gf, u, x, tgt, valid, sc) = qat_steps(
+        dev, card, b, QAT_STEPS, '(c) QAT google', QAT_CFG_STEPS)
+    for kind, fn in (('full', g), ('frozen', gf)):
+        print(f'  (c) one {kind} QAT step, profiled:')
+        res[f'profile_{kind}'] = profile_device(
+            lambda: u(fn(ts, x, tgt, valid, 1.0, BS / 64)[0], sc), n=1)
+    res['grad'] = qat_grad_card_vs_cpu(dev, b)
+    out['qat'] = res
+
+
+def tpsq_yolov3(dev, card, out):
+    """(d) TPSQ on yolov3 @608: the warmup, QAT steps, its engine through
+    K2 on the [-127, 127] grid (each call against its plain version), its
+    survivors against its sim."""
+    from yolo_tpu_torch import runtime
+    from yolo_tpu_torch.compress.quant import tpsq_warmup
+    from yolo_tpu_torch.models.int8_engine import prepare_int8
+    from yolo_tpu_torch.ops.conv_int8 import float_edge_conv, fused_conv_int8
+    from yolo_tpu_torch.ops.nms_suppress import suppress
+    b = runtime.load_model(CFG, device=dev, quantized=2, steps=100,
+                           conv_scale=CONV_SCALE,
+                           generator=torch.Generator().manual_seed(0))
+    x = runtime.preprocess(images(73, BS, SIZE), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b.params = tpsq_warmup(b.net, b.qcfg, b.params, b.state, b.qstate, x)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    moved = sum(float(v['a_scale']) != 1.0 for v in b.params.values()
+                if 'a_scale' in v)
+    print(f'  (d) TPSQ warmup on one batch: {t_warm:.2f} s; {moved} '
+          f'activation scales set ({card})')
+    ts, res, _ = qat_steps(dev, card, b, TPSQ_STEPS, '(d) QAT TPSQ', 100,
+                           must_fall=False)
+    b.params = {k: {f: t.detach().clone() for f, t in d.items()}
+                for k, d in ts.params.items()}
+    b.state = {k: {f: t.detach().clone() for f, t in d.items()}
+               for k, d in ts.bn_state.items()}
+    b.qstate = ts.qstate
+    kw = dict(conf_thres=CONF_THRES, iou_thres=0.6, top_k=512, max_det=300)
+    infer = b.make_infer(engine=True, **kw)
+    torch.cuda.synchronize()
+    suppress.launches = fused_conv_int8.launches = float_edge_conv.calls = 0
+    dets = infer(x)
+    torch.cuda.synchronize()
+    la = {'nms_suppress': suppress.launches,
+          'conv_int8': fused_conv_int8.launches,
+          'float_edge_conv': float_edge_conv.calls}
+    n_conv = sum(l.kind == 'conv' for l in b.net.layers)
+    check(la['conv_int8'] + la['float_edge_conv'] == n_conv
+          and la['conv_int8'] > n_conv // 2 and la['nms_suppress'] == 1
+          and bool(torch.isfinite(dets).all()),
+          f'(d) TPSQ engine, one batch: K2 {la["conv_int8"]} launches, the '
+          f'float-edge conv {la["float_edge_conv"]} (the stem and the convs '
+          f'after a float shortcut or concat), {n_conv} convs; K1 '
+          f'{la["nms_suppress"]}')
+    out['nms_suppress'] += la['nms_suppress']
+    out['conv_int8'] += la['conv_int8']
+    plan = prepare_int8(b.net, b.params, b.state, b.qstate, b.qcfg)
+    calls = record_k2(b.net, plan, x)
+    check(all(kw_['qmin'] == -127 and kw_['out_mult'] is not None
+              for _, kw_, _ in calls),
+          f'(d) every K2 call of the TPSQ engine on the [-127, 127] grid with '
+          f'the 127/128 multiplier')
+    k2 = k2_calls_vs_plain(calls, '(d) TPSQ')
+    surv = survivors_vs_sim(b, x, '(d) TPSQ')
+    res.update(warmup_s=t_warm, launches=la, survivors=surv,
+               k2_calls=len(calls), max_abs_err=k2['max_abs_err'])
+    out['tpsq'] = res
+
+
+def qat_loop(root, dev, card, data, per_image, out):
+    """(e) ``run_training --quantized 1`` (yolov3 @608, bs=8) on (a)'s 64
+    JPEG files for 2 epochs, then a resume for a third."""
+    from yolo_tpu_torch import runtime
+    from yolo_tpu_torch.convert import to_jax
+    from yolo_tpu_torch.ops.nms_suppress import suppress
+    from yolo_tpu_torch.train import loop
+    from yolo_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+    raw = runtime.load_model(CFG, device=dev, conv_scale=CONV_SCALE,
+                             generator=torch.Generator().manual_seed(0))
+    init = os.path.join(root, 'yolov3.npz')
+    p, s = to_jax(raw.net, raw.params, raw.state)
+    save_checkpoint(init, params=p, state=s)
+    del raw
+    work = os.path.join(root, 'loop')
+    os.makedirs(work)
+    os.chdir(work)
+    logged = []
+    opts = dict(cfg=CFG, data=data, batch_size=BS, img_size=(SIZE,) * 3,
+                quantized=1, max_targets=4 * per_image * BS, device=str(dev),
+                weights_dir=os.path.join(work, 'weights'),
+                results_file=os.path.join(work, 'results.txt'),
+                log_fn=lambda m: logged.append(m))
+    n_eval = TRAIN_EPOCHS * PTQ_IMAGES // max(BS // 4, 1)
+    torch.cuda.synchronize()
+    suppress.launches = 0
+    t0 = time.perf_counter()
+    loop.run_training(loop.TrainOptions(weights=init, epochs=TRAIN_EPOCHS,
+                                        **opts))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = suppress.launches
+    rows = np.loadtxt(opts['results_file'], ndmin=2)
+    last = os.path.join(work, 'weights', 'last.npz')
+    ck = load_checkpoint(last)
+    steps = {int(np.asarray(v['step'])) for v in ck['qstate'].values()
+             if 'step' in v}
+    check(k1 == n_eval and rows.shape == (TRAIN_EPOCHS, 12)
+          and np.isfinite(rows).all() and steps == {16},
+          f'(e) run_training --quantized 1: {wall:.1f} s for '
+          f'{TRAIN_EPOCHS} epochs of 8 batches (the scale freeze at step 1, '
+          f'the BN freeze at 14); K1 {k1} times in the sim\'s evaluate '
+          f'({n_eval} batches); last.npz holds qstate, every conv at step '
+          f'{steps}; train loss {rows[0, 4]:.4f} -> {rows[-1, 4]:.4f} '
+          f'({card})')
+    out['nms_suppress'] += k1
+    t0 = time.perf_counter()
+    loop.run_training(loop.TrainOptions(weights=last, resume=True,
+                                        epochs=TRAIN_EPOCHS + 1, **opts))
+    t_resume = time.perf_counter() - t0
+    rows2 = np.loadtxt(opts['results_file'], ndmin=2)
+    steps2 = {int(np.asarray(v['step'])) for v in load_checkpoint(last)[
+        'qstate'].values() if 'step' in v}
+    check(rows2.shape == (TRAIN_EPOCHS + 1, 12)
+          and np.array_equal(rows2[:TRAIN_EPOCHS], rows) and steps2 == {24},
+          f'(e) the resume ran epoch {TRAIN_EPOCHS} in {t_resume:.1f} s from '
+          f'the checkpointed qstate (steps {steps} -> {steps2})')
+    out['loop'] = {'s': wall, 'resume_s': t_resume,
+                   'loss': [float(rows[0, 4]), float(rows[-1, 4])]}
+
+
+def quant_child(root, dev):
+    """Phase 11 in a process of its own (the JPEG files and the file
+    loader need OpenCV). Writes its numbers to ``root/phase11.json``."""
+    card = device_setup()
+    t_phase = time.perf_counter()
+    out = {'nms_suppress': 0, 'conv_int8': 0, 'seconds': {}}
+    t0 = time.perf_counter()
+    data, per_image = ptq_yolov4(root, dev, card, out)
+    out['seconds']['ab'] = time.perf_counter() - t0
+    for name, fn in (('c', lambda: qat_google(dev, card, out)),
+                     ('d', lambda: tpsq_yolov3(dev, card, out)),
+                     ('e', lambda: qat_loop(root, dev, card, data, per_image,
+                                            out))):
+        t0 = time.perf_counter()
+        fn()
+        out['seconds'][name] = time.perf_counter() - t0
+        print(f'  ({name}) {out["seconds"][name]:.1f} s')
+    out['seconds']['all'] = time.perf_counter() - t_phase
+    print(f'  phase 11 (child): {out["seconds"]["all"]:.1f} s')
+    with open(os.path.join(root, 'phase11.json'), 'w') as f:
+        json.dump(out, f)
+
+
+def phase_quant():
+    """Phase 11 in a child process; returns its numbers."""
+    print(f'[11/11] quantization: yolov4 @{SIZE} PTQ and its engine, QAT and '
+          f'TPSQ on yolov3 @{SIZE}, the QAT loop')
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        sys.stdout.flush()
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            '--phase11', root], timeout=900)
+        if r.returncode != 0:
+            raise SmokeFailure(f'phase 11 (child) exited {r.returncode}')
+        with open(os.path.join(root, 'phase11.json')) as f:
+            out = json.load(f)
+    print(f'  phase 11: {time.perf_counter() - t0:.1f} s')
     return out
 
 
@@ -2441,6 +3243,7 @@ def main():
     new_launches, routes = phase_new_cfgs(dev, card)
     prune = phase_prune()
     train = phase_train(dev, card, qb)
+    quant = phase_quant()
     check_imports()
     print(f'build {build_s:.2f} s; whole run {time.perf_counter() - t0:.1f} s')
     print(card)
@@ -2453,17 +3256,20 @@ def main():
                       + new_launches['nms_suppress']
                       + prune['nms_suppress']
                       + train['loop']['nms_suppress']
-                      + train['snap']['nms_suppress']), **k1,
+                      + train['snap']['nms_suppress']
+                      + quant['nms_suppress']), **k1,
          'launches_phase9': prune['nms_suppress'],
          'launches_phase10': (train['loop']['nms_suppress']
                               + train['snap']['nms_suppress']),
+         'launches_phase11': quant['nms_suppress'],
          'main_path_ms': k1_main['ms'],
          'main_path_device_ms': k1_main['device_ms']},
         {'name': 'conv_int8', 'route': 'cuda',
          'source': 'yolo_tpu_torch/csrc/conv_int8.cu',
          'replaces': 'yolo_tpu/ops/pallas_conv.py:132',
          'launches': (launches['conv_int8'] + eval_launches['conv_int8']
-                      + new_launches['conv_int8']),
+                      + new_launches['conv_int8'] + quant['conv_int8']),
+         'launches_phase11': quant['conv_int8'],
          'max_abs_err': k2_err,
          'ms': k2_tot['ms'], 'device_ms': k2_tot['dev'],
          'plain_ms': k2_tot['plain'], 'bound_ms': k2_tot['bound'],
@@ -2472,7 +3278,14 @@ def main():
          'library_ms_1x1': k2_tot['library_ms_1x1'],
          'library_device_ms_1x1': k2_tot['library_device_ms_1x1'],
          'classes': k2_tot['classes'],
-         'mobilenet_int8': routes}]}))
+         'mobilenet_int8': routes,
+         'yolov4_ptq_cos': {
+             'calls_per_batch': quant['yolov4']['k2_launches_per_batch'],
+             'device_ms': quant['yolov4']['k2']['dev'],
+             'ms': quant['yolov4']['k2']['ms'],
+             'bound_ms': quant['yolov4']['k2']['bound'],
+             'mish_lsb_share': quant['yolov4']['k2']['mish_share']},
+         'tpsq_calls_per_batch': quant['tpsq']['launches']['conv_int8']}]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))
@@ -2493,6 +3306,8 @@ if __name__ == '__main__':
             main_child(prune_child, sys.argv[2])
         elif sys.argv[1:2] == ['--phase10']:
             main_child(train_child, sys.argv[2])
+        elif sys.argv[1:2] == ['--phase11']:
+            main_child(quant_child, sys.argv[2])
         else:
             main()
     except SmokeFailure as e:

@@ -467,11 +467,13 @@ def test_evaluate_augment_matches_jax(eval_sets, capsys):
 
 
 def test_unported_eval_paths_raise(eval_sets):
-    """Mesh evaluation and ``--quantized 2`` raise NotImplementedError
-    naming ROADMAP.md; test-time augmentation, which the first evaluation
-    slice refused, runs, by ``evaluate`` and by the CLI's ``--augment``, to
-    the same results. (``--qat-eval-snap bf16``, refused until the training
-    slice, is held to JAX's in ``test_torch_eval_snap.py``.)"""
+    """Mesh evaluation raises NotImplementedError naming ROADMAP.md;
+    ``--quantized 2`` (refused until the quantization slice) evaluates the
+    TPSQ sim, and ``--int8-engine`` on a float model exits; test-time
+    augmentation, which the first evaluation slice refused, runs, by
+    ``evaluate`` and by the CLI's ``--augment``, to the same results.
+    (``--qat-eval-snap bf16``, refused until the training slice, is held to
+    JAX's in ``test_torch_eval_snap.py``.)"""
     from yolo_tpu_torch import runtime as trt
     from yolo_tpu_torch import test as cli
     from yolo_tpu_torch.eval.evaluator import evaluate
@@ -479,8 +481,9 @@ def test_unported_eval_paths_raise(eval_sets):
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         evaluate(None, {}, {}, data, device='cpu', mesh=object())
     base = ['--cfg', cfg, '--data', data, '--weights', npz, '--device', 'cpu']
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        cli.main(base + ['--quantized', '2'])
+    r = cli.main(base + ['--quantized', '2', '--no-plot', '--img-size',
+                         str(SIZE), '--batch-size', str(BS)])
+    assert len(r) == 7 and np.isfinite(r).all()
     with pytest.raises(SystemExit):
         cli.main(base + ['--int8-engine'])
     tb = trt.load_model(cfg, npz, device='cpu').fuse()

@@ -111,15 +111,20 @@ def test_tracker_quantizer_matches_jax(track):
 
 
 def test_quant_config_and_unported_schemes(toy_net):
+    """The freeze steps match JAX's; the five other schemes, which the
+    first slice refused, now build (tests/test_torch_quant_schemes.py
+    holds them to JAX's), and an unknown scheme raises ValueError."""
     cfg = TQ.QuantConfig(steps=100)
     jcfg = JQ.QuantConfig(steps=100)
     assert (cfg.bn_freeze_step, cfg.scale_freeze_step) == (
         jcfg.bn_freeze_step, jcfg.scale_freeze_step) == (90, 10)
     for scheme in ('tpsq', 'ptq_cos', 'dorefa', 'wbin', 'ternary'):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            TQ.init_quant_state(toy_net, TQ.QuantConfig(scheme=scheme))
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            TQ.make_quant_apply(toy_net, TQ.QuantConfig(scheme=scheme))
+        TQ.init_quant_state(toy_net, TQ.QuantConfig(scheme=scheme))
+        assert TQ.make_quant_apply(toy_net, TQ.QuantConfig(
+            scheme=scheme)).qcfg.scheme == scheme
+    for fn in (TQ.init_quant_state, TQ.make_quant_apply):
+        with pytest.raises(ValueError, match='scheme'):
+            fn(toy_net, TQ.QuantConfig(scheme='lsq'))
 
 
 def test_qstate_round_trip_and_layout(toy_net):

@@ -168,16 +168,22 @@ def test_bf16_pipeline_tracks_f32(toy_cfg, toy_checkpoint):
 
 
 def test_unported_paths_raise(toy_cfg, toy_checkpoint, tmp_path):
-    """Other quantization schemes raise NotImplementedError naming
-    ROADMAP.md; a .pt checkpoint and test-time augmentation, which the
+    """The other quantization schemes, which the first slice refused, now
+    load (TPSQ with its scale params) and an unknown scheme number raises
+    ValueError; a .pt checkpoint and test-time augmentation, which the
     first slice refused, now serve: the .pt (written by the JAX package's
     ``save_torch_checkpoint``) loads the weights the .npz loads, and
     ``make_infer(augment=True)`` returns detections."""
     from yolo_tpu.ir import build_ir
     from yolo_tpu.models.torch_import import save_torch_checkpoint
     from yolo_tpu_torch import runtime as trt
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        trt.load_model(toy_cfg, device='cpu', quantized=2)
+    for q, scheme in ((2, 'tpsq'), (3, 'ptq_cos'), (4, 'dorefa'),
+                      (5, 'wbin'), (6, 'ternary')):
+        b = trt.load_model(toy_cfg, device='cpu', quantized=q)
+        assert b.qcfg.scheme == scheme
+        assert ('w_scale' in b.params['0']) == (scheme == 'tpsq')
+    with pytest.raises(ValueError, match='quantized=7'):
+        trt.load_model(toy_cfg, device='cpu', quantized=7)
     params, state, npz, _ = toy_checkpoint
     pt = tmp_path / 'm.pt'
     save_torch_checkpoint(build_ir(toy_cfg), params, state, pt)
@@ -192,8 +198,9 @@ def test_unported_paths_raise(toy_cfg, toy_checkpoint, tmp_path):
 
 
 def test_port_never_imports_jax_or_cv2():
-    """Importing every module of the port (the evaluation and training
-    paths' included) loads neither jax, nor OpenCV or PIL (imported inside functions only),
+    """Importing every module of the port (the evaluation, training and
+    quantization paths' included: ``compress/quant_legacy`` and ``ptq``)
+    loads neither jax, nor OpenCV or PIL (imported inside functions only),
     nor any module of the JAX package."""
     code = ('import pkgutil, importlib, sys, yolo_tpu_torch; '
             'mods = [m.name for m in pkgutil.walk_packages('
@@ -206,7 +213,8 @@ def test_port_never_imports_jax_or_cv2():
             "'compress.prune', 'compress.prune_drivers', "
             "'compress.prune_cli', 'prune', 'info', 'utils.profiling', "
             "'train.optim', 'train.schedules', 'train.ema', "
-            "'train.trainer', 'train.loop', 'train.__main__')}; "
+            "'train.trainer', 'train.loop', 'train.__main__', "
+            "'compress.quant_legacy', 'ptq')}; "
             "assert need <= set(mods), need - set(mods); "
             "assert 'PIL' not in sys.modules; "
             "bad = [m for m in sys.modules if m in ('jax', 'cv2') "

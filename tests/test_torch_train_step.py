@@ -464,8 +464,7 @@ def test_trainer_raises_on_unported_paths(toy_cfg):
     from yolo_tpu_torch.train.loss import LossHyp
     from yolo_tpu_torch.train.trainer import make_train_functions
     net = build_ir(toy_cfg)
-    for kw in (dict(kd_loss_fn=lambda *a: 0), dict(quant_apply=lambda *a: 0),
-               dict(remat='blocks')):
+    for kw in (dict(kd_loss_fn=lambda *a: 0), dict(remat='blocks')):
         with pytest.raises(NotImplementedError, match='ROADMAP.md'):
             make_train_functions(net, [], 2, LossHyp(), **kw)
 

@@ -1,25 +1,39 @@
-"""Fake-quant simulation of the google scheme, forward only (counterpart of
-``yolo_tpu/compress/quant.py``).
+"""Fake-quant simulation and QAT of the six quantization schemes
+(counterpart of ``yolo_tpu/compress/quant.py``).
 
-What true-int8 serving needs: the quantizer math, the range trackers, the
-BN-fold quantized conv (grouped and depthwise ones included), the
-requantized shortcut (ways 1 and 2) and concat, and ``make_quant_apply``
-in train mode (the calibration step: it returns the new BN state and
-quantizer state) and in eval mode (the sim the int8 engine is held
-against). SE, global avgpool, scale_channels and a standalone [batchnorm]
-stay float, as in the JAX package's sim (the [batchnorm] on batch
-statistics in train mode). The eval mode takes the bf16 grid snap
-(``eval_snap_dtype``: the activation quantize chains run in that dtype)
-and the hoisted per-conv work of ``prepare_eval_params``.
+Schemes, by the ``--quantized`` number:
+  1 'google'  -- tracker-scaled QAT with the BN fold during training;
+  2 'tpsq'    -- trainable pow-2 scales: each conv's ``w_scale``,
+                 ``b_scale`` and ``a_scale`` params go through
+                 ``search_pow2`` (its own gradient); shortcuts and concats
+                 stay float;
+  3 'ptq_cos' -- post-training cosine-similarity pow-2 scale search with
+                 per-batch votes;
+  4 'dorefa', 5 'wbin', 6 'ternary' -- the legacy weight (and, for DoReFa,
+                 activation) transforms of ``quant_legacy.py``, stateless,
+                 with float shortcuts and concats.
 
-Quantizer state lives in an explicit ``qstate`` dict of 0-d f32 tensors
-(scale, zero point, tracker min/max, step counters), keyed by layer-index
+What it holds: the quantizer math, the range trackers, the BN-fold
+quantized conv (grouped and depthwise ones included), the requantized
+shortcut (ways 1 and 2) and concat, and ``make_quant_apply``. Its train
+mode is both the calibration step and the QAT forward: it returns the new
+BN state and quantizer state, and autograd differentiates through the BN
+fold on batch statistics, its statistics conv and every fake-quant
+(straight-through estimators, written ``x + (t - x).detach()``). Its eval
+mode is the sim the int8 engine is held against. SE, global avgpool,
+scale_channels and a standalone [batchnorm] stay float, as in the JAX
+package's sim.
+
+Quantizer state lives in an explicit ``qstate`` dict of f32 tensors (scale,
+zero point, tracker min/max, votes, step counters), keyed by layer-index
 strings as in the JAX package. Every function returns a new state and
-mutates none. Activations are NHWC, as in the JAX package; conv weights
-are the port's OIHW. All quantized scales snap to powers of two.
+mutates none. Activations are NHWC; conv weights are the port's OIHW. All
+quantized scales snap to powers of two.
 
-Not ported yet (see ROADMAP.md): the other schemes (tpsq, ptq_cos, dorefa,
-wbin, ternary), QAT training through the sim, and ASFF heads.
+Where a value is differentiated at a kink, the port takes JAX's derivative
+(on the quantization grids values sit on kinks often): ``|x|`` has slope 1
+at 0 (``_abs``), leaky ReLU slope 1 at 0 and a clip 0.5 at either edge
+(``_activation``).
 """
 
 from __future__ import annotations
@@ -41,6 +55,9 @@ EMA_MOMENTUM = 0.1     # activation range tracker momentum
 
 SCHEMES = {1: 'google', 2: 'tpsq', 3: 'ptq_cos', 4: 'dorefa', 5: 'wbin',
            6: 'ternary'}
+#: schemes whose shortcuts and concats requantize (qstate entries); the
+#: others keep them float
+REQUANT_SCHEMES = ('google', 'ptq_cos')
 # layer kinds the sim and the int8 engine run; the rest raise
 # NotImplementedError
 QUANT_KINDS = ('conv', 'depthwise', 'batchnorm', 'maxpool', 'se', 'avgpool',
@@ -98,12 +115,51 @@ def fq(x, scale, zero_point, bits: int, sign: bool = True, snap_dtype=None):
     return x + (dq - x).detach()
 
 
+def _abs(x):
+    """|x| whose derivative at 0 is 1, as JAX's (torch's ``abs`` gives 0)."""
+    return torch.where(x >= 0, x, -x)
+
+
+def _clip(x, lo: float, hi: float):
+    """clip(x, lo, hi) whose derivative at either edge is 0.5, as JAX's
+    (``torch.clamp`` gives 1)."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
+def _leaky(slope):
+    # JAX's leaky_relu: slope 1 at 0 (torch's gives ``slope``)
+    return lambda x: torch.where(x >= 0, x, x * slope)
+
+
+_GRAD_ACTS = {
+    'relu6': lambda x: _clip(x, 0.0, 6.0),
+    'h_swish': lambda x: x * (_clip(x + 3.0, 0.0, 6.0) / 6.0),
+    'h_sigmoid': lambda x: _clip(x + 3.0, 0.0, 6.0) / 6.0,
+}
+
+
+def _activation(name: str, maxabs: bool, slope: float | None = None):
+    """The activation of a conv; while autograd records, the forms whose
+    derivatives at the kinks are JAX's (the values are the same)."""
+    if not torch.is_grad_enabled():
+        if slope is not None:
+            return lambda x: act_mod.leaky(x, slope)
+        return act_mod.get(name, maxabs)
+    if name == 'leaky':
+        return _leaky(slope if slope is not None else 0.25 if maxabs else 0.1)
+    return _GRAD_ACTS.get(name) or act_mod.get(name, maxabs)
+
+
 # --------------------------------------------------------------------------
 # tracker-based quantizer (google scheme)
 # --------------------------------------------------------------------------
 
+def _scalar(v, device=None):
+    return torch.tensor(v, dtype=torch.float32, device=device)
+
+
 def tracker_init(device=None):
-    z = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
+    z = lambda v: _scalar(v, device)
     return {'min': z(0.0), 'max': z(0.0), 'first': z(0.0), 'scale': z(1.0),
             'zp': z(0.0), 'step': z(0.0)}
 
@@ -124,7 +180,8 @@ def _update_range(qs, x, track: str):
         zero = torch.zeros_like(mn)
         new_min = torch.where(first, mn, torch.minimum(zero, mn))
         new_max = torch.where(first, mx, torch.maximum(zero, mx))
-    return {**qs, 'min': new_min, 'max': new_max,
+    return {**qs, 'min': new_min.to(torch.float32),
+            'max': new_max.to(torch.float32),
             'first': torch.ones_like(qs['first'])}
 
 
@@ -160,11 +217,149 @@ def google_quantize(x, qs, *, bits: int, train: bool, freeze_step: float,
 
 
 # --------------------------------------------------------------------------
+# TPSQ trainable pow-2 scale
+# --------------------------------------------------------------------------
+
+class _SearchPow2(torch.autograd.Function):
+    """Forward ``pow2_snap(clip(s, 2^-5, 2^13))``; backward ``g * out / s``
+    (``s == 0`` read as 1), no gradient through the clip: the JAX
+    package's ``custom_vjp``."""
+
+    @staticmethod
+    def forward(ctx, s):
+        out = pow2_snap(torch.clamp(s, 2.0 ** -5, 2.0 ** 13))
+        ctx.save_for_backward(s, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        s, out = ctx.saved_tensors
+        return g * out / torch.where(s == 0, torch.ones_like(s), s)
+
+
+def search_pow2(s):
+    return _SearchPow2.apply(s)
+
+
+def tpsq_quantize(x, scale_param, bits: int):
+    """TPSQ fake-quant: soft-clamp to ±p2 (p2 = ``search_pow2`` of the
+    scale), scale to the integer grid by (2^(b-1) - 1) / p2 and back by
+    p2 / 2^(b-1) (the reference's asymmetric quantize and dequantize
+    ranges). The quantizer math runs in f32, the output in x's dtype."""
+    p2 = search_pow2(scale_param)
+    xf = x.to(torch.float32)
+    clamped = 0.5 * (_abs(xf + p2) - _abs(xf - p2))
+    qr_q = (1 << (bits - 1)) - 1
+    qr_dq = 1 << (bits - 1)
+    scaled = clamped * qr_q / p2
+    q = scaled + (round_half_away(scaled) - scaled).detach()
+    return (q * p2 / qr_dq).to(x.dtype)
+
+
+# the scale searches run their candidates in chunks of at most this many
+# elements ((candidates, numel) tensors): few launches for small tensors,
+# one candidate at a time for the largest activations
+SEARCH_CHUNK = 1 << 24
+
+
+def _chunks(n_cands: int, numel: int):
+    k = max(1, min(n_cands, SEARCH_CHUNK // max(numel, 1)))
+    return [slice(i, min(i + k, n_cands)) for i in range(0, n_cands, k)]
+
+
+def _cosines(dq, xn):
+    """Cosine of each row of ``dq`` (k, n) with the unit vector ``xn``."""
+    return torch.mv(dq, xn) / torch.clamp_min(
+        torch.linalg.vector_norm(dq, dim=1), 1e-12)
+
+
+def _tpsq_search_scale(x, bits: int):
+    """The TPSQ warmup's scale search: 99 candidate scales i * max(x) / 100,
+    each quantized through ``tpsq_quantize``; the cosine-similarity winner
+    (the first of equal ones). A candidate enters ``tpsq_quantize`` only
+    through its power of two, so the cosine is computed once for each
+    distinct power (in chunks, ``SEARCH_CHUNK``) and the first candidate of
+    the best power wins, as the first of the tied candidates does in the
+    JAX package's scan. A tensor with no positive value gives a step of 0
+    or less, as there."""
+    with torch.no_grad():
+        flat = x.detach().reshape(-1).to(torch.float32)
+        step = torch.max(flat) / 100.0
+        xn = flat / torch.clamp_min(torch.linalg.vector_norm(flat), 1e-12)
+        cands = step * torch.arange(1, 100, dtype=torch.float32,
+                                    device=flat.device)
+        p2 = search_pow2(cands)
+        powers = torch.unique(p2)
+        cos = torch.cat([_cosines(tpsq_quantize(flat[None, :],
+                                                powers[c][:, None], bits), xn)
+                         for c in _chunks(len(powers), flat.numel())])
+        first = torch.nonzero(p2 == powers[torch.argmax(cos)])[0, 0]
+        return cands[first]
+
+
+def tpsq_warmup(net, cfg, params, state, qstate, x):
+    """Data-driven init of every TPSQ scale param (the reference's
+    first-forward warmup): one train-mode forward of ``x`` in which each
+    site's scale is its ``_tpsq_search_scale`` winner. Returns a copy of
+    ``params`` with ``w_scale``/``b_scale``/``a_scale`` replaced."""
+    apply = make_quant_apply(net, cfg, warmup=True)
+    with torch.no_grad():
+        _, _, new_q = apply(params, state, qstate, x, True)
+    out = {k: dict(v) for k, v in params.items()}
+    for k, q in new_q.items():
+        for f in ('w_scale', 'b_scale', 'a_scale'):
+            if isinstance(q, dict) and f in q:
+                out[k][f] = q[f].to(torch.float32)
+    return out
+
+
+# --------------------------------------------------------------------------
+# cos-similarity PTQ scale search
+# --------------------------------------------------------------------------
+
+def cospt_init(bits: int, device=None):
+    return {'votes': torch.zeros(bits + 7, device=device),
+            'scale': _scalar(1.0, device), 'step': _scalar(0.0, device)}
+
+
+def cospt_quantize(x, qs, *, bits: int, train: bool):
+    """The cos-similarity scale search: candidate float ranges 2^(i-5), i in
+    [0, bits + 7); the batch's winner (the first of equal cosines) gets a
+    vote and the most-voted candidate is the working scale. The candidates
+    run in chunks (``SEARCH_CHUNK``; the JAX package vectorises all of them
+    at once), so that a large activation is in memory one copy at a
+    time."""
+    if bits == 32:
+        return x, qs
+    qmin, qmax = qrange(bits, True)
+    qr = max(abs(qmin), abs(qmax))
+    if train:
+        with torch.no_grad():
+            flat = x.detach().reshape(-1).to(torch.float32)
+            n = bits + 7
+            scales = torch.exp2(torch.arange(n, dtype=torch.float32,
+                                             device=flat.device) - 5.0) / qr
+            xn = flat / torch.clamp_min(torch.linalg.vector_norm(flat), 1e-12)
+            cos = []
+            for c in _chunks(n, flat.numel()):
+                sc = scales[c][:, None]
+                cos.append(_cosines(torch.clamp(round_half_away(
+                    flat[None, :] / sc), qmin, qmax) * sc, xn))
+            winner = torch.argmax(torch.cat(cos))
+            votes = qs['votes'] + (torch.arange(n, device=flat.device)
+                                   == winner).to(torch.float32)
+            scale = torch.exp2(torch.argmax(votes).to(torch.float32)
+                               - 5.0) / qr
+        qs = {**qs, 'votes': votes, 'scale': scale, 'step': qs['step'] + 1}
+    return fq(x, qs['scale'], 0.0, bits, True), qs
+
+
+# --------------------------------------------------------------------------
 # quantized network
 # --------------------------------------------------------------------------
 
 class QuantConfig(NamedTuple):
-    scheme: str = 'google'        # only 'google' is ported
+    scheme: str = 'google'        # google | tpsq | ptq_cos | dorefa | wbin | ternary
     a_bits: int = 8
     w_bits: int = 8
     shortcut_way: int = 1          # 1 = min-range, 2 = max-range requant
@@ -181,10 +376,10 @@ class QuantConfig(NamedTuple):
 
 
 def check_supported(net: NetworkIR, scheme: str):
-    """Raise NotImplementedError naming the first scheme or layer kind that
-    the sim and the int8 engine lack."""
-    if scheme != 'google':
-        raise unported(f'quantization scheme {scheme!r}')
+    """Raise on an unknown scheme (ValueError) or on the first layer kind
+    the sim and the int8 engine lack (NotImplementedError)."""
+    if scheme not in SCHEMES.values():
+        raise ValueError(f'unknown quantization scheme {scheme!r}')
     for lyr in net.layers:
         if lyr.kind not in QUANT_KINDS:
             raise unported(f'layer {lyr.index}: kind {lyr.kind!r} in a '
@@ -194,36 +389,50 @@ def check_supported(net: NetworkIR, scheme: str):
 
 
 def init_quant_state(net: NetworkIR, cfg: QuantConfig, device=None):
-    """The qstate dict (and the extra trainable params, none for the google
-    scheme): a tracker triple and step counters per conv, trackers and
-    scales per shortcut, a per-source |max| list and a scale per concat."""
+    """(qstate, extra params), as the JAX package builds them: per conv a
+    tracker triple (google) or a cospt triple (ptq_cos) and step counters;
+    per shortcut trackers and scales, per concat a per-source |max| list
+    and a scale (google and ptq_cos). TPSQ's extra params are each conv's
+    trainable ``a_scale``/``w_scale``/``b_scale``, all 1.0."""
     check_supported(net, cfg.scheme)
-    z = lambda v, n=None: (torch.full((n,), v, dtype=torch.float32,
-                                      device=device) if n is not None else
-                           torch.tensor(v, dtype=torch.float32, device=device))
+    z = lambda v: _scalar(v, device)
+    sch = cfg.scheme
     qstate: dict[str, Any] = {}
+    extra: dict[str, Any] = {}
     for lyr in net.layers:
         k = str(lyr.index)
         if lyr.kind in ('conv', 'depthwise'):
-            qstate[k] = {'aq': tracker_init(device), 'wq': tracker_init(device),
-                         'bq': tracker_init(device), 'first_bn': z(0.0),
-                         'step': z(0.0)}
-        elif lyr.kind == 'shortcut':
+            qs = {'first_bn': z(0.0), 'step': z(0.0)}
+            if sch == 'google':
+                qs = {'aq': tracker_init(device), 'wq': tracker_init(device),
+                      'bq': tracker_init(device), **qs}
+            elif sch == 'ptq_cos':
+                qs = {'aq': cospt_init(cfg.a_bits, device),
+                      'wq': cospt_init(cfg.w_bits, device),
+                      'bq': cospt_init(cfg.w_bits, device), **qs}
+            elif sch == 'tpsq':
+                extra[k] = {'a_scale': z(1.0), 'w_scale': z(1.0),
+                            'b_scale': z(1.0)}
+            qstate[k] = qs
+        elif lyr.kind == 'shortcut' and sch in REQUANT_SCHEMES:
             qstate[k] = {'x': tracker_init(device), 'a': tracker_init(device),
                          'sum': tracker_init(device), 'scale': z(1.0),
                          'input_scale': z(1.0)}
-        elif lyr.kind == 'route' and len(lyr.layers) > 1:
-            qstate[k] = {'float_max': z(0.0, len(lyr.layers)),
+        elif (lyr.kind == 'route' and len(lyr.layers) > 1
+              and sch in REQUANT_SCHEMES):
+            qstate[k] = {'float_max': torch.zeros(len(lyr.layers),
+                                                  device=device),
                          'scale': z(1.0)}
-    return qstate, {}
+    return qstate, extra
 
 
 def _bn_fold(p, st, qs, out_f, train: bool, cfg: QuantConfig):
     """Two-phase BN fold: batch statistics before ``bn_freeze_step``,
     running ones after; running stats are an EMA of momentum 0.01 whose
     first batch is copied in while they are still all zero (stats loaded
-    from a checkpoint are never overwritten). Returns (w_fold_scale,
-    bias_fold, new_st, new_qs)."""
+    from a checkpoint are never overwritten). The statistics are f32
+    whatever the conv's dtype. Returns (w_fold_scale, bias_fold, new_st,
+    new_qs)."""
     gamma, beta = p['gamma'], p['beta']
     if train:
         out32 = out_f.to(torch.float32)                      # NHWC
@@ -253,30 +462,66 @@ def _bn_fold(p, st, qs, out_f, train: bool, cfg: QuantConfig):
     return inv, bias, new_st, new_qs
 
 
-def _fold_quant_weights(cfg, lyr, p, st, qs, *, train, x=None):
-    """BN fold + google weight/bias fake-quant of one conv. Returns
-    (qw OIHW, qb, st, qs); trackers and stats update only when ``train``
-    (the stat conv of the batch statistics runs on ``x`` then)."""
+def _conv(x, w, lyr, compute_dtype):
+    """The conv's MACs in ``compute_dtype`` (None: as given); the result in
+    x's dtype."""
+    if compute_dtype is not None:
+        y = conv_ops.conv2d_nhwc(x.to(compute_dtype), w.to(compute_dtype),
+                                 stride=lyr.stride_xy or lyr.stride,
+                                 padding=lyr.pad, groups=lyr.groups)
+        return y.to(x.dtype)
+    return conv_ops.conv2d_nhwc(x, w, stride=lyr.stride_xy or lyr.stride,
+                                padding=lyr.pad, groups=lyr.groups)
+
+
+def _fold_quant_weights(cfg, lyr, p, st, qs, *, train, warmup=False,
+                        bn_frozen=False, compute_dtype=None, x=None):
+    """BN fold + weight/bias quantization of one conv, per scheme. Returns
+    (qw OIHW, qb, st, qs); trackers and statistics update only when
+    ``train`` (the statistics conv runs on ``x`` then, unless
+    ``bn_frozen``); ``warmup`` records TPSQ's search winners in qs."""
+    from . import quant_legacy as QL
+    sch = cfg.scheme
     if lyr.bn:
-        out_f = (conv_ops.conv2d_nhwc(x, p['w'],
-                                      stride=lyr.stride_xy or lyr.stride,
-                                      padding=lyr.pad, groups=lyr.groups)
-                 if train else None)
-        inv, bias, st, qs = _bn_fold(p, st, qs, out_f, train, cfg)
+        stat_fold = train and not bn_frozen
+        out_f = _conv(x, p['w'], lyr, compute_dtype) if stat_fold else None
+        inv, bias, st, qs = _bn_fold(p, st, qs, out_f, stat_fold, cfg)
         w_fold = p['w'] * inv[:, None, None, None]
     else:
         w_fold = p['w']
         bias = p['b'] if 'b' in p else torch.zeros(
             lyr.filters, dtype=torch.float32, device=p['w'].device)
     qs = dict(qs)
-    qw, qs['wq'] = google_quantize(w_fold, qs['wq'], bits=cfg.w_bits,
-                                   train=train,
-                                   freeze_step=cfg.scale_freeze_step,
-                                   track='global')
-    qb, qs['bq'] = google_quantize(bias, qs['bq'], bits=cfg.w_bits,
-                                   train=train,
-                                   freeze_step=cfg.scale_freeze_step,
-                                   track='global')
+    if sch == 'google':
+        qw, qs['wq'] = google_quantize(w_fold, qs['wq'], bits=cfg.w_bits,
+                                       train=train,
+                                       freeze_step=cfg.scale_freeze_step,
+                                       track='global')
+        qb, qs['bq'] = google_quantize(bias, qs['bq'], bits=cfg.w_bits,
+                                       train=train,
+                                       freeze_step=cfg.scale_freeze_step,
+                                       track='global')
+    elif sch == 'tpsq':
+        if warmup:
+            qs['w_scale'] = _tpsq_search_scale(w_fold, cfg.w_bits)
+            qs['b_scale'] = _tpsq_search_scale(bias, cfg.w_bits)
+        qw = tpsq_quantize(w_fold, qs['w_scale'] if warmup else p['w_scale'],
+                           cfg.w_bits)
+        qb = tpsq_quantize(bias, qs['b_scale'] if warmup else p['b_scale'],
+                           cfg.w_bits)
+    elif sch == 'dorefa':
+        # the folded weight and bias both go through the tanh quantizer
+        qw = QL.dorefa_weight(w_fold, cfg.w_bits)
+        qb = QL.dorefa_weight(bias, cfg.w_bits)
+    elif sch == 'wbin':
+        qw, qb = QL.binary_weight(w_fold), bias
+    elif sch == 'ternary':
+        qw, qb = QL.ternary_weight(w_fold), bias
+    else:   # ptq_cos
+        qw, qs['wq'] = cospt_quantize(w_fold, qs['wq'], bits=cfg.w_bits,
+                                      train=train)
+        qb, qs['bq'] = cospt_quantize(bias, qs['bq'], bits=cfg.w_bits,
+                                      train=train)
     return qw, qb, st, qs
 
 
@@ -292,8 +537,8 @@ def prepare_eval_params(net: NetworkIR, cfg: QuantConfig, params, state,
             continue
         k = str(lyr.index)
         qw, qb, _, _ = _fold_quant_weights(cfg, lyr, params[k],
-                                           state.get(k, {}), qstate[k],
-                                           train=False)
+                                           state.get(k, {}),
+                                           qstate.get(k, {}), train=False)
         out[k]['qw'], out[k]['qb'] = qw, qb
     return out
 
@@ -309,9 +554,17 @@ def _add_sliced(x, a):
     return x + a[..., :nx_]
 
 
-def make_quant_apply(net: NetworkIR, cfg: QuantConfig,
-                     heads_only: bool = False, eval_snap_dtype=None):
-    """Build the google-scheme fake-quant apply on NHWC f32 inputs:
+def _fusion_weights(lyr, params, dtype):
+    """A weighted shortcut's fusion weights sigmoid(w) * 2 / (n + 1)."""
+    w = params[str(lyr.index)]['w']
+    return (torch.sigmoid(w) * (2.0 / (len(lyr.layers) + 1))).to(dtype)
+
+
+def make_quant_apply(net: NetworkIR, cfg: QuantConfig, compute_dtype=None,
+                     warmup: bool = False, head_layout: str = 'anchor_major',
+                     heads_only: bool = False, bn_frozen: bool = False,
+                     eval_snap_dtype=None):
+    """Build the fake-quant apply of ``cfg.scheme`` on NHWC inputs:
 
     apply(params, state, qstate, x, train=False) ->
       train: ((yolo_p, feats), new_state, new_qstate)
@@ -319,17 +572,33 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig,
              ``heads_only``
 
     conv and depthwise conv -> BN-fold quantized conv with a quantized
-    activation; shortcut -> requantized add (min or max way); multi-route
-    -> requantized concat; SE, avgpool, scale_channels and [batchnorm] ->
-    float. Train mode is calibration: range trackers, scales and BN
-    statistics update; nothing is differentiated here.
+    activation; shortcut -> requantized add (min or max way) and multi-route
+    -> requantized concat for google and ptq_cos, float for the others; SE,
+    avgpool, scale_channels and [batchnorm] -> float. Train mode updates
+    the range trackers, votes, scales and BN statistics, and is
+    differentiable (QAT): autograd runs through the BN fold with batch
+    statistics and its statistics conv, and through every fake-quant.
+
+    ``compute_dtype`` (e.g. ``torch.bfloat16``): the dtype of the conv MACs
+    and of the activations between layers; the quantizer, tracker and
+    BN-fold math stays f32 (a fake-quant edge is an 8-bit grid value times
+    a pow-2 scale, exact in bf16). ``warmup``: TPSQ's scale search (see
+    ``tpsq_warmup``). ``head_layout``: 'anchor_major' emits yolo_p as
+    (bs, na, ny, nx, no), 'nhwc' as (bs, ny, nx, na, no), a free reshape
+    (``apply.head_layout``). ``bn_frozen``: the post-freeze QAT step
+    without the statistics conv, the BN fold on the running statistics,
+    which it leaves where they are (``apply.make_bn_frozen()`` builds it).
 
     ``eval_snap_dtype`` (e.g. ``torch.bfloat16``): in eval mode the
-    activation, shortcut and concat quantize chains run in that dtype
-    (``fq(snap_dtype=...)``); train mode keeps f32. A conv whose params
-    hold ``qw``/``qb`` (``prepare_eval_params``) uses them in eval."""
+    activation, shortcut and concat quantize chains of the tracker scheme
+    run in that dtype (``fq(snap_dtype=...)``); train mode keeps f32. A
+    conv whose params hold ``qw``/``qb`` (``prepare_eval_params``) uses
+    them in eval. ``apply.make_heads_only()`` builds the heads-only twin of
+    an apply."""
     check_supported(net, cfg.scheme)
+    from . import quant_legacy as QL
     layers = net.layers
+    sch = cfg.scheme
     bits = cfg.a_bits
     qmin, qmax = qrange(bits, True)
     qr = max(abs(qmin), abs(qmax))
@@ -340,14 +609,36 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig,
         if not train and 'qw' in p:
             qw, qb = p['qw'], p['qb']
         else:
-            qw, qb, st, qs = _fold_quant_weights(cfg, lyr, p, st, qs,
-                                                 train=train, x=x)
-        out = conv_ops.conv2d_nhwc(x, qw, stride=lyr.stride_xy or lyr.stride,
-                                   padding=lyr.pad, groups=lyr.groups)
-        out = act_mod.get(lyr.activation, cfg.maxabsscaler)(out + qb)
-        out, qs['aq'] = google_quantize(out, qs['aq'], bits=bits, train=train,
-                                        freeze_step=cfg.scale_freeze_step,
-                                        track='ema', snap_dtype=eval_snap_dtype)
+            qw, qb, st, qs = _fold_quant_weights(
+                cfg, lyr, p, st, qs, train=train, warmup=warmup,
+                bn_frozen=bn_frozen, compute_dtype=compute_dtype, x=x)
+        out = _conv(x, qw, lyr, compute_dtype)
+        # qb sits on an 8-bit grid: exact in the compute dtype
+        out = out + qb.to(out.dtype)
+        # the DoReFa modules' leaky slope is 0.125
+        dorefa_leaky = (sch == 'dorefa' and lyr.activation == 'leaky'
+                        and not cfg.maxabsscaler)
+        out = _activation(lyr.activation, cfg.maxabsscaler,
+                          0.125 if dorefa_leaky else None)(out)
+        if sch == 'google':
+            out, qs['aq'] = google_quantize(out, qs['aq'], bits=bits,
+                                            train=train,
+                                            freeze_step=cfg.scale_freeze_step,
+                                            track='ema',
+                                            snap_dtype=eval_snap_dtype)
+        elif sch == 'tpsq':
+            if warmup:
+                qs['a_scale'] = _tpsq_search_scale(out, bits)
+            out = tpsq_quantize(out, qs['a_scale'] if warmup
+                                else p['a_scale'], bits)
+        elif sch == 'dorefa':
+            # the heads (linear convs) skip the activation quantizer
+            if lyr.activation not in ('linear', 'none'):
+                out = QL.dorefa_activation(out, bits)
+        elif sch == 'ptq_cos':
+            out, qs['aq'] = cospt_quantize(out, qs['aq'], bits=bits,
+                                           train=train)
+        # wbin, ternary: weight-only, float activations
         qs['step'] = qs['step'] + 1
         return out, st, qs
 
@@ -357,8 +648,7 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig,
         float sum up front and uses one scale for x, a and the sum."""
         w = None
         if lyr.weighted:
-            w = (torch.sigmoid(params[str(lyr.index)]['w'])
-                 * (2.0 / (len(lyr.layers) + 1))).to(x.dtype)
+            w = _fusion_weights(lyr, params, x.dtype)
             x = x * w[0]
         for i, j in enumerate(lyr.layers):
             a = outs[j]
@@ -396,10 +686,15 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig,
                 scd = qs['input_scale'].to(sd)
                 xq = (round_half_away(x.to(sd) / scd) * scd).to(x.dtype)
                 aq = (round_half_away(a.to(sd) / scd) * scd).to(a.dtype)
-            else:   # min way: round without clamp
+            else:
+                # min way: round without clamp, in f32 (JAX promotes a bf16
+                # activation with the f32 scale, and so does the sum on)
                 in_scale = qs['input_scale']
-                xq = x + (round_half_away(x / in_scale) * in_scale - x).detach()
-                aq = a + (round_half_away(a / in_scale) * in_scale - a).detach()
+                xf, af = x.to(torch.float32), a.to(torch.float32)
+                xq = xf + (round_half_away(xf / in_scale) * in_scale
+                           - xf).detach()
+                aq = af + (round_half_away(af / in_scale) * in_scale
+                           - af).detach()
             s = _add_sliced(xq, aq)
             if train and cfg.shortcut_way == 1:
                 qs['sum'] = _update_range(qs['sum'], s.detach(), 'ema')
@@ -408,6 +703,16 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig,
                     torch.abs(qs['sum']['max']))) / qr
             x = fq(s, qs['scale'], 0.0, bits, snap_dtype=sd)
         return x, qs
+
+    def fshortcut(lyr, params, x, outs):
+        """The float shortcut of the schemes without requantization."""
+        w = _fusion_weights(lyr, params, x.dtype) if lyr.weighted else None
+        if w is not None:
+            x = x * w[0]
+        for i, j in enumerate(lyr.layers):
+            a = outs[j]
+            x = _add_sliced(x, a if w is None else a * w[i + 1])
+        return x
 
     def qconcat(lyr, qs, outs, train):
         """Requantized concat: per-source EMA |max| list, one common pow-2
@@ -435,7 +740,7 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig,
         yolo_p, head_out, feats = [], [], []
         new_state = dict(state)
         new_q = {k: dict(v) for k, v in qstate.items()}
-        prev = x
+        prev = x if compute_dtype is None else x.to(compute_dtype)
         for lyr in layers:
             k = str(lyr.index)
             kind = lyr.kind
@@ -471,16 +776,26 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig,
                 prev = conv_ops.upsample_nearest_nhwc(prev, lyr.stride)
             elif kind == 'route':
                 if len(lyr.layers) > 1:
-                    prev, new_q[k] = qconcat(lyr, new_q[k], outs, train)
+                    if k in new_q:
+                        prev, new_q[k] = qconcat(lyr, new_q[k], outs, train)
+                    else:
+                        prev = torch.cat([outs[j] for j in lyr.layers], -1)
                 elif lyr.route_groups:
                     prev = prev[..., prev.shape[-1] // 2:]
                 else:
                     prev = outs[lyr.layers[0]]
             elif kind == 'shortcut':
-                prev, new_q[k] = qshortcut(lyr, params, new_q[k], prev, outs,
-                                           train)
+                if k in new_q:
+                    prev, new_q[k] = qshortcut(lyr, params, new_q[k], prev,
+                                               outs, train)
+                else:
+                    prev = fshortcut(lyr, params, prev, outs)
             elif kind == 'yolo':
-                yolo_p.append(reshape_pred(prev, lyr.na, lyr.no))
+                if head_layout == 'nhwc':
+                    bs_, ny_, nx_, _ = prev.shape
+                    yolo_p.append(prev.reshape(bs_, ny_, nx_, lyr.na, lyr.no))
+                else:
+                    yolo_p.append(reshape_pred(prev, lyr.na, lyr.no))
                 head_out.append(prev)
             elif kind == 'reorg3d':
                 prev = conv_ops.space_to_depth_nhwc(prev, lyr.stride)
@@ -500,5 +815,20 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig,
         return io, yolo_p, feats
 
     apply.qcfg = cfg
+    apply.head_layout = head_layout
     apply.eval_snap_dtype = eval_snap_dtype
+    if not heads_only:
+        apply.make_heads_only = lambda: make_quant_apply(
+            net, cfg, compute_dtype=compute_dtype, heads_only=True,
+            eval_snap_dtype=eval_snap_dtype)
+    if not bn_frozen:
+        apply.make_bn_frozen = lambda: make_quant_apply(
+            net, cfg, compute_dtype=compute_dtype, head_layout=head_layout,
+            bn_frozen=True, eval_snap_dtype=eval_snap_dtype)
     return apply
+
+
+def quantize_input_16bit(x):
+    """Fixed Q14 input quantization for 16-bit activations."""
+    x = x * (1 << 14)
+    return round_half_away(x) / (1 << 14)

@@ -4,12 +4,13 @@ Both sides are ``{layer_index_str: {field: array}}`` dicts for params and
 for BN state. Conv weights are HWIO in JAX and OIHW here (for a grouped
 conv I = in_channels // groups on both sides, and the output channels of a
 group are contiguous on both sides, so one transpose converts every group).
-BN gamma/beta/mean/var, conv biases, weighted-shortcut ``w`` and SE
-``fc1``/``fc2`` (already in torch ``Linear`` layout) are copied as they are.
+BN gamma/beta/mean/var, conv biases, weighted-shortcut ``w``, SE
+``fc1``/``fc2`` (already in torch ``Linear`` layout) and TPSQ's 0-d
+``w_scale``/``b_scale``/``a_scale`` params are copied as they are.
 
-The quantizer state (``qstate``) is a nested dict of scalars and, for a
-concat, a ``float_max`` vector: ``qstate_from_jax``/``qstate_to_jax`` copy
-it leaf by leaf as f32.
+The quantizer state (``qstate``) of every scheme is a nested dict of
+scalars and vectors (a concat's ``float_max``, cos-PTQ's ``votes``):
+``qstate_from_jax``/``qstate_to_jax`` copy it leaf by leaf as f32.
 
 The optimizer state (``opt_state_from_jax``/``opt_state_to_jax``) holds
 params-shaped trees under the JAX package's names, ``momentum_buf`` (SGD)
@@ -56,7 +57,8 @@ def to_jax(net: NetworkIR, params, state):
         a = t.detach().to('cpu', torch.float32).numpy()
         if k in convs and f == 'w':
             a = a.transpose(2, 3, 1, 0)                       # OIHW -> HWIO
-        return np.ascontiguousarray(a)
+        # (np.ascontiguousarray would make a 0-d scale 1-d)
+        return a if a.flags.c_contiguous else np.ascontiguousarray(a)
 
     return ({k: {f: conv(k, f, t) for f, t in d.items()}
              for k, d in params.items()},

@@ -13,10 +13,11 @@ original frames, drawn and saved.
 
 The flags are those of the root ``detect.py``. ``--weights`` takes a .npz
 of the JAX package, a .pt of the PyTorch reference or darknet .weights.
-``--quantized 1`` runs the true-int8 engine on a calibrated google-scheme
-checkpoint (its ``qstate`` key or a sibling ``_qstate.npz``).
-``--augment`` runs test-time augmentation on a float model. Other schemes
-and stream sources are not ported yet (see ROADMAP.md).
+``--quantized N`` (1-6, the schemes of ``compress/quant.SCHEMES``) serves a
+quantized checkpoint (its ``qstate`` key or a sibling ``_qstate.npz``): the
+true-int8 engine for google (1) and cos-PTQ (3), the fake-quant sim for
+the others. ``--augment`` runs test-time augmentation on a float model.
+Stream sources are not ported yet (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -60,7 +61,8 @@ def parse_args(argv=None):
                    help="torch device ('cuda', 'cuda:1', 'cpu'); default: "
                         "cuda")
     p.add_argument('--quantized', type=int, default=-1,
-                   help='-1 float; 1 the int8 engine (google scheme)')
+                   help='-1 float, 1 google QAT, 2 TPSQ, 3 cos-PTQ, '
+                        '4 DoReFa, 5 binary-W, 6 ternary-W')
     p.add_argument('--a-bit', '--a_bit', dest='a_bit', type=int, default=8)
     p.add_argument('--w-bit', '--w_bit', dest='w_bit', type=int, default=8)
     p.add_argument('--shortcut_way', type=int, default=1)

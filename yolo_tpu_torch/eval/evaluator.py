@@ -19,10 +19,12 @@ would synchronise the stream.
 
 A fake-quant sim's eval-constant work (each conv's BN fold and weight
 quantization) is hoisted out of the batches by ``prepare_eval_params``, as
-the JAX package's evaluator does.
+the JAX package's evaluator does. The sim of every scheme evaluates, and so
+does a QAT training apply (its bf16 MACs, NHWC head layout and bf16 eval
+snaps as it was built); with ``sparse`` its heads-only twin
+(``make_heads_only``) feeds the sparse NMS.
 
-Not ported yet (see ROADMAP.md): mesh and multi-process evaluation and the
-quantized apply's sparse twin (``make_heads_only``).
+Not ported yet (see ROADMAP.md): mesh and multi-process evaluation.
 """
 
 from __future__ import annotations
@@ -116,7 +118,21 @@ def _build_infer(net, params, state, qstate, *, quant_apply, anchor_vecs,
                   max_det=max_det, multi_label=multi_label)
     yolos = [l for l in net.layers if l.kind == 'yolo']
     layout = 'anchor_major'
-    if quant_apply is not None:
+    if quant_apply is not None and sparse:
+        # the sim's heads-only twin into the sparse NMS (row mode)
+        h_apply = quant_apply.make_heads_only()
+        anchors = [torch.as_tensor(l.anchors, dtype=torch.float32,
+                                   device=device) for l in yolos]
+        strides = [l.yolo_stride for l in yolos]
+
+        def fwd(x):
+            heads, objs = h_apply(params, state, qstate, x, False)
+            return (non_max_suppression_heads(heads, anchors, strides,
+                                              yolos[0].no, objs=objs,
+                                              **nms_kw),
+                    [reshape_pred(h, l.na, l.no)
+                     for h, l in zip(heads, yolos)])
+    elif quant_apply is not None:
         # the quantized sim or the int8 engine: dense io into the dense NMS
         layout = getattr(quant_apply, 'head_layout', layout)
 
@@ -212,11 +228,13 @@ def evaluate(net, params, state, data, *, batch_size=16, img_size=416,
     ``loader``: any iterable of the ``BatchLoader`` tuple instead of the
     dataset it names.
 
-    ``sparse``: the float path's sparse-decode NMS from the raw head maps;
-    dense by default (faster on an H100, PERF.md). ``quant_apply`` (with
+    ``sparse``: the sparse-decode NMS from the raw head maps (a quantized
+    apply's through its ``make_heads_only`` twin, where it has one); dense
+    by default (faster on an H100, PERF.md). ``quant_apply`` (with
     ``qstate``): a quantized apply (params, state, qstate, x, train) ->
-    (io, yolo_p, feats), the fake-quant sim (``make_quant_apply``) or the
-    int8 engine (``int8_engine_apply``), always dense.
+    (io, yolo_p, feats), the fake-quant sim of any scheme or a QAT
+    training apply (``make_quant_apply``), or the int8 engine
+    (``int8_engine_apply``, always dense).
 
     ``loss_hyp`` with ``anchor_vecs`` (per-layer (na, 2) anchors / stride)
     adds the val losses; the ragged tail's pad slots weigh 0 in them.
@@ -252,8 +270,9 @@ def evaluate(net, params, state, data, *, batch_size=16, img_size=416,
         augment = False
     if augment:
         sparse = want_loss = False
-    if quant_apply is not None:
-        sparse = False          # the port's quantized applies have no sparse twin
+    if quant_apply is not None and not hasattr(quant_apply,
+                                               'make_heads_only'):
+        sparse = False          # the engine's apply has no sparse twin
     if quant_apply is not None and qstate is not None \
             and getattr(quant_apply, 'qcfg', None) is not None:
         # the sim's BN fold and weight quantization, once (the same floats)

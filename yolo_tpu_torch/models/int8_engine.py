@@ -30,7 +30,15 @@ every int8 conv that K2 takes goes through it, which is the JAX
 ``backend='pallas'`` routing with ``pallas_min_hw=0`` (its oracle is
 ``backend='xla'``).
 
-Not ported yet (see ROADMAP.md): schemes other than google.
+Schemes: google and ptq_cos share the tracker layout (scales in qstate).
+TPSQ reads each conv's scales from its ``w_scale``/``b_scale``/``a_scale``
+params (``search_pow2``'s value), and its grid is asymmetric: it quantizes
+by p2 / qmax, saturating at ±qmax, and dequantizes by p2 / (qmax + 1). Its
+edges carry the dequant scale, so every requant multiplies by
+``rq_fac / scale`` with ``rq_fac`` = qmax / (qmax + 1) and clips to
+[-qmax, qmax]; K2 takes that multiplier as its ``out_mult`` (the JAX
+package runs TPSQ's convs through XLA, not Pallas). TPSQ's shortcuts and
+concats stay float, as in its sim.
 """
 
 from __future__ import annotations
@@ -50,6 +58,8 @@ from ..ops.conv_int8 import (float_edge_conv, fused_conv_int8,
 from .yolo_head import anchors_on, decode_yolo_nhwc, reshape_pred
 
 BN_EPS = 1e-5
+#: the schemes the engine serves
+ENGINE_SCHEMES = ('google', 'ptq_cos', 'tpsq')
 
 
 class Int8Plan(NamedTuple):
@@ -78,16 +88,34 @@ def _scalar(v) -> float:
     return float(v.item() if torch.is_tensor(v) else np.asarray(v))
 
 
+def _tpsq_p2(v) -> float:
+    """The value of ``search_pow2``: clip to [2^-5, 2^13], snap to the
+    nearest power of two by linear distance (in float64)."""
+    v = float(np.clip(_np64(v), 2.0 ** -5, 2.0 ** 13))
+    lo, hi = 2.0 ** np.floor(np.log2(v)), 2.0 ** np.ceil(np.log2(v))
+    return hi if abs(hi - v) < abs(lo - v) else lo
+
+
+def check_engine_scheme(scheme: str):
+    if scheme not in ENGINE_SCHEMES:
+        raise ValueError(f'the int8 engine serves the {ENGINE_SCHEMES} '
+                         f'schemes, not {scheme!r}')
+
+
 def prepare_int8(net: NetworkIR, params, state, qstate, cfg: QuantConfig,
                  device=None) -> Int8Plan:
     """Fold BN, quantize weights/biases to integers, extract frozen scales.
 
     The eval path of the sim, in float64 numpy as in the JAX package:
     w_fold = w * gamma/sqrt(var+eps), bias = beta - mean*inv (+ b*inv),
-    both quantized with their tracker scales; the plan holds the int8
-    weights and the dequantized f32 bias the epilogue adds, and the SE
-    layers' f32 fc weights, on ``device`` (default: that of the params)."""
+    both quantized with their scales (the tracker ones of google and
+    ptq_cos; TPSQ's from its params, on its asymmetric grid); the plan
+    holds the int8 weights and the dequantized f32 bias the epilogue adds,
+    and the SE layers' f32 fc weights, on ``device`` (default: that of the
+    params)."""
     check_supported(net, cfg.scheme)
+    check_engine_scheme(cfg.scheme)
+    tpsq = cfg.scheme == 'tpsq'
     if device is None:
         device = next(iter(next(iter(params.values())).values())).device
     arrays: dict[str, dict] = {}
@@ -103,26 +131,44 @@ def prepare_int8(net: NetworkIR, params, state, qstate, cfg: QuantConfig,
             else:
                 w_fold = p['w']
                 bias = p.get('b', np.zeros(lyr.filters))
-            qs = qstate[k]
-            sw = _scalar(qs['wq']['scale'])
-            sb = _scalar(qs['bq']['scale'])
-            sa = _scalar(qs['aq']['scale'])
-            w8 = _q_arr(w_fold, sw, cfg.w_bits).transpose(0, 2, 3, 1)
-            bias_dq = _q_arr(bias, sb, cfg.w_bits).astype(np.float32) * sb
+            if tpsq:
+                # weight and bias grids from w_bits, the activation's from
+                # a_bits; clamp to ±p2 then scale by qr_q / p2 is scale then
+                # saturate at ±qr_q
+                qr_q = (1 << (cfg.w_bits - 1)) - 1
+                qr_dq = 1 << (cfg.w_bits - 1)
+                p2w, p2b, p2a = (_tpsq_p2(params[k][f]) for f in
+                                 ('w_scale', 'b_scale', 'a_scale'))
+                w8 = np.clip(_q_arr(w_fold, p2w / qr_q, cfg.w_bits),
+                             -qr_q, qr_q)
+                b8 = np.clip(_q_arr(bias, p2b / qr_q, cfg.w_bits),
+                             -qr_q, qr_q)
+                bias_dq = b8.astype(np.float32) * np.float32(p2b / qr_dq)
+                sw, sa = p2w / qr_dq, p2a / (1 << (cfg.a_bits - 1))
+            else:
+                qs = qstate[k]
+                sw = _scalar(qs['wq']['scale'])
+                sb = _scalar(qs['bq']['scale'])
+                sa = _scalar(qs['aq']['scale'])
+                w8 = _q_arr(w_fold, sw, cfg.w_bits)
+                bias_dq = _q_arr(bias, sb, cfg.w_bits).astype(np.float32) * sb
+            w8 = w8.transpose(0, 2, 3, 1)
             arrays[k] = {
                 'w8': torch.from_numpy(np.ascontiguousarray(w8)).to(device),
                 'bias': torch.from_numpy(
                     np.asarray(bias_dq, np.float32)).to(device)}
             meta[k] = {'sw': sw, 'sa': sa}
         elif lyr.kind == 'shortcut':
-            qs = qstate[k]
-            meta[k] = {'in_scale': _scalar(qs['input_scale' if cfg.shortcut_way
-                                              == 1 else 'scale']),
-                       'sc': _scalar(qs['scale'])}
+            if k in qstate:
+                qs = qstate[k]
+                meta[k] = {'in_scale': _scalar(qs['input_scale'
+                                                  if cfg.shortcut_way == 1
+                                                  else 'scale']),
+                           'sc': _scalar(qs['scale'])}
             if lyr.weighted:
                 arrays[k] = {'w': params[k]['w'].detach().to(
                     device, torch.float32)}
-        elif lyr.kind == 'route' and len(lyr.layers) > 1:
+        elif lyr.kind == 'route' and len(lyr.layers) > 1 and k in qstate:
             meta[k] = {'rs': _scalar(qstate[k]['scale'])}
         elif lyr.kind == 'se':
             arrays[k] = {f: params[k][f].detach().to(device, torch.float32)
@@ -159,24 +205,35 @@ def make_int8_apply(net: NetworkIR, plan: Int8Plan, heads_only: bool = False,
     by default; pass its plain version (``fused_conv_int8_reference``) to
     hold one against the other on the card."""
     check_supported(net, plan.scheme)
+    check_engine_scheme(plan.scheme)
     layers = net.layers
     bits = plan.a_bits
     qmin, qmax = qrange(bits, True)
     meta = plan.meta
+    tpsq = plan.scheme == 'tpsq'
+    # TPSQ's edges carry the dequant scale p2 / (qmax + 1) and quantize by
+    # p2 / qmax: the requant multiplier is rq_fac / scale
+    rq_fac = qmax / (qmax + 1.0) if tpsq else 1.0
+    rq_min = -qmax if tpsq else qmin
+
+    def mult(scale):
+        """The requant multiplier to ``scale``: the double quotient, which
+        the epilogue rounds once to f32 (exact pow-2 inverses for google and
+        ptq_cos)."""
+        return rq_fac / scale
 
     def requant_edge(t, scale):
-        """Requantize a carried edge to ``scale`` (saturating); multiplies
-        by the exact pow-2 inverse."""
+        """Requantize a carried edge to ``scale`` (saturating)."""
         if t[0] == 'q' and t[2] == scale:
             return t
-        y = round_half_away(_as_float(t) * (1.0 / scale))
-        return ('q', torch.clamp(y, qmin, qmax).to(torch.int8), scale)
+        y = round_half_away(_as_float(t) * mult(scale))
+        return ('q', torch.clamp(y, rq_min, qmax).to(torch.int8), scale)
 
     def conv_i8(lyr, arr, t):
         stride = lyr.stride_xy or lyr.stride
         m = meta[str(lyr.index)]
-        epi = dict(act=lyr.activation, maxabs=plan.maxabsscaler, qmin=qmin,
-                   qmax=qmax)
+        epi = dict(act=lyr.activation, maxabs=plan.maxabsscaler, qmin=rq_min,
+                   qmax=qmax, out_mult=mult(m['sa']) if tpsq else None)
         if t[0] == 'f':
             q = float_edge_conv(t[1], arr['w8'], arr['bias'], m['sw'],
                                 m['sa'], stride=stride, pad=lyr.pad,
@@ -191,9 +248,32 @@ def make_int8_apply(net: NetworkIR, plan: Int8Plan, heads_only: bool = False,
                                   pad=lyr.pad, groups=lyr.groups, **epi)
         return ('q', q, m['sa'])
 
+    def shortcut_f(lyr, arr, t, outs):
+        """The float shortcut of a scheme without requantization (TPSQ):
+        the weighted sum and channel slicing of the float network."""
+        ws = None
+        x = _as_float(t)
+        if lyr.weighted:
+            ws = torch.sigmoid(arr['w']) * (2.0 / (len(lyr.layers) + 1))
+            x = x * ws[0]
+        for i, j in enumerate(lyr.layers):
+            a = _as_float(outs[j])
+            if ws is not None:
+                a = a * ws[i + 1]
+            nx_, na_ = x.shape[-1], a.shape[-1]
+            if nx_ == na_:
+                x = x + a
+            elif nx_ > na_:
+                x = torch.cat([x[..., :na_] + a, x[..., na_:]], -1)
+            else:
+                x = x + a[..., :nx_]
+        return ('f', x)
+
     def shortcut_i8(lyr, arr, t, outs):
         """The sim's requantization chain in f32; scales are pow-2, so the
         inverses are exact and every fake-quant is a multiply."""
+        if str(lyr.index) not in meta:
+            return shortcut_f(lyr, arr, t, outs)
         m = meta[str(lyr.index)]
         in_s, inv_in = m['in_scale'], 1.0 / m['in_scale']
         sc, inv_sc = m['sc'], 1.0 / m['sc']
@@ -267,10 +347,13 @@ def make_int8_apply(net: NetworkIR, plan: Int8Plan, heads_only: bool = False,
                 prev = (prev[0], conv_ops.upsample_nearest_nhwc(
                     prev[1], lyr.stride), *prev[2:])
             elif kind == 'route':
-                if len(lyr.layers) > 1:     # requantized concat
+                if len(lyr.layers) > 1 and k in meta:   # requantized concat
                     rs = meta[k]['rs']
                     parts = [requant_edge(outs[j], rs)[1] for j in lyr.layers]
                     prev = ('q', torch.cat(parts, -1), rs)
+                elif len(lyr.layers) > 1:       # float concat (TPSQ)
+                    prev = ('f', torch.cat([_as_float(outs[j])
+                                            for j in lyr.layers], -1))
                 elif lyr.route_groups:
                     c = prev[1].shape[-1]
                     prev = (prev[0], prev[1][..., c // 2:].contiguous(),

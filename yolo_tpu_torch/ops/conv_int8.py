@@ -5,8 +5,13 @@
 
     acc = conv_s32(x8, w8)                    (s8 x s8, exact s32 sums)
     y   = act(f32(acc) * scale + bias)        (f32, no multiply-add fusion)
-    out = clip(round_half_away(y * (1 / out_scale)), qmin, qmax) -> int8
+    out = clip(round_half_away(y * oinv), qmin, qmax) -> int8
           (``out_q``), else y in f32
+
+with ``oinv`` = f32(1) / f32(out_scale), or the caller's own output
+multiplier ``out_mult`` rounded once to f32 (TPSQ's requant multiplier
+(qmax / (qmax + 1)) / out_scale is not a power of two: it must be formed
+as one quotient and rounded once, as the JAX engine forms it),
 
 with x8 int8 NHWC, w8 int8 (Cout, K, K, Cin) (OHWI: Cin innermost, the
 order the kernel reads), bias f32[Cout], ``scale`` and ``out_scale``
@@ -144,7 +149,7 @@ def round_half_away(x):
 def fused_conv_int8_reference(x8, w8, bias, scale, out_scale, *, stride: int,
                               act: str = 'leaky', maxabs: bool = False,
                               out_q: bool = True, qmin: int = -128,
-                              qmax: int = 127):
+                              qmax: int = 127, out_mult=None):
     """Plain PyTorch version of ``fused_conv_int8`` (same contract).
 
     The conv runs in float64 on the int8 values: every product and partial
@@ -156,10 +161,19 @@ def fused_conv_int8_reference(x8, w8, bias, scale, out_scale, *, stride: int,
                    w8.permute(0, 3, 1, 2).to(torch.float64),
                    stride=stride, padding=k // 2)
     return _epilogue(acc.permute(0, 2, 3, 1).to(torch.int32), bias, scale,
-                     out_scale, act, maxabs, out_q, qmin, qmax)
+                     out_scale, act, maxabs, out_q, qmin, qmax, out_mult)
 
 
-def _epilogue(acc, bias, scale, out_scale, act, maxabs, out_q, qmin, qmax):
+def out_multiplier(out_scale, out_mult=None) -> np.float32:
+    """The f32 multiplier of the requant: ``out_mult`` rounded once to f32
+    when the caller gives it, else f32(1) / f32(out_scale)."""
+    if out_mult is not None:
+        return _f32(out_mult)
+    return np.float32(1.0) / _f32(out_scale)
+
+
+def _epilogue(acc, bias, scale, out_scale, act, maxabs, out_q, qmin, qmax,
+              out_mult=None):
     """The kernel's f32 epilogue on s32 sums ``acc`` (NHWC)."""
     dev = acc.device
     s = torch.tensor(_f32(scale), device=dev)
@@ -167,7 +181,7 @@ def _epilogue(acc, bias, scale, out_scale, act, maxabs, out_q, qmin, qmax):
     y = act_mod.get(act, maxabs)(y)
     if not out_q:
         return y.contiguous()
-    oinv = torch.tensor(np.float32(1.0) / _f32(out_scale), device=dev)
+    oinv = torch.tensor(out_multiplier(out_scale, out_mult), device=dev)
     q = torch.clamp(round_half_away(y * oinv), qmin, qmax)
     return q.to(torch.int8).contiguous()
 
@@ -208,7 +222,7 @@ def grouped_conv_s32(x8, w8, *, stride, pad: int, groups: int):
 
 def grouped_conv_int8(x8, w8, bias, scale, out_scale, *, stride, pad: int,
                       groups: int, act: str = 'leaky', maxabs: bool = False,
-                      qmin: int = -128, qmax: int = 127):
+                      qmin: int = -128, qmax: int = 127, out_mult=None):
     """The int8 convs K2 does not take (depthwise and grouped ones, other
     windows, strides or paddings): ``grouped_conv_s32``, then K2's f32
     epilogue into int8 (the JAX package runs these through XLA's s8 conv
@@ -217,7 +231,7 @@ def grouped_conv_int8(x8, w8, bias, scale, out_scale, *, stride, pad: int,
     acc = grouped_conv_s32(x8, w8, stride=stride, pad=pad, groups=groups)
     grouped_conv_int8.calls += 1
     return _epilogue(acc, bias, scale, out_scale, act, maxabs, True, qmin,
-                     qmax)
+                     qmax, out_mult)
 
 
 grouped_conv_int8.calls = 0
@@ -258,16 +272,20 @@ def _check(x8, w8, bias, stride, act, qmin, qmax):
 
 def fused_conv_int8(x8, w8, bias, scale, out_scale, *, stride: int,
                     act: str = 'leaky', maxabs: bool = False,
-                    out_q: bool = True, qmin: int = -128, qmax: int = 127):
+                    out_q: bool = True, qmin: int = -128, qmax: int = 127,
+                    out_mult=None):
     """Quantized conv: int8 NHWC x int8 (Cout, K, K, Cin) -> int8 NHWC
-    (``out_q``) or f32 NHWC. ``qmin``/``qmax`` bound the output grid.
+    (``out_q``) or f32 NHWC. ``qmin``/``qmax`` bound the output grid;
+    ``out_mult`` is the requant multiplier when the caller forms it (see
+    the module docstring), else 1 / ``out_scale``.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
     (each launch adds one to ``fused_conv_int8.launches``) or raises."""
     if x8.device.type == 'cpu':
         return fused_conv_int8_reference(x8, w8, bias, scale, out_scale,
                                          stride=stride, act=act, maxabs=maxabs,
-                                         out_q=out_q, qmin=qmin, qmax=qmax)
+                                         out_q=out_q, qmin=qmin, qmax=qmax,
+                                         out_mult=out_mult)
     if x8.device.type != 'cuda':
         raise ValueError(f'fused_conv_int8: no kernel for device {x8.device}')
     _check(x8, w8, bias, stride, act, qmin, qmax)
@@ -288,7 +306,7 @@ def fused_conv_int8(x8, w8, bias, scale, out_scale, *, stride: int,
         return out
     plan = tile_plan(n * ho * wo, cin, cout, k, out_q)
     _launch(x8, w8, bias, out, stride, float(_f32(scale)),
-            float(np.float32(1.0) / _f32(out_scale)), act,
+            float(out_multiplier(out_scale, out_mult)), act,
             0.25 if maxabs else 0.1, out_q, qmin, qmax, plan.bn, plan.stages,
             plan.rows)
     return out
@@ -321,20 +339,23 @@ fused_conv_int8.launches = 0
 
 
 def float_edge_conv(x, w8, bias, sw, sa, *, stride, pad: int, groups: int,
-                    act: str, maxabs: bool, qmin: int, qmax: int):
+                    act: str, maxabs: bool, qmin: int, qmax: int,
+                    out_mult=None):
     """A conv on a float edge (f32 NHWC ``x``) into an int8 edge of scale
     ``sa``: the conv of the bf16-rounded input with the dequantized int8
     weights (exact in bf16), summed and kept in f32, then bias, activation
     and requantization. That is the JAX engine as its jitted program
     computes it: XLA keeps the bf16 conv's f32 sums without rounding them
     to bf16 (its eager op does round them). Each call adds one to
-    ``float_edge_conv.calls``."""
+    ``float_edge_conv.calls``. ``out_mult``: the requant multiplier (a
+    Python float, as the JAX engine's), else 1 / ``sa``."""
     wf = w8.permute(0, 3, 1, 2).to(torch.float32) * sw
     xb = x.to(torch.bfloat16).to(torch.float32)
     y = conv_ops.conv2d_nhwc(xb, wf, stride=stride, padding=pad,
                              groups=groups)
     y = act_mod.get(act, maxabs)(y + bias)
-    q = torch.clamp(round_half_away(y * (1.0 / sa)), qmin, qmax)
+    q = torch.clamp(round_half_away(y * (1.0 / sa if out_mult is None
+                                         else out_mult)), qmin, qmax)
     float_edge_conv.calls += 1
     return q.to(torch.int8).contiguous()
 

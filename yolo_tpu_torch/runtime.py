@@ -5,14 +5,14 @@ PyTorch reference), and return a forward + decode + NMS callable on an
 explicit device.
 
 Float models: ``load_model`` -> ``fuse`` (BN folded) -> ``make_infer``.
-Quantized models (``quantized=1``, the google scheme): ``load_model``
-attaches a quantizer config and state; ``apply(x, train=True)`` is one
-calibration step; ``make_infer`` runs the true-int8 engine (default) or the
-fake-quant sim (``engine=False``).
+Quantized models (``quantized=1..6``: google, tpsq, ptq_cos, dorefa, wbin,
+ternary): ``load_model`` attaches a quantizer config and state (and TPSQ's
+scale params); ``apply(x, train=True)`` is one calibration step;
+``make_infer`` runs the true-int8 engine (the default for google and
+ptq_cos; TPSQ when asked) or the fake-quant sim.
 
 Every entry point runs on the card (``device='cuda'``) unless the caller
-asks for the CPU. Other quantization schemes are not ported yet (see
-ROADMAP.md).
+asks for the CPU.
 """
 
 from __future__ import annotations
@@ -128,10 +128,11 @@ class ModelBundle:
         (``Darknet.forward_augment``: the input, its flip at 0.83 and its
         0.67 scale, merged) into the dense NMS.
 
-        Quantized bundles: ``engine`` (default: on, for the google scheme,
-        on every device) runs the true-int8 engine with its int8 heads
-        into the sparse NMS (``head_scales``); ``engine=False`` runs the
-        f32 fake-quant sim and the dense NMS. The plan of the engine is
+        Quantized bundles: ``engine`` (default: on for the google and
+        ptq_cos schemes, on every device; TPSQ takes it when asked, the
+        other schemes have none) runs the true-int8 engine with its int8
+        heads into the sparse NMS (``head_scales``); ``engine=False`` runs
+        the f32 fake-quant sim and the dense NMS. The plan of the engine is
         prepared here, from the current calibration; ``augment`` prints a
         warning and runs a single pass, as in the JAX package."""
         if augment and self.quantized:
@@ -164,7 +165,7 @@ class ModelBundle:
 
     def _make_quant_infer(self, kw, engine):
         if engine is None:
-            engine = self.qcfg.scheme == 'google'
+            engine = self.qcfg.scheme in ('google', 'ptq_cos')
         if not engine:
             sim = self.quant_apply()
             params, state, qstate = self.params, self.state, self.qstate
@@ -206,27 +207,29 @@ def load_model(cfg, weights=None, *, device='cuda', dtype=torch.bfloat16,
     holds both the raw params/state and the EMA pair loads the EMA pair
     unless ``prefer_ema`` is False (the raw trajectory, as a resume needs).
 
-    ``quantized``: -1 float; 1 the google scheme with ``a_bit``/``w_bit``,
-    ``shortcut_way`` and ``steps`` (the calibration length that sets the
-    freeze steps). Its quantizer state comes from the checkpoint's
+    ``quantized``: -1 float; 1 google, 2 tpsq, 3 ptq_cos, 4 dorefa, 5 wbin,
+    6 ternary (``compress/quant.SCHEMES``), with ``a_bit``/``w_bit``,
+    ``shortcut_way`` and ``steps`` (the calibration or training length that
+    sets the freeze steps). Its quantizer state comes from the checkpoint's
     ``qstate`` key or from a sibling ``<name>_qstate.npz``, else it starts
-    uncalibrated; ``eval_snap_dtype`` (e.g. ``torch.bfloat16``) runs its
-    sim's eval grid snaps in that dtype. Other schemes raise
-    NotImplementedError."""
+    uncalibrated; TPSQ's scale params (``w_scale``/``b_scale``/``a_scale``
+    of each conv) start at 1.0 unless the checkpoint holds them;
+    ``eval_snap_dtype`` (e.g. ``torch.bfloat16``) runs the sim's eval grid
+    snaps in that dtype."""
     device = torch.device(device)
     net = build_ir(cfg, is_gray_scale=is_gray_scale)
     params, state = init_params(net, generator, conv_scale=conv_scale)
     qcfg = qstate = None
     if quantized != -1:
-        scheme = SCHEMES.get(quantized)
-        if scheme != 'google':
-            raise NotImplementedError(
-                f'quantized={quantized} ({scheme}) is not ported to '
-                'yolo_tpu_torch yet (see ROADMAP.md)')
-        qcfg = QuantConfig(scheme=scheme, a_bits=a_bit, w_bits=w_bit,
-                           shortcut_way=shortcut_way,
+        if quantized not in SCHEMES:
+            raise ValueError(f'quantized={quantized}: not one of -1, '
+                             f'{", ".join(map(str, SCHEMES))}')
+        qcfg = QuantConfig(scheme=SCHEMES[quantized], a_bits=a_bit,
+                           w_bits=w_bit, shortcut_way=shortcut_way,
                            maxabsscaler=maxabsscaler, steps=steps)
-        qstate = init_quant_state(net, qcfg)[0]
+        qstate, extra = init_quant_state(net, qcfg)
+        for k, v in extra.items():
+            params[k] = {**params[k], **v}
 
     if weights and weights != 'None':
         w = str(weights)

@@ -5,7 +5,7 @@
         --data data_cfg/coco2014.data --weights weights/last.npz
 
     python -m yolo_tpu_torch.test --cfg ... --data ... \\
-        --weights weights/calibrated.npz --quantized 1 [--int8-engine]
+        --weights weights/PTQ.npz --quantized 3 [--int8-engine]
 
     python -m yolo_tpu_torch.test --cfg ... --data ... \\
         --weights weights/best.pt --augment
@@ -13,14 +13,15 @@
 Tasks: ``test`` (the P/R/mAP/F1 table), ``study`` (an image-size sweep at
 the CLI's IoU threshold -> ``study_<data>_<cfg>.txt``) and ``benchmark``
 (sizes 256-512 x NMS IoU {0.6, 0.7} -> ``benchmark.txt``). It runs on the
-card unless ``--device cpu``. ``--quantized 1`` evaluates the fake-quant
-sim of a calibrated google-scheme checkpoint, ``--int8-engine`` the
-true-int8 engine (K2 convs) on it; ``--qat-eval-snap bf16`` runs the
-sim's eval grid snaps in bf16. ``--augment`` runs test-time augmentation
-on a float model (a quantized one warns and runs a single pass).
-``--weights`` takes a .npz of the JAX package, a .pt of the PyTorch
-reference or darknet .weights. Other schemes are not ported yet (see
-ROADMAP.md).
+card unless ``--device cpu``. ``--quantized N`` (1 google, 2 TPSQ, 3
+cos-PTQ, 4 DoReFa, 5 binary, 6 ternary weights) evaluates the fake-quant
+sim of a quantized checkpoint (its ``qstate`` key or a sibling
+``_qstate.npz``), ``--int8-engine`` the true-int8 engine (K2 convs) of a
+google, TPSQ or cos-PTQ one; ``--qat-eval-snap bf16`` runs the sim's eval
+grid snaps in bf16. ``--augment`` runs test-time augmentation on a float
+model (a quantized one warns and runs a single pass). ``--weights`` takes
+a .npz of the JAX package, a .pt of the PyTorch reference or darknet
+.weights.
 """
 
 from __future__ import annotations
@@ -29,7 +30,6 @@ import os
 
 import torch
 
-from .compress.quant import unported
 from .utils.cli import FlexParser
 
 
@@ -48,7 +48,8 @@ def parse_args(argv=None):
     p.add_argument('--sweep-sizes', nargs='+', type=int, default=None,
                    help='override the img-size sweep for study/benchmark')
     p.add_argument('--quantized', type=int, default=-1,
-                   help='-1 float; 1 the google scheme')
+                   help='-1 float, 1 google QAT, 2 TPSQ, 3 cos-PTQ, '
+                        '4 DoReFa, 5 binary-W, 6 ternary-W')
     p.add_argument('--a-bit', type=int, default=8)
     p.add_argument('--w-bit', type=int, default=8)
     p.add_argument('--shortcut_way', type=int, default=1)
@@ -62,8 +63,8 @@ def parse_args(argv=None):
                    help="torch device ('cuda', 'cuda:1', 'cpu')")
     p.add_argument('--int8-engine', action='store_true',
                    help='evaluate the true-int8 engine (K2 convs) instead of '
-                        'the fake-quant sim; needs --quantized 1 and a '
-                        'calibrated checkpoint')
+                        'the fake-quant sim; needs --quantized 1, 2 or 3 '
+                        'and a calibrated checkpoint')
     p.add_argument('--qat-eval-snap', default='f32', choices=['f32', 'bf16'],
                    help='fake-quant eval grid-snap dtype (bf16 rounds the '
                         'quantize chains in bf16; --quantized only)')
@@ -74,10 +75,8 @@ def parse_args(argv=None):
 
 def main(argv=None):
     opt = parse_args(argv)
-    if opt.quantized not in (-1, 1):
-        raise unported(f'--quantized {opt.quantized}')
-    if opt.int8_engine and opt.quantized != 1:
-        raise SystemExit('--int8-engine requires --quantized 1')
+    if opt.int8_engine and opt.quantized not in (1, 2, 3):
+        raise SystemExit('--int8-engine requires --quantized {1,2,3}')
 
     from .eval.evaluator import evaluate, int8_engine_apply
     from .runtime import load_model

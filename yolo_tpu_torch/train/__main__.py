@@ -6,13 +6,17 @@
         --img-size 416 416 416
     python -m yolo_tpu_torch.train --prune 0 --s 0.001 ...   # sparse training
     python -m yolo_tpu_torch.train --resume ...   # from weights/last.npz
+    python -m yolo_tpu_torch.train --quantized 1 --weights float.npz ...  # QAT
 
 The flags and their defaults are the JAX CLI's; ``--device`` (default
 ``cuda``; ``cpu`` when asked) picks the device, and the convs compute in
 bf16. It writes ``results.txt``,
 ``train_batch0.jpg`` and ``weights/last.npz``/``best.npz`` in the working
-directory. Flags of slices not ported yet raise ``NotImplementedError``
-(see ROADMAP.md): ``--quantized`` other than -1, ``--evolve``, ``--bucket``,
+directory. ``--quantized N`` (1 google, 2 TPSQ, 3 cos-PTQ, 4 DoReFa, 5
+binary, 6 ternary weights) trains the quantized model (QAT) with
+``--a-bit``, ``--w-bit``, ``--shortcut_way``, ``--qat-dtype`` and
+``--no-qat-bn-fast``. Flags of slices not ported yet raise
+``NotImplementedError`` (see ROADMAP.md): ``--evolve``, ``--bucket``,
 ``--t_cfg`` (KD), ``--device-aug``, ``--tp`` > 1, ``--remat`` other than
 ``none`` and the multi-host ones (``--coordinator``, ``--num-hosts``,
 ``--host-id``).
@@ -44,13 +48,18 @@ def parse_args(argv=None):
     p.add_argument('--s', dest='sparsity', type=float, default=0.001,
                    help='BN-gamma L1 sparsity strength')
     p.add_argument('--quantized', type=int, default=-1,
-                   help='-1 float (QAT is not ported yet)')
+                   help='-1 float, 1 google QAT, 2 TPSQ, 3 cos-PTQ, '
+                        '4 DoReFa, 5 binary-W, 6 ternary-W')
     p.add_argument('--a-bit', type=int, default=8)
     p.add_argument('--w-bit', type=int, default=8)
     p.add_argument('--qat-dtype', default='bf16', choices=['bf16', 'f32'],
-                   help='QAT conv compute dtype (QAT is not ported yet)')
+                   help='QAT conv compute dtype: bf16 (default; quantizer/'
+                        'tracker/BN-fold math stays f32) or f32')
     p.add_argument('--no-qat-bn-fast', dest='qat_bn_fast',
-                   action='store_false', default=True)
+                   action='store_false', default=True,
+                   help='keep the parallel float BN-stat conv after '
+                        'BN_freeze_step (reference-exact trajectory) '
+                        'instead of switching to the stat-conv-free step')
     p.add_argument('--shortcut_way', type=int, default=1)
     p.add_argument('--maxabsscaler', '-mas', action='store_true')
     p.add_argument('--gray-scale', '--gray_scale', dest='gray_scale',
@@ -118,7 +127,9 @@ def main(argv=None):
         multi_scale=opt.multi_scale, rect=opt.rect,
         cache_images=opt.cache_images, single_cls=opt.single_cls,
         adam=opt.adam, ema=opt.ema, prune=opt.prune, sparsity=opt.sparsity,
-        quantized=opt.quantized, maxabsscaler=opt.maxabsscaler,
+        quantized=opt.quantized, a_bit=opt.a_bit, w_bit=opt.w_bit,
+        shortcut_way=opt.shortcut_way, qat_dtype=opt.qat_dtype,
+        qat_bn_fast=opt.qat_bn_fast, maxabsscaler=opt.maxabsscaler,
         gray_scale=opt.gray_scale, pt=opt.pt, t_cfg=opt.t_cfg,
         notest=opt.notest, nosave=opt.nosave, seed=opt.seed,
         device_aug=opt.device_aug, cutout=opt.cutout, ud_flip=opt.ud_flip,

@@ -11,9 +11,20 @@ value: each batch goes up from pinned memory without blocking, the loss's
 running mean stays on the device and is read only at log points, and the
 optimizer's scalars are host floats.
 
-Not ported (see ROADMAP.md): quantized training (QAT), knowledge
-distillation, the device augmentations, the gsutil bucket upload, tensor
-parallelism and multi-host training; they raise ``NotImplementedError``.
+Quantized training (``quantized`` 1-6, QAT): the model loads with its
+quantizer (``steps`` = the run's batches, which set the freeze steps), TPSQ
+scales start from ``tpsq_warmup`` on one train batch unless the weights
+already hold trained ones, the optimizer is Adam on the MultiStep schedule,
+and the step runs ``make_quant_apply`` in train mode: bf16 MACs with f32
+quantizer math and bf16 eval snaps (``qat_dtype='bf16'``), or f32 all
+through. Once the quantizer steps pass ``bn_freeze_step`` the step switches
+to the apply without the BN statistics conv (``make_bn_frozen``) unless
+``qat_bn_fast`` is off. Each epoch evaluates the sim, and the checkpoints
+hold ``qstate``.
+
+Not ported (see ROADMAP.md): knowledge distillation, the device
+augmentations, the gsutil bucket upload, tensor parallelism and multi-host
+training; they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,9 +42,10 @@ import torch.nn.functional as F
 
 from ..compress.prune import (prunable_sets_layer, prunable_sets_normal,
                               prunable_sets_shortcut)
-from ..compress.quant import unported
+from ..compress.quant import make_quant_apply, tpsq_warmup, unported
 from ..config import load_hyp, parse_data_cfg
-from ..convert import from_jax, opt_state_from_jax, opt_state_to_jax, to_jax
+from ..convert import (from_jax, opt_state_from_jax, opt_state_to_jax,
+                       qstate_to_jax, to_jax)
 from ..data.datasets import BatchLoader, DetectionDataset
 from ..eval.evaluator import evaluate
 from ..eval.metrics import fitness
@@ -47,8 +59,7 @@ from .trainer import init_train_state, make_train_functions
 @dataclass
 class TrainOptions:
     """The training flags (the JAX package's ``TrainOptions``, less its
-    mesh and the settings of the unported QAT and KD paths, plus
-    ``device``)."""
+    mesh and the settings of the unported KD path, plus ``device``)."""
     cfg: str = 'cfg/yolov3/yolov3.cfg'
     data: str = 'data_cfg/coco2014.data'
     weights: str = ''
@@ -64,6 +75,9 @@ class TrainOptions:
     prune: int = -1                          # -1 off, 0 normal, 1 shortcut, 2 layer
     sparsity: float = 0.0                    # --s BN-gamma L1 strength
     quantized: int = -1
+    a_bit: int = 8
+    w_bit: int = 8
+    shortcut_way: int = 1
     maxabsscaler: bool = False
     gray_scale: bool = False
     pt: bool = False
@@ -90,12 +104,13 @@ class TrainOptions:
     accumulate_override: int | None = None   # None: the 64 / bs rule
     remat: str = 'none'
     float_dtype: str = 'bf16'                # conv compute dtype: 'bf16' or 'f32'
+    qat_dtype: str = 'bf16'                  # QAT conv compute dtype: 'bf16' or 'f32'
+    qat_bn_fast: bool = True                 # drop the BN statistics conv
+                                             # after bn_freeze_step
     device: str = 'cuda'
 
 
 def _check_ported(opt: TrainOptions):
-    if opt.quantized != -1:
-        raise unported(f'quantized training (--quantized {opt.quantized})')
     if opt.t_cfg:
         raise unported('knowledge distillation (--t_cfg)')
     if opt.device_aug:
@@ -164,14 +179,33 @@ def run_training(opt: TrainOptions):
     imgsz_min, imgsz_max = grid_min * gs, grid_max * gs
     img_size = imgsz_max
 
+    with open(train_path) as f:
+        n_train = sum(1 for _ in f)
+    steps = -(-n_train // opt.batch_size) * opt.epochs
+    quant = opt.quantized != -1
+
     # --resume continues the raw trajectory; plain --weights fine-tunes from
     # the EMA pair, the deployable weights
     float_dtype = torch.float32 if opt.float_dtype == 'f32' else torch.bfloat16
     bundle = load_model(opt.cfg, opt.weights, device=device,
                         dtype=float_dtype, is_gray_scale=opt.gray_scale,
                         maxabsscaler=opt.maxabsscaler, pt=opt.pt,
-                        prefer_ema=not opt.resume)
+                        prefer_ema=not opt.resume, quantized=opt.quantized,
+                        a_bit=opt.a_bit, w_bit=opt.w_bit,
+                        shortcut_way=opt.shortcut_way, steps=steps)
     net = bundle.net
+    if opt.quantized == 2 and all(
+            float(v[f]) == 1.0 for v in bundle.params.values()
+            if 'a_scale' in v for f in ('a_scale', 'w_scale', 'b_scale')):
+        # TPSQ's scales start from the search on one train batch; trained
+        # ones (a fine-tune, a resume) stay
+        cb = min(opt.batch_size, n_train)
+        calib = DetectionDataset(train_path, img_size, cb, subset_len=cb,
+                                 seed=opt.seed, is_gray_scale=opt.gray_scale)
+        imgs = next(iter(BatchLoader(calib, cb)))[0]
+        bundle.params = tpsq_warmup(
+            net, bundle.qcfg, bundle.params, bundle.state, bundle.qstate,
+            preprocess(imgs, opt.maxabsscaler, device=device))
     anchor_vecs = [np.asarray(l.anchors) / l.yolo_stride
                    for l in net.layers if l.kind == 'yolo']
     loss_hyp = LossHyp.from_dict(hyp, nc=nc)
@@ -186,16 +220,37 @@ def run_training(opt: TrainOptions):
     elif opt.prune == 2:
         sparse_layers = tuple(prunable_sets_layer(net)[2])
 
+    # QAT: the quant apply in train mode, bf16 MACs and bf16 eval snaps
+    # (qat_dtype 'bf16') or f32 all through, the NHWC head layout
+    quant_apply = None
+    if quant:
+        qat_bf16 = opt.qat_dtype != 'f32'
+        quant_apply = make_quant_apply(
+            net, bundle.qcfg,
+            compute_dtype=torch.bfloat16 if qat_bf16 else None,
+            eval_snap_dtype=torch.bfloat16 if qat_bf16 else None,
+            head_layout='nhwc')
+    use_adam = opt.adam or quant
+    fn_kw = dict(sparsity_s=opt.sparsity if opt.prune != -1 else 0.0,
+                 sparse_gamma_layers=sparse_layers)
     grad_fn, update_fn = make_train_functions(
-        net, anchor_vecs, nc, loss_hyp,
-        sparsity_s=opt.sparsity if opt.prune != -1 else 0.0,
-        sparse_gamma_layers=sparse_layers)
+        net, anchor_vecs, nc, loss_hyp, quant_apply=quant_apply, **fn_kw)
+    # after bn_freeze_step the step without the BN statistics conv
+    grad_fn_frozen, freeze_at, qat_steps = None, None, 0
+    if quant and opt.qat_bn_fast and bundle.qcfg.bn_freeze_step > 0:
+        freeze_at = bundle.qcfg.bn_freeze_step
+        qat_steps = max((int(float(v['step'])) for v in bundle.qstate.values()
+                         if 'step' in v), default=0)
+        grad_fn_frozen, _ = make_train_functions(
+            net, anchor_vecs, nc, loss_hyp,
+            quant_apply=quant_apply.make_bn_frozen(), **fn_kw)
     ts = init_train_state(net, bundle.params, bundle.state,
-                          optimizer='adam' if opt.adam else 'sgd',
+                          optimizer='adam' if use_adam else 'sgd',
                           use_ema=opt.ema,
                           compute_dtype=(None if opt.float_dtype == 'f32'
                                          else float_dtype),
-                          maxabsscaler=opt.maxabsscaler, device=device)
+                          maxabsscaler=opt.maxabsscaler, device=device,
+                          qstate=bundle.qstate)
     del bundle
 
     start_epoch, resume_best, resume_results = 0, 0.0, ''
@@ -261,7 +316,7 @@ def run_training(opt: TrainOptions):
             scalars, gr, accumulate = burn_in_scalars(
                 ni, n_burn, epoch, lr0=hyp['lr0'], momentum=hyp['momentum'],
                 weight_decay=hyp['weight_decay'], epochs=opt.epochs,
-                batch_size=opt.batch_size, adam=opt.adam)
+                batch_size=opt.batch_size, quantized=quant, adam=opt.adam)
             if opt.accumulate_override is not None:
                 accumulate = opt.accumulate_override
 
@@ -280,9 +335,12 @@ def run_training(opt: TrainOptions):
                     cur_size = rnd.randrange(grid_min, grid_max + 1) * gs
                 if cur_size != x.shape[1]:
                     x = resize_batch(x, cur_size)
-            ts, items = grad_fn(ts, x, upload(np.asarray(tgt, np.float32)),
+            step_fn = (grad_fn_frozen if grad_fn_frozen is not None
+                       and qat_steps >= freeze_at else grad_fn)
+            ts, items = step_fn(ts, x, upload(np.asarray(tgt, np.float32)),
                                 upload(np.asarray(valid, bool)), gr,
                                 loss_scale)
+            qat_steps += 1
             # the optimizer steps when ni % accumulate == 0, not every
             # accumulate-th batch since the last step (they differ while
             # accumulate ramps up in the burn-in)
@@ -310,6 +368,7 @@ def run_training(opt: TrainOptions):
                 batch_size=max(opt.batch_size // 4, 1), img_size=imgsz_test,
                 is_gray_scale=opt.gray_scale, multi_label=ni > n_burn,
                 maxabsscaler=opt.maxabsscaler, single_cls=opt.single_cls,
+                quant_apply=quant_apply, qstate=ts.qstate,
                 loss_hyp=loss_hyp, anchor_vecs=anchor_vecs,
                 plot=not opt.nosave, device=device)
 
@@ -351,8 +410,8 @@ def save_train_checkpoint(path, ts, net, *, epoch: int, best_fitness: float,
                           results_file: str, with_opt: bool):
     """``last.npz``/``best.npz`` in the JAX package's layout: the raw
     params/state pair (for a resume), the EMA pair and its update count
-    (what ``load_model`` serves), and the optimizer state when
-    ``with_opt``."""
+    (what ``load_model`` serves), the quantizer state of a QAT run, and the
+    optimizer state when ``with_opt``."""
     training_results = Path(results_file).read_text() \
         if os.path.exists(results_file) else ''
     params, state = to_jax(net, ts.params, ts.bn_state)
@@ -365,4 +424,6 @@ def save_train_checkpoint(path, ts, net, *, epoch: int, best_fitness: float,
                     training_results=training_results,
                     opt_state=(opt_state_to_jax(net, ts.opt_state)
                                if with_opt else None),
-                    ema=ema, ema_state=ema_state, extra=extra)
+                    ema=ema, ema_state=ema_state, extra=extra,
+                    qstate=(None if ts.qstate is None
+                            else qstate_to_jax(ts.qstate)))

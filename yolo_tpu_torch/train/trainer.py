@@ -10,8 +10,14 @@ running statistics into the model's buffers. ``update_fn`` runs the
 optimizer on the accumulated gradients, then the EMA, then clears the
 gradients. Neither reads a value back to the host.
 
-Not ported (see ROADMAP.md): the KD loss term, QAT's quantized apply and
-the remat policies; they raise ``NotImplementedError``.
+QAT: given a ``quant_apply`` (``compress/quant.make_quant_apply``),
+``grad_fn`` runs it in train mode on the model's f32 master parameters
+(TPSQ's scale params among them), its BN state and the ``TrainState``'s
+``qstate``, in the apply's head layout; the new quantizer state replaces
+``qstate`` without a gradient.
+
+Not ported (see ROADMAP.md): the KD loss term and the remat policies; they
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,11 +38,13 @@ from .optim import PerGroupScalars, make_optimizer
 class TrainState:
     """The trainable model (f32 master parameters, BN statistics in its
     buffers, gradients accumulated in ``.grad``), its optimizer, the EMA
-    copy and the count of ``grad_fn`` calls since the last update."""
+    copy, the count of ``grad_fn`` calls since the last update and, for
+    QAT, the quantizer state."""
     model: Darknet
     optimizer: torch.optim.Optimizer
     ema: EMAState | None
     accum_count: int = 0
+    qstate: dict | None = None
 
     @property
     def params(self) -> dict:
@@ -61,19 +69,35 @@ def init_train_state(net: NetworkIR, params, bn_state, *,
                      optimizer: str = 'sgd', use_ema: bool = True,
                      compute_dtype: torch.dtype | None = torch.bfloat16,
                      maxabsscaler: bool = False, device='cuda',
-                     base_lr: float | None = None) -> TrainState:
+                     base_lr: float | None = None,
+                     qstate: dict | None = None) -> TrainState:
     """A ``TrainState`` on ``device`` that owns copies of ``params`` and
-    ``bn_state`` (f32); ``compute_dtype`` is the dtype of the convs
-    (``None``: f32). ``optimizer`` is 'sgd', 'adam' or 'adabound' (which
-    needs ``base_lr``)."""
+    ``bn_state`` (f32) and of ``qstate`` (QAT); ``compute_dtype`` is the
+    dtype of the float model's convs (``None``: f32). ``optimizer`` is
+    'sgd', 'adam' or 'adabound' (which needs ``base_lr``)."""
+    device = torch.device(device)
     model = Darknet(net, params, bn_state, maxabsscaler=maxabsscaler,
                     dtype=compute_dtype, trainable=True)
-    model = model.to(torch.device(device), memory_format=torch.channels_last)
-    st = TrainState(model=model, optimizer=None, ema=None)
+    model = model.to(device, memory_format=torch.channels_last)
+    st = TrainState(model=model, optimizer=None, ema=None,
+                    qstate=None if qstate is None else _tree_copy(qstate,
+                                                                  device))
     st.optimizer = make_optimizer(optimizer, st.params, base_lr=base_lr)
     if use_ema:
         st.ema = ema_init(st.params, st.bn_state)
     return st
+
+
+def _tree_copy(tree, device=None):
+    if isinstance(tree, dict):
+        return {k: _tree_copy(v, device) for k, v in tree.items()}
+    return tree.detach().to(device, copy=True)
+
+
+def _tree_detach(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_detach(v) for k, v in tree.items()}
+    return tree.detach()
 
 
 def make_train_functions(net: NetworkIR, anchor_vecs, nc: int, hyp: LossHyp,
@@ -94,16 +118,19 @@ def make_train_functions(net: NetworkIR, anchor_vecs, nc: int, hyp: LossHyp,
 
     ``sparse_gamma_layers`` with ``sparsity_s`` > 0 add ``s*sign(gamma)``
     to those layers' BN-gamma gradients at every ``grad_fn`` call (sparse
-    training before pruning)."""
+    training before pruning).
+
+    ``quant_apply``: QAT; the forward is that apply in train mode (see the
+    module docstring), the loss in its ``head_layout``."""
     if kd_loss_fn is not None:
         raise unported('the KD loss term of the trainer')
-    if quant_apply is not None:
-        raise unported('QAT training (a quantized apply in the trainer)')
     if remat not in (False, None, 'none', ''):
         raise unported(f'remat={remat!r} (the remat policies)')
     anchors: dict = {}
     sparse_keys = tuple(str(i) for i in sparse_gamma_layers) \
         if sparsity_s > 0 else ()
+    layout = ('nhwc' if quant_apply is None
+              else getattr(quant_apply, 'head_layout', 'anchor_major'))
 
     def grad_fn(state: TrainState, imgs, targets, valid, gr: float,
                 loss_scale: float):
@@ -112,9 +139,14 @@ def make_train_functions(net: NetworkIR, anchor_vecs, nc: int, hyp: LossHyp,
         if dev not in anchors:
             anchors[dev] = [torch.as_tensor(a, dtype=torch.float32,
                                             device=dev) for a in anchor_vecs]
-        (yolo_p, _), new_bn = model.forward_train(imgs, head_layout='nhwc')
+        if quant_apply is None:
+            (yolo_p, _), new_bn = model.forward_train(imgs, head_layout='nhwc')
+        else:
+            (yolo_p, _), new_bn, new_q = quant_apply(
+                state.params, state.bn_state, state.qstate, imgs, True)
+            state.qstate = _tree_detach(new_q)
         loss, items = compute_loss(yolo_p, targets, valid, anchors[dev], nc,
-                                   hyp, gr, layout='nhwc')
+                                   hyp, gr, layout=layout)
         (loss * loss_scale).backward()
         if sparse_keys:
             gammas = [model.layer[k].gamma for k in sparse_keys
