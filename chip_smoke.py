@@ -199,6 +199,43 @@ Phases; any failure exits non-zero, and nothing runs on the CPU instead
    eval batch of the sim, ``last.npz`` holding qstate (every conv at step
    16), then a resume for a third epoch (steps to 24).
 
+12. knowledge distillation, evolve, the FPGA export and anchors, in a
+   child process (``chip_smoke.py --phase12 DIR``; JPEG files and the
+   file loader need OpenCV): (a) the teacher, yolov3 @608 from seed 0
+   (``CONV_SCALE``), written as an .npz; 64 seeded JPEG files labelled by
+   it; the student's parent, the teacher with ``shrink_gammas``, as an
+   .npz; the student, the parent through ``channel_prune('normal',
+   0.5)``, written as a cfg and .weights (all keep the 72 KD feature
+   maps); (b) one bf16 ``grad_fn`` at bs=8 on the
+   files' first batch for the plain student and for KD1-6 (KD5 'diag',
+   KD6 with anchor-major heads): the term finite and > 0, ``grad_fn`` by
+   CUDA events after warm-up, peak memory, a profile (kernels a step,
+   busy share); then 10 KD5 SGD steps on that batch: the loss plus the
+   KD term falls, and the teacher's BN statistics stay as loaded; (c) f32
+   at 320 px, bs=2, TF32 off, card against CPU: each strategy's KD term
+   within ``KD_TERM_TOL``, one KD5 ``grad_fn``'s loss items (rtol 1e-5),
+   head-conv gradients (1e-3 of their norms) and every gradient
+   (``GRAD_BN_TOL``), the teacher's statistics unchanged; (d) ``python -m
+   yolo_tpu_torch.train --t_cfg cfg/yolov3/yolov3.cfg --t_weights
+   parent.npz --KDstr 5 --epochs 2`` on the student and the files (its
+   ``main``; the student distilled from its own parent): K1 once per eval
+   batch (64), finite ``results.txt`` rows,
+   the loop's images/s from its batch lines, ``last.npz`` reloads and
+   serves; (e) ``--evolve`` twice, 1 epoch on 16 of the files: 2 rows of
+   ``evolve.txt``, no checkpoint, K1 once per eval batch; (f) a google
+   yolov3 @608 calibrated as in phase 6, saved as .npz and
+   ``_qstate.npz``: ``python -m yolo_tpu_torch.convert_fpga --quantized
+   1`` writes the six binaries at their sizes, byte-equal to
+   ``export_fpga_weights`` of the files loaded on the CPU; ``python -m
+   yolo_tpu_torch.detect --quantized 1 --quantizer_output --reorder
+   --layer_idx L`` on one JPEG for the stem, a 3x3 s2 conv and a head
+   conv (``FPGA_LAYERS``), each with the counts zeroed before (K2 74
+   times and K1 once in its engine batch), its weight, bias and scale
+   dumps equal to the CPU sim's and its q activations against the CPU
+   sim's (bf16, as the CLI's): the share that differs and the most quanta
+   printed, the stem equal; (g) ``kmean_anchors`` over the files' labels
+   (n 9, ``default_rng(0)``), the anchors, recall and seconds.
+
 A kernel's time is taken twice, on the same inputs: ``cuda_ms``, what its
 caller waits for (median CUDA-event time, the host's work to queue the
 call included), and ``device_ms``, the device alone (a sleep kernel keeps
@@ -206,7 +243,9 @@ the card busy while the host queues the call). A pipeline's time is
 ``cuda_ms``.
 
 The line before the last is a JSON object with each kernel's launches on
-the main paths (phases 4, 6, 7, 8, 9, 10 and 11), error, times and bound (``ms``, ``plain_ms`` and
+the main paths (phases 4, 6, 7, 8, 9, 10, 11 and 12; ``launches_phase9``
+to ``launches_phase12`` those of the later phases alone), error, times
+and bound (``ms``, ``plain_ms`` and
 ``library_ms`` by ``cuda_ms``, ``device_ms`` beside them; for nms_suppress
 also its cluster and CTAs at k=512, bs=8, the wrapper's host time per call,
 the device time by cluster size and both times on the dense path's own
@@ -216,7 +255,7 @@ ptq_cos engine's K2 calls summed and the TPSQ engine's count, phase 11);
 the line before it the card's name and power limit; the last line is the JSON device record. At the end the
 run checks that neither jax nor OpenCV nor any module of the JAX package
 ``yolo_tpu`` was imported into this process (the children of phases 9,
-10 and 11 load OpenCV).
+10, 11 and 12 load OpenCV).
 """
 
 from __future__ import annotations
@@ -374,7 +413,7 @@ def device_setup():
 
 
 def phase_device():
-    print('[1/11] device')
+    print('[1/12] device')
     card = device_setup()
     print(f'  {torch.cuda.get_device_name(0)}; torch {torch.__version__}, '
           f'CUDA {torch.version.cuda}; TF32 off for matmul and cuDNN')
@@ -405,7 +444,7 @@ def conv_sass(lib_path):
 
 
 def phase_build():
-    print('[2/11] build')
+    print('[2/12] build')
     import re
     from yolo_tpu_torch import _build
     lib = _build.library_path()
@@ -496,7 +535,7 @@ def k1_compare(got, ref, what):
 
 
 def phase_kernel(dev):
-    print('[3/11] K1 nms_suppress vs plain version')
+    print('[3/12] K1 nms_suppress vs plain version')
     from yolo_tpu_torch.ops import nms_suppress as K1
     suppress, suppress_reference = K1.suppress, K1.suppress_reference
     rng = np.random.default_rng(0)
@@ -575,7 +614,7 @@ def phase_kernel(dev):
 
 
 def phase_pipeline(dev, card):
-    print('[4/11] yolov3 @608 float pipeline')
+    print('[4/12] yolov3 @608 float pipeline')
     from yolo_tpu_torch import runtime
     from yolo_tpu_torch.ops import nms
     from yolo_tpu_torch.ops.nms_suppress import suppress
@@ -792,7 +831,7 @@ def int_mm_ms(x8, w8, **timing):
 
 
 def phase_conv_kernel(dev):
-    print('[5/11] K2 conv_int8 vs plain version')
+    print('[5/12] K2 conv_int8 vs plain version')
     from yolo_tpu_torch.ops.conv_int8 import (fused_conv_int8,
                                               fused_conv_int8_reference)
     max_err = 0.0
@@ -1108,7 +1147,7 @@ def in_range(label, fn):
 
 
 def phase_int8(dev, card):
-    print('[6/11] yolov3 @608 int8 serving')
+    print('[6/12] yolov3 @608 int8 serving')
     from yolo_tpu_torch import runtime
     b, x = int8_bundle(dev, BS, SIZE)
     launches, plan, infer = int8_checks(b, x)
@@ -1305,7 +1344,7 @@ def phase_eval(dev, card, qb, cfg=CFG, n_images=EVAL_IMAGES):
     """The evaluation path: ``evaluate`` on float yolov3 (device and host
     matching), the f32 QAT sim and the int8 engine of phase 6's calibrated
     bundle ``qb``, each against pseudo-labels made by the model itself."""
-    print(f'[7/11] mAP evaluation: yolov3 @{SIZE}, {n_images} images, bs={BS}')
+    print(f'[7/12] mAP evaluation: yolov3 @{SIZE}, {n_images} images, bs={BS}')
     from yolo_tpu_torch import runtime
     from yolo_tpu_torch.compress.quant import make_quant_apply
     from yolo_tpu_torch.eval.evaluator import evaluate, int8_engine_apply
@@ -1671,7 +1710,7 @@ def phase_new_cfgs(dev, card):
     from yolo_tpu_torch import runtime
     from yolo_tpu_torch.models.torch_import import save_torch_checkpoint
     t0 = time.perf_counter()
-    print(f'[8/11] more cfgs: (a) yolov3-mobilenet @{MOBILE_SIZE}, (b) '
+    print(f'[8/12] more cfgs: (a) yolov3-mobilenet @{MOBILE_SIZE}, (b) '
           f'yolov3-asff @{SIZE}, (c) TTA yolov3 @{SIZE}, (d) mobilenet int8, '
           '(e) .pt')
     k1 = 0
@@ -2053,7 +2092,7 @@ def prune_child(root, dev):
 
 def phase_prune():
     """Phase 9 in a child process; returns its numbers."""
-    print(f'[9/11] pruning: yolov3 @{SIZE}, {PRUNE_IMAGES} JPEG files, '
+    print(f'[9/12] pruning: yolov3 @{SIZE}, {PRUNE_IMAGES} JPEG files, '
           f'bs={BS} (a child process)')
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as root:
@@ -2442,7 +2481,7 @@ def train_child(root, dev):
 def phase_train(dev, card, qb):
     """Phase 10: the train step on the card against the CPU, the step at
     full size, the loop from files in a child process, the eval snap."""
-    print(f'[10/11] float training: yolov3 @{SIZE}, bs={BS}')
+    print(f'[10/12] float training: yolov3 @{SIZE}, bs={BS}')
     from yolo_tpu_torch.ir import build_ir
     from yolo_tpu_torch.models.network import init_params
     t0 = time.perf_counter()
@@ -3205,7 +3244,7 @@ def quant_child(root, dev):
 
 def phase_quant():
     """Phase 11 in a child process; returns its numbers."""
-    print(f'[11/11] quantization: yolov4 @{SIZE} PTQ and its engine, QAT and '
+    print(f'[11/12] quantization: yolov4 @{SIZE} PTQ and its engine, QAT and '
           f'TPSQ on yolov3 @{SIZE}, the QAT loop')
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as root:
@@ -3217,6 +3256,580 @@ def phase_quant():
         with open(os.path.join(root, 'phase11.json')) as f:
             out = json.load(f)
     print(f'  phase 11: {time.perf_counter() - t0:.1f} s')
+    return out
+
+
+# ------------------------- phase 12: distillation, evolve, the FPGA export
+
+KD_STRATEGIES = (1, 2, 3, 4, 5, 6)
+KD_WARMUP, KD_TIMED = 1, 4    # (b): grad_fn calls before and in the timing
+KD_SGD_STEPS = 10             # (b): KD5 SGD steps on one batch
+# (c): each strategy's KD term, card against CPU (f32, TF32 off), relative
+KD_TERM_TOL = 1e-4
+KD_IMAGES = 64                # (a): 8 batches of BS, JPEG files on disk
+KD_EPOCHS = 2                 # (d)
+EVOLVE_IMAGES = 16            # (e): 2 batches of BS
+# (f): the layers dumped by detect --quantizer_output: the stem, a 3x3 s2
+# conv and the first head conv of yolov3
+FPGA_LAYERS = (0, 1, 81)
+ANCHOR_LABELS = 20            # (g): seeded boxes an image
+
+
+def kd_setup(root, dev):
+    """(a) The teacher (yolov3 @608, seed 0, ``CONV_SCALE``) written as an
+    .npz, the 64 JPEG files labelled by it, the student's parent (the
+    teacher with ``shrink_gammas``, the stand-in for a sparsity-trained
+    model) as an .npz, and the student: the parent through
+    ``channel_prune('normal', 0.5)``, written as a cfg and .weights."""
+    from yolo_tpu_torch import runtime
+    from yolo_tpu_torch.compress import prune as P
+    from yolo_tpu_torch.compress.prune_drivers import channel_prune
+    from yolo_tpu_torch.convert import to_jax
+    from yolo_tpu_torch.models.darknet_io import save_darknet_weights
+    from yolo_tpu_torch.utils.checkpoint import save_checkpoint
+    kw = dict(conf_thres=CONF_THRES, iou_thres=0.6, top_k=512, max_det=300)
+    t0 = time.perf_counter()
+    t = runtime.load_model(CFG, device=dev, conv_scale=CONV_SCALE,
+                           generator=torch.Generator().manual_seed(0))
+    teacher = os.path.join(root, 'teacher.npz')
+    p, s = to_jax(t.net, t.params, t.state)
+    save_checkpoint(teacher, params=p, state=s)
+    data, batches, labels = write_jpeg_set(os.path.join(root, 'set'),
+                                           t.fuse().make_infer(**kw), dev,
+                                           KD_IMAGES)
+    lst = os.path.join(root, 'set', 'val.txt')
+    with open(data, 'a') as f:
+        f.write(f'train={lst}\n')
+    per_image = max(len(lab) for per in labels for lab in per)
+    sets = P.prunable_sets_normal(t.net)
+    sparse = shrink_gammas(t.params, sets.prune_idx)
+    parent = os.path.join(root, 'parent.npz')
+    p, s = to_jax(t.net, sparse, t.state)
+    save_checkpoint(parent, params=p, state=s)
+    res = channel_prune(t.net, sparse, t.state, method='normal',
+                        percent=PRUNE_PERCENT, img_size=SIZE)
+    s_cfg = os.path.join(root, 'student.cfg')
+    s_w = os.path.join(root, 'student.weights')
+    P.write_cfg(s_cfg, res.module_defs)
+    save_darknet_weights(res.net, res.params, res.state, s_w)
+    r = res.report
+    n_feat = [sum(l.feature_out for l in n.layers) for n in (t.net, res.net)]
+    check(n_feat[0] == n_feat[1],
+          f'(a) teacher yolov3 @{SIZE} and its normal-{PRUNE_PERCENT} '
+          f'student (params {r["params_before"]} -> {r["params_after"]}, '
+          f'MACs ratio {r["macs_after"] / r["macs_before"]:.4f}), '
+          f'{n_feat[1]} KD feature maps each; {KD_IMAGES} JPEG files '
+          f'labelled by the teacher; set-up {time.perf_counter() - t0:.1f} s')
+    return dict(teacher=teacher, parent=parent, s_cfg=s_cfg, s_w=s_w,
+                data=data, lst=lst, per_image=per_image, batches=batches,
+                labels=labels)
+
+
+def kd_parts(setup, dev, dtype):
+    """(student bundle, teacher ``Darknet`` in ``dtype``, anchor vectors,
+    strides, the teacher's buffers as loaded)."""
+    from yolo_tpu_torch import runtime
+    sb = runtime.load_model(setup['s_cfg'], setup['s_w'], device=dev)
+    teacher = runtime.load_model(CFG, setup['teacher'], device=dev,
+                                 dtype=dtype).model()
+    avecs = [np.asarray(l.anchors) / l.yolo_stride
+             for l in sb.net.layers if l.kind == 'yolo']
+    before = {k: b.clone() for k, b in teacher.state_dict().items()}
+    return sb, teacher, avecs, sb.strides, before
+
+
+def kd_fn_for(strategy, teacher, net, avecs, strides, size, record=None):
+    """``make_kd_loss_fn`` of ``strategy`` (KD5 'diag', KD6 anchor-major);
+    ``record`` collects each term, detached."""
+    from yolo_tpu_torch.train.kd import make_kd_loss_fn
+    fn = make_kd_loss_fn(strategy, teacher, net.nc, avecs, img_size=size,
+                         strides=strides, kd5_mask='diag',
+                         layout='anchor_major' if strategy == 6 else 'nhwc')
+    if record is None:
+        return fn
+
+    def rec(*a):
+        v = fn(*a)
+        record.append(v.detach())
+        return v
+    rec.layout = fn.layout
+    return rec
+
+
+def kd_batch(setup, dev):
+    """The first batch of the files (no augmentation) with its labels."""
+    from yolo_tpu_torch.data.datasets import BatchLoader, DetectionDataset
+    from yolo_tpu_torch.runtime import preprocess
+    ds = DetectionDataset(setup['lst'], SIZE, BS)
+    imgs, tgt, valid, _, _ = next(iter(BatchLoader(
+        ds, BS, max_targets=setup['per_image'] * BS)))
+    return (preprocess(imgs, device=dev), torch.from_numpy(tgt).to(dev),
+            torch.from_numpy(valid).to(dev))
+
+
+def kd_steps(setup, dev, card):
+    """(b) One bf16 ``grad_fn`` for the plain student and for each KD
+    strategy at bs=8 on one labelled batch: the term finite and > 0,
+    ``grad_fn`` by CUDA events, kernels and busy share, peak memory; then
+    KD5 SGD steps: the loss (detection + KD) falls."""
+    from yolo_tpu_torch.config import DEFAULT_HYP
+    from yolo_tpu_torch.train.loss import LossHyp
+    from yolo_tpu_torch.train.optim import PerGroupScalars
+    from yolo_tpu_torch.train.trainer import (init_train_state,
+                                              make_train_functions)
+    sb, teacher, avecs, strides, before = kd_parts(setup, dev,
+                                                   torch.bfloat16)
+    net = sb.net
+    hyp = LossHyp.from_dict(DEFAULT_HYP, nc=net.nc)
+    x, tgt, valid = kd_batch(setup, dev)
+    out = {}
+    for s in ('plain',) + KD_STRATEGIES:
+        terms = []
+        kd = (None if s == 'plain' else
+              kd_fn_for(s, teacher, net, avecs, strides, SIZE, terms))
+        grad_fn, _ = make_train_functions(net, avecs, net.nc, hyp,
+                                          kd_loss_fn=kd)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ts = init_train_state(net, sb.params, sb.state,
+                              compute_dtype=torch.bfloat16, device=dev)
+        evs = []
+        for i in range(KD_WARMUP + KD_TIMED):
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            e[0].record()
+            ts, items = grad_fn(ts, x, tgt, valid, 1.0, BS / 64)
+            e[1].record()
+            evs.append(e)
+        torch.cuda.synchronize()
+        ms = statistics.median(a.elapsed_time(b) for a, b in evs[KD_WARMUP:])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        term = float(terms[0]) if terms else 0.0
+        if s != 'plain':
+            check(np.isfinite(term) and term > 0,
+                  f'(b) KD{s}: the term {term:.6g} on the first step')
+        print(f'  (b) {"KD" + str(s) if s != "plain" else "plain"} grad_fn '
+              f'@{SIZE} bs={BS} bf16: {ms:.3f} ms (CUDA events, median of '
+              f'{KD_TIMED}), peak {peak:.2f} GiB ({card})')
+        prof = profile_device(lambda: grad_fn(ts, x, tgt, valid, 1.0,
+                                              BS / 64), n=1)
+        out[str(s)] = {'grad_ms': ms, 'term': term, 'peak_gib': peak,
+                       'profile': prof}
+        del ts, grad_fn
+    # KD5 SGD steps on the batch: the objective falls
+    terms = []
+    grad_fn, update_fn = make_train_functions(
+        net, avecs, net.nc, hyp,
+        kd_loss_fn=kd_fn_for(5, teacher, net, avecs, strides, SIZE, terms))
+    ts = init_train_state(net, sb.params, sb.state,
+                          compute_dtype=torch.bfloat16, device=dev)
+    sc = PerGroupScalars(lr=(TRAIN_LR,) * 4,
+                         weight_decay=(0.000484, 0.0, 0.0, 0.0),
+                         momentum=0.937)
+    totals = []
+    for _ in range(KD_SGD_STEPS):
+        ts, items = grad_fn(ts, x, tgt, valid, 1.0, BS / 64)
+        ts = update_fn(ts, sc)
+        totals.append(items[3])
+    obj = (torch.stack(totals) + torch.stack(terms)).cpu().numpy()
+    kdv = torch.stack(terms).cpu().numpy()
+    check(np.isfinite(obj).all() and obj[-3:].mean() < obj[:3].mean(),
+          f'(b) {KD_SGD_STEPS} SGD steps with KD5 (diag): loss + KD '
+          f'{obj[:3].mean():.4f} (first 3) -> {obj[-3:].mean():.4f} (last '
+          f'3); the KD term {kdv[0]:.5f} -> {kdv[-1]:.5f}')
+    check(all(torch.equal(b, before[k])
+              for k, b in teacher.state_dict().items()),
+          '(b) the teacher\'s BN statistics as loaded after every step')
+    out['sgd'] = {'objective': obj.tolist(), 'kd': kdv.tolist()}
+    return out
+
+
+def kd_card_vs_cpu(setup, dev):
+    """(c) f32 at ``GRAD_SIZE`` bs=``GRAD_BS`` (TF32 off), the student and
+    teacher on the card and on the CPU: each strategy's KD term, and one
+    KD5 ``grad_fn`` (loss items, head-conv gradients, every gradient); the
+    teacher's buffers unchanged."""
+    from yolo_tpu_torch.train.loss import LossHyp
+    from yolo_tpu_torch.config import DEFAULT_HYP
+    from yolo_tpu_torch.train.trainer import (init_train_state,
+                                              make_train_functions)
+    out = {}
+    for name, d in (('cpu', torch.device('cpu')), ('cuda', dev)):
+        t0 = time.perf_counter()
+        sb, teacher, avecs, strides, before = kd_parts(setup, d,
+                                                       torch.float32)
+        net = sb.net
+        x, tgt, valid = train_batch(70, GRAD_BS, GRAD_SIZE, d)
+        ts = init_train_state(net, sb.params, sb.state, compute_dtype=None,
+                              device=d)
+        terms = {}
+        with torch.no_grad():
+            for layout in ('nhwc', 'anchor_major'):
+                (yp, feats), _ = ts.model.forward_train(x, head_layout=layout)
+                for s in KD_STRATEGIES:
+                    if (s == 6) == (layout == 'anchor_major'):
+                        terms[s] = float(kd_fn_for(s, teacher, net, avecs,
+                                                   strides, GRAD_SIZE)(
+                            yp, feats, tgt, valid, x))
+        grad_fn, _ = make_train_functions(
+            net, avecs, net.nc, LossHyp.from_dict(DEFAULT_HYP, nc=net.nc),
+            kd_loss_fn=kd_fn_for(5, teacher, net, avecs, strides, GRAD_SIZE))
+        ts, items = grad_fn(ts, x, tgt, valid, 1.0, GRAD_BS / 64)
+        grads = {f'{k}.{f}': p.grad.cpu() for k, g in ts.params.items()
+                 for f, p in g.items()}
+        same = all(torch.equal(b, before[k])
+                   for k, b in teacher.state_dict().items())
+        out[name] = (terms, items.cpu(), grads, same, net)
+        print(f'  (c) f32 @{GRAD_SIZE} bs={GRAD_BS} on {d.type}: the six '
+              f'KD terms and a KD5 grad_fn in {time.perf_counter() - t0:.2f}'
+              ' s with set-up')
+    (t_card, it_card, g_card, same_card, net), (t_cpu, it_cpu, g_cpu,
+                                                same_cpu, _) = (out['cuda'],
+                                                                out['cpu'])
+    rel = {s: abs(t_card[s] - t_cpu[s]) / abs(t_cpu[s]) for s in t_cpu}
+    check(all(r <= KD_TERM_TOL for r in rel.values()),
+          '(c) KD terms card against CPU: ' + ', '.join(
+              f'KD{s} {t_cpu[s]:.6g} ({rel[s]:.2e})' for s in KD_STRATEGIES)
+          + f' (rtol {KD_TERM_TOL:g})')
+    check(torch.allclose(it_card, it_cpu, rtol=LOSS_TOL),
+          f'(c) KD5 step: loss items card {it_card.tolist()} against CPU '
+          f'{it_cpu.tolist()} (rtol {LOSS_TOL:g})')
+    heads = {str(l.index) for l in net.layers if l.kind == 'conv'
+             and not l.bn}
+    err, err_all = rel_l2(g_card, g_cpu)
+    head_err = {k: e for k, e in err.items() if k.split('.')[0] in heads}
+    k_h, k_w = max(head_err, key=head_err.get), max(err, key=err.get)
+    check(head_err[k_h] <= GRAD_TOL,
+          f'(c) KD5 head-conv gradients card against CPU: the worst {k_h} '
+          f'at {head_err[k_h]:.2e} of its norm (<= {GRAD_TOL:g})')
+    check(err[k_w] <= GRAD_BN_TOL and err_all <= GRAD_BN_TOL / 2,
+          f'(c) KD5 every gradient card against CPU: {len(err)} tensors, '
+          f'the worst {k_w} at {err[k_w]:.2e}, all {err_all:.2e} (<= '
+          f'{GRAD_BN_TOL:g}, {GRAD_BN_TOL / 2:g})')
+    check(same_card and same_cpu, '(c) the teacher\'s BN statistics '
+          'unchanged on both')
+    return {'term_rel': {str(s): r for s, r in rel.items()},
+            'head_grad_err': head_err[k_h], 'grad_err_worst': err[k_w],
+            'grad_err_all': err_all}
+
+
+class TimedLines:
+    """Within the block, stdout's lines are echoed and kept with the host
+    time they were written at."""
+
+    def __init__(self):
+        self.lines = []
+
+    def write(self, s):
+        self.out.write(s)
+        for line in s.splitlines():
+            if line.strip():
+                self.lines.append((time.perf_counter(), line))
+
+    def flush(self):
+        self.out.flush()
+
+    def __enter__(self):
+        self.out, sys.stdout = sys.stdout, self
+        return self
+
+    def __exit__(self, *exc):
+        sys.stdout = self.out
+
+
+def kd_cli(setup, root, dev, card):
+    """(d) ``python -m yolo_tpu_torch.train --t_cfg ... --KDstr 5`` (its
+    ``main``) on the files, the student distilled from its parent: K1
+    once per eval batch, finite results, images/s from its batch lines,
+    ``last.npz`` reloads and serves. (With the dense teacher of (b) the
+    KD5 term's box L2 on random heads is large, and the burn-in's bias lr
+    of 0.1 took the student to NaN in the second epoch, on the card.)"""
+    from yolo_tpu_torch import runtime
+    from yolo_tpu_torch.ops.nms_suppress import suppress
+    from yolo_tpu_torch.train.__main__ import main
+    work = os.path.join(root, 'kd')
+    os.makedirs(work)
+    os.chdir(work)
+    argv = ['--cfg', setup['s_cfg'], '--weights', setup['s_w'], '--data',
+            setup['data'], '--t_cfg', CFG, '--t_weights', setup['parent'],
+            '--KDstr', '5', '--epochs', str(KD_EPOCHS), '--batch-size',
+            str(BS), '--img-size', str(SIZE), str(SIZE), str(SIZE),
+            '--max-targets', str(4 * setup['per_image'] * BS),
+            '--device', str(dev)]
+    torch.cuda.synchronize()
+    suppress.launches = 0
+    t0 = time.perf_counter()
+    with TimedLines() as tl:
+        main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = suppress.launches
+    n_eval = KD_EPOCHS * KD_IMAGES // max(BS // 4, 1)
+    rows = np.loadtxt('results.txt', ndmin=2)
+    check(k1 == n_eval and rows.shape == (KD_EPOCHS, 12)
+          and np.isfinite(rows).all(),
+          f'(d) the KD5 CLI: exit 0 after {wall:.1f} s, K1 {k1} times for '
+          f'{n_eval} eval batches, results.txt {rows.shape[0]} finite rows '
+          f'(train loss {rows[0, 4]:.4f} -> {rows[-1, 4]:.4f})')
+    steps = [t for t, m in tl.lines
+             if m.lstrip().startswith('epoch ') and ' batch ' in m]
+    nb = KD_IMAGES // BS
+    rates = [(nb - 1) * BS / (steps[e * nb + nb - 1] - steps[e * nb])
+             for e in range(KD_EPOCHS)]
+    print(f'  (d) the KD loop: {", ".join(f"{r:.1f}" for r in rates)} '
+          f'images/s by epoch (batches 0 to {nb - 1}), set-up to the first '
+          f'batch {steps[0] - t0:.2f} s ({card})')
+    b = runtime.load_model(setup['s_cfg'], os.path.join(work, 'weights',
+                                                        'last.npz'),
+                           device=dev)
+    dets = b.fuse().make_infer(conf_thres=CONF_THRES)(runtime.preprocess(
+        images(72, BS, SIZE), device=dev))
+    check(bool(torch.isfinite(dets).all()),
+          f'(d) last.npz reloads and serves: {int((dets[..., 4] > 0).sum())}'
+          ' detections over a batch')
+    return {'s': wall, 'images_per_s': rates, 'setup_s': steps[0] - t0,
+            'nms_suppress': k1}
+
+
+def evolve_cli(setup, root, dev):
+    """(e) ``--evolve`` twice, 1 epoch on 16 of the files: evolve.txt holds
+    2 rows of 7 results + 18 hyps, and no checkpoint."""
+    from yolo_tpu_torch.ops.nms_suppress import suppress
+    from yolo_tpu_torch.train.__main__ import main
+    work = os.path.join(root, 'evolve')
+    os.makedirs(work)
+    os.chdir(work)
+    paths = open(setup['lst']).read().split()[:EVOLVE_IMAGES]
+    with open('list.txt', 'w') as f:
+        f.write('\n'.join(paths) + '\n')
+    with open('set.data', 'w') as f:
+        f.write(f'classes=80\ntrain={work}/list.txt\nvalid={work}/list.txt\n'
+                f'names={ROOT}/data_cfg/coco.names\n')
+    t0 = time.perf_counter()
+    suppress.launches = 0
+    for _ in range(2):
+        main(['--cfg', setup['s_cfg'], '--weights', setup['s_w'], '--data',
+              'set.data', '--epochs', '1', '--batch-size', str(BS),
+              '--img-size', str(SIZE), str(SIZE), str(SIZE), '--max-targets',
+              str(4 * setup['per_image'] * BS), '--evolve', '--device',
+              str(dev)])
+    rows = np.loadtxt('evolve.txt', ndmin=2)
+    k1 = suppress.launches
+    check(rows.shape[0] == 2 and rows.shape[1] >= 25
+          and not os.path.exists('weights/best.npz')
+          and not os.path.exists('weights/last.npz')
+          and k1 == 2 * EVOLVE_IMAGES // max(BS // 4, 1),
+          f'(e) --evolve twice in {time.perf_counter() - t0:.1f} s: '
+          f'evolve.txt {rows.shape[0]} rows of {rows.shape[1]} columns, no '
+          f'checkpoint; K1 {k1} times in the final evaluates')
+    return {'s': time.perf_counter() - t0, 'nms_suppress': k1}
+
+
+def fpga_export(setup, root, dev, card):
+    """(f) A google-quantized yolov3 @608 calibrated as phase 6 does,
+    through ``convert_fpga`` (its six binaries against the CPU's export of
+    the same files) and ``detect --quantizer_output --reorder --layer_idx
+    L`` on one JPEG for each of ``FPGA_LAYERS`` (K2 and K1 counted; the
+    layer's dumps against the CPU sim's)."""
+    from yolo_tpu_torch import convert_fpga, detect, runtime
+    from yolo_tpu_torch.compress import fpga_export as FE
+    from yolo_tpu_torch.convert import qstate_to_jax, to_jax
+    from yolo_tpu_torch.data.datasets import LoadImages
+    from yolo_tpu_torch.ops.conv_int8 import fused_conv_int8
+    from yolo_tpu_torch.ops.nms_suppress import suppress
+    from yolo_tpu_torch.utils.checkpoint import save_checkpoint
+    out = {'conv_int8': 0, 'nms_suppress': 0}
+    qb, _ = int8_bundle(dev, BS, SIZE)
+    q = os.path.join(root, 'q.npz')
+    p, s = to_jax(qb.net, qb.params, qb.state)
+    save_checkpoint(q, params=p, state=s)
+    save_checkpoint(q.replace('.npz', '_qstate.npz'),
+                    params=qstate_to_jax(qb.qstate), state={})
+    n_conv = sum(l.kind == 'conv' for l in qb.net.layers)
+    n_w = sum(l.size * l.size * l.in_channels * l.filters
+              for l in qb.net.layers if l.kind == 'conv')
+    n_b = sum(l.filters for l in qb.net.layers if l.kind == 'conv')
+    n_sc = sum(l.kind == 'shortcut' for l in qb.net.layers)
+    del qb
+    t0 = time.perf_counter()
+    convert_fpga.main(['--cfg', CFG, '--weights', q, '--quantized', '1',
+                       '--out', os.path.join(root, 'fpga'), '--device',
+                       str(dev)])
+    t_cli = time.perf_counter() - t0
+    cpu_b = runtime.load_model(CFG, q, device='cpu', quantized=1)
+    t0 = time.perf_counter()
+    FE.export_fpga_weights(cpu_b, os.path.join(root, 'fpga_cpu'))
+    t_cpu = time.perf_counter() - t0
+    sizes = {'weights.bin': n_w, 'biases.bin': n_b, 'w_scale.bin': 4 * n_conv,
+             'b_scale.bin': 4 * n_conv, 'a_scale.bin': 4 * (n_conv + 1),
+             's_scale.bin': 4 * n_sc}
+    same = all(open(os.path.join(root, 'fpga', f), 'rb').read()
+               == open(os.path.join(root, 'fpga_cpu', f), 'rb').read()
+               for f in sizes)
+    got = {f: os.path.getsize(os.path.join(root, 'fpga', f)) for f in sizes}
+    check(got == sizes and same,
+          f'(f) convert_fpga --quantized 1: {t_cli:.1f} s; {got} bytes, '
+          f'equal to export_fpga_weights of the files loaded on the CPU '
+          f'({t_cpu:.1f} s)')
+    out['convert_s'] = t_cli
+
+    jpeg = open(setup['lst']).read().split()[0]
+    img = next(iter(LoadImages(jpeg, img_size=SIZE)))[1]
+    x_u8 = np.ascontiguousarray(img.transpose(1, 2, 0))[None]
+    memo = {}
+
+    def once(label, fn):
+        def call(bundle, x):
+            if 'acts' not in memo:
+                t = time.perf_counter()
+                memo['acts'] = fn(bundle, x)
+                memo['s'] = time.perf_counter() - t
+            return memo['acts']
+        return call
+    with patched({'acts': (FE, 'collect_activations')}, once):
+        for L in FPGA_LAYERS:
+            FE.dump_quantizer_output(
+                cpu_b, runtime.preprocess(x_u8, device='cpu'),
+                os.path.join(root, f'cpu_{L}'), reorder=True, layer_idx=L)
+    print(f'  (f) the CPU sim (bf16) traced one image in {memo["s"]:.1f} s')
+    out['layers'] = {}
+    for L in FPGA_LAYERS:
+        work = os.path.join(root, f'dump_{L}')
+        os.makedirs(work)
+        os.chdir(work)
+        torch.cuda.synchronize()
+        suppress.launches = fused_conv_int8.launches = 0
+        t0 = time.perf_counter()
+        detect.main(['--cfg', CFG, '--data', setup['data'], '--weights', q,
+                     '--quantized', '1', '--source', jpeg, '--img-size',
+                     str(SIZE), '--quantizer_output', '--reorder',
+                     '--layer_idx', str(L), '--device', str(dev)])
+        torch.cuda.synchronize()
+        t_det = time.perf_counter() - t0
+        la = {'conv_int8': fused_conv_int8.launches,
+              'nms_suppress': suppress.launches}
+        name = f'{L:04d}_conv'
+        card_dir = os.path.join(work, 'quantizer_output')
+        cpu_dir = os.path.join(root, f'cpu_{L}')
+        files = sorted(os.path.relpath(os.path.join(d, f), card_dir)
+                       for d, _, fs in os.walk(card_dir) for f in fs)
+        w_same = all(open(os.path.join(card_dir, f), 'rb').read()
+                     == open(os.path.join(cpu_dir, f), 'rb').read()
+                     for f in files if not f.startswith(('q_activation',
+                                                         'max_activation')))
+        # the q activations: the int8 stream where its TN tiles hold every
+        # channel (it reads fast), else the text
+        lyr = cpu_b.net.layers[L]
+        if lyr.activation != 'linear' and lyr.filters % 32 == 0:
+            rel, kw_ = (f'q_activation_reorder/{name}_activation_q_bin',
+                        dict(dtype=np.int8))
+        else:
+            rel, kw_ = (f'q_activation_out/q_activation_{name}.txt',
+                        dict(sep=' '))
+        a = np.fromfile(os.path.join(card_dir, rel), **kw_).astype(np.int64)
+        b = np.fromfile(os.path.join(cpu_dir, rel), **kw_).astype(np.int64)
+        diff = np.abs(a - b)
+        share, worst = float((diff > 0).mean()), float(diff.max())
+        check(la == {'conv_int8': n_conv - 1, 'nms_suppress': 1}
+              and len(files) == 15 and w_same and a.size == b.size
+              and (L != 0 or share == 0),
+              f'(f) detect --quantizer_output --reorder --layer_idx {L}: '
+              f'{t_det:.1f} s, K2 {la["conv_int8"]} and K1 '
+              f'{la["nms_suppress"]} launches in its engine batch; {len(files)}'
+              f' files, the weight, bias and scale dumps equal to the CPU '
+              f'sim\'s; q_activation ({a.size} values) against the CPU sim: '
+              f'{share:.2%} differ, by at most {worst:.0f} quanta' +
+              (' (the stem must be equal)' if L == 0 else ''))
+        out['layers'][str(L)] = {'s': t_det, 'share': share, 'quanta': worst}
+        out['conv_int8'] += la['conv_int8']
+        out['nms_suppress'] += la['nms_suppress']
+    print(f'  (f) {card}')
+    return out
+
+
+def kmeans_anchors(setup, root):
+    """(g) ``kmean_anchors`` over the 64 files with seeded box labels
+    (``ANCHOR_LABELS`` an image, log-uniform sizes): the teacher's
+    pseudo-labels are clipped to the image, all of height 1, and k-means
+    divides by the spread of each side (zero there)."""
+    import contextlib
+    import io
+    from yolo_tpu_torch.utils.anchors import kmean_anchors
+    rng = np.random.default_rng(12)
+    d = os.path.join(root, 'anchors')
+    os.makedirs(os.path.join(d, 'labels'))
+    os.symlink(os.path.join(os.path.dirname(setup['lst']), 'images'),
+               os.path.join(d, 'images'))
+    paths = []
+    for p in open(setup['lst']).read().split():
+        p = os.path.join(d, 'images', os.path.basename(p))
+        n = ANCHOR_LABELS
+        wh = np.exp(rng.uniform(np.log(0.02), np.log(0.8), (n, 2)))
+        lab = np.column_stack([rng.integers(0, 80, n),
+                               rng.uniform(0.3, 0.7, (n, 2)), wh])
+        np.savetxt(p.replace('images', 'labels').replace('.jpg', '.txt'),
+                   lab, fmt='%d %.6f %.6f %.6f %.6f')
+        paths.append(p)
+    lst = os.path.join(d, 'list.txt')
+    with open(lst, 'w') as f:
+        f.write('\n'.join(paths) + '\n')
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        k = kmean_anchors(lst, n=9, img_size=(SIZE, SIZE),
+                          rng=np.random.default_rng(0))
+    t = time.perf_counter() - t0
+    check(k.shape == (9, 2) and np.isfinite(k).all()
+          and (np.diff(k.prod(1)) >= 0).all(),
+          f'(g) kmean_anchors over {len(paths)} files, {ANCHOR_LABELS} '
+          f'labels each (n 9, img_size ({SIZE}, {SIZE}), default_rng(0)) in '
+          f'{t:.2f} s: '
+          + ' | '.join(buf.getvalue().strip().splitlines()))
+    return {'s': t, 'anchors': k.tolist()}
+
+
+def kd_child(root, dev):
+    """Phase 12 in a process of its own (the JPEG files and the file
+    loader need OpenCV). Writes its numbers to ``root/phase12.json``."""
+    card = device_setup()
+    t_phase = time.perf_counter()
+    out = {'seconds': {}}
+    t0 = time.perf_counter()
+    setup = kd_setup(root, dev)
+    out['seconds']['a'] = time.perf_counter() - t0
+    for name, fn in (('b', lambda: kd_steps(setup, dev, card)),
+                     ('c', lambda: kd_card_vs_cpu(setup, dev)),
+                     ('d', lambda: kd_cli(setup, root, dev, card)),
+                     ('e', lambda: evolve_cli(setup, root, dev)),
+                     ('f', lambda: fpga_export(setup, root, dev, card)),
+                     ('g', lambda: kmeans_anchors(setup, root))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        out['seconds'][name] = time.perf_counter() - t0
+        print(f'  ({name}) {out["seconds"][name]:.1f} s')
+    out['nms_suppress'] = (out['d']['nms_suppress']
+                           + out['e']['nms_suppress']
+                           + out['f']['nms_suppress'])
+    out['conv_int8'] = out['f']['conv_int8']
+    out['seconds']['all'] = time.perf_counter() - t_phase
+    print(f'  phase 12 (child): {out["seconds"]["all"]:.1f} s')
+    with open(os.path.join(root, 'phase12.json'), 'w') as f:
+        json.dump(out, f)
+
+
+def phase_kd():
+    """Phase 12 in a child process; returns its numbers."""
+    print(f'[12/12] distillation, evolve, the FPGA export and anchors: '
+          f'yolov3 @{SIZE} and its pruned student (a child process)')
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        sys.stdout.flush()
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            '--phase12', root], timeout=900)
+        if r.returncode != 0:
+            raise SmokeFailure(f'phase 12 (child) exited {r.returncode}')
+        with open(os.path.join(root, 'phase12.json')) as f:
+            out = json.load(f)
+    print(f'  phase 12: {time.perf_counter() - t0:.1f} s')
     return out
 
 
@@ -3244,6 +3857,7 @@ def main():
     prune = phase_prune()
     train = phase_train(dev, card, qb)
     quant = phase_quant()
+    kd = phase_kd()
     check_imports()
     print(f'build {build_s:.2f} s; whole run {time.perf_counter() - t0:.1f} s')
     print(card)
@@ -3257,19 +3871,22 @@ def main():
                       + prune['nms_suppress']
                       + train['loop']['nms_suppress']
                       + train['snap']['nms_suppress']
-                      + quant['nms_suppress']), **k1,
+                      + quant['nms_suppress'] + kd['nms_suppress']), **k1,
          'launches_phase9': prune['nms_suppress'],
          'launches_phase10': (train['loop']['nms_suppress']
                               + train['snap']['nms_suppress']),
          'launches_phase11': quant['nms_suppress'],
+         'launches_phase12': kd['nms_suppress'],
          'main_path_ms': k1_main['ms'],
          'main_path_device_ms': k1_main['device_ms']},
         {'name': 'conv_int8', 'route': 'cuda',
          'source': 'yolo_tpu_torch/csrc/conv_int8.cu',
          'replaces': 'yolo_tpu/ops/pallas_conv.py:132',
          'launches': (launches['conv_int8'] + eval_launches['conv_int8']
-                      + new_launches['conv_int8'] + quant['conv_int8']),
+                      + new_launches['conv_int8'] + quant['conv_int8']
+                      + kd['conv_int8']),
          'launches_phase11': quant['conv_int8'],
+         'launches_phase12': kd['conv_int8'],
          'max_abs_err': k2_err,
          'ms': k2_tot['ms'], 'device_ms': k2_tot['dev'],
          'plain_ms': k2_tot['plain'], 'bound_ms': k2_tot['bound'],
@@ -3292,8 +3909,8 @@ def main():
 
 
 def main_child(child, root):
-    """The child process of phase 9 or 10 (``chip_smoke.py --phase9 DIR``,
-    ``--phase10 DIR``)."""
+    """The child process of phase 9, 10, 11 or 12 (``chip_smoke.py
+    --phase9 DIR`` and so on)."""
     dev = torch.device('cuda', 0)
     torch.cuda.set_device(dev)
     sys.path.insert(0, ROOT)
@@ -3308,6 +3925,8 @@ if __name__ == '__main__':
             main_child(train_child, sys.argv[2])
         elif sys.argv[1:2] == ['--phase11']:
             main_child(quant_child, sys.argv[2])
+        elif sys.argv[1:2] == ['--phase12']:
+            main_child(kd_child, sys.argv[2])
         else:
             main()
     except SmokeFailure as e:

@@ -199,7 +199,8 @@ def test_unported_paths_raise(toy_cfg, toy_checkpoint, tmp_path):
 
 def test_port_never_imports_jax_or_cv2():
     """Importing every module of the port (the evaluation, training and
-    quantization paths' included: ``compress/quant_legacy`` and ``ptq``)
+    quantization paths' included: ``compress/quant_legacy`` and ``ptq``;
+    KD, evolve, the FPGA export and its CLI, and the anchors)
     loads neither jax, nor OpenCV or PIL (imported inside functions only),
     nor any module of the JAX package."""
     code = ('import pkgutil, importlib, sys, yolo_tpu_torch; '
@@ -214,7 +215,8 @@ def test_port_never_imports_jax_or_cv2():
             "'compress.prune_cli', 'prune', 'info', 'utils.profiling', "
             "'train.optim', 'train.schedules', 'train.ema', "
             "'train.trainer', 'train.loop', 'train.__main__', "
-            "'compress.quant_legacy', 'ptq')}; "
+            "'compress.quant_legacy', 'ptq', 'train.kd', 'train.evolve', "
+            "'compress.fpga_export', 'convert_fpga', 'utils.anchors')}; "
             "assert need <= set(mods), need - set(mods); "
             "assert 'PIL' not in sys.modules; "
             "bad = [m for m in sys.modules if m in ('jax', 'cv2') "

@@ -209,7 +209,7 @@ def test_cli_runs_on_cpu(train_set, tmp_path):
 
 
 @pytest.mark.parametrize('argv', [
-    ['--evolve'], ['--t_cfg', 'x.cfg'],
+    ['--evolve', '--bucket', 'gs://b'],
     ['--device-aug'], ['--tp', '2'], ['--remat', 'blocks'],
     ['--bucket', 'gs://b'], ['--coordinator', 'localhost:1234']],
     ids=lambda a: a[0].lstrip('-'))

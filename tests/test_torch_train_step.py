@@ -460,13 +460,16 @@ def test_ema_matches_jax():
 
 
 def test_trainer_raises_on_unported_paths(toy_cfg):
+    """The remat policies raise; the KD term, which the first training
+    slice refused, builds (tests/test_torch_kd.py holds it to JAX)."""
     from yolo_tpu_torch.ir import build_ir
     from yolo_tpu_torch.train.loss import LossHyp
     from yolo_tpu_torch.train.trainer import make_train_functions
     net = build_ir(toy_cfg)
-    for kw in (dict(kd_loss_fn=lambda *a: 0), dict(remat='blocks')):
+    for remat in ('blocks', 'full', True):
         with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-            make_train_functions(net, [], 2, LossHyp(), **kw)
+            make_train_functions(net, [], 2, LossHyp(), remat=remat)
+    make_train_functions(net, [], 2, LossHyp(), kd_loss_fn=lambda *a: 0)
 
 
 # ------------------------------------------------------------ on the card

@@ -563,13 +563,17 @@ def _fusion_weights(lyr, params, dtype):
 def make_quant_apply(net: NetworkIR, cfg: QuantConfig, compute_dtype=None,
                      warmup: bool = False, head_layout: str = 'anchor_major',
                      heads_only: bool = False, bn_frozen: bool = False,
-                     eval_snap_dtype=None):
+                     eval_snap_dtype=None, capture_trace: bool = False):
     """Build the fake-quant apply of ``cfg.scheme`` on NHWC inputs:
 
     apply(params, state, qstate, x, train=False) ->
       train: ((yolo_p, feats), new_state, new_qstate)
       eval:  (io, yolo_p, feats), or (head_out, [None] * n) with
              ``heads_only``
+
+    ``capture_trace`` appends ``{str(layer index): output}`` of every layer
+    to the return, in both modes (the per-layer dump of
+    ``compress/fpga_export.py``); not with ``heads_only``.
 
     conv and depthwise conv -> BN-fold quantized conv with a quantized
     activation; shortcut -> requantized add (min or max way) and multi-route
@@ -595,6 +599,7 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig, compute_dtype=None,
     conv whose params hold ``qw``/``qb`` (``prepare_eval_params``) uses
     them in eval. ``apply.make_heads_only()`` builds the heads-only twin of
     an apply."""
+    assert not (heads_only and capture_trace)
     check_supported(net, cfg.scheme)
     from . import quant_legacy as QL
     layers = net.layers
@@ -737,6 +742,7 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig, compute_dtype=None,
 
     def apply(params, state, qstate, x, train: bool = False):
         outs: dict[int, Any] = {}
+        trace: dict[str, Any] = {}
         yolo_p, head_out, feats = [], [], []
         new_state = dict(state)
         new_q = {k: dict(v) for k, v in qstate.items()}
@@ -804,15 +810,19 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig, compute_dtype=None,
                 outs[lyr.index] = prev
             if lyr.feature_out:
                 feats.append(prev)
+            if capture_trace:
+                trace[k] = prev
 
         if train:
-            return (yolo_p, feats), new_state, new_q
-        if heads_only:
+            out = (yolo_p, feats), new_state, new_q
+        elif heads_only:
             return head_out, [None] * len(head_out)
-        anchors = anchors_on(yolos, anchor_cache, head_out[0].device)
-        io = torch.cat([decode_yolo_nhwc(h, a, l.yolo_stride, l.no)
-                        for h, a, l in zip(head_out, anchors, yolos)], 1)
-        return io, yolo_p, feats
+        else:
+            anchors = anchors_on(yolos, anchor_cache, head_out[0].device)
+            io = torch.cat([decode_yolo_nhwc(h, a, l.yolo_stride, l.no)
+                            for h, a, l in zip(head_out, anchors, yolos)], 1)
+            out = io, yolo_p, feats
+        return (*out, trace) if capture_trace else out
 
     apply.qcfg = cfg
     apply.head_layout = head_layout
@@ -832,3 +842,32 @@ def quantize_input_16bit(x):
     """Fixed Q14 input quantization for 16-bit activations."""
     x = x * (1 << 14)
     return round_half_away(x) / (1 << 14)
+
+
+def bn_fuse_weights(net: NetworkIR, params, state):
+    """The export-time BN fold of every conv: {layer index: (w_fold, bias)}
+    as numpy f32, w_fold in the JAX package's HWIO layout (the FPGA
+    exporter's input, ``compress/fpga_export.py``), computed as JAX's
+    numpy fold computes it."""
+    import numpy as np
+
+    def host(f, t):
+        a = t.detach().to('cpu', torch.float32).numpy()
+        return a.transpose(2, 3, 1, 0) if f == 'w' and a.ndim == 4 else a
+
+    out = {}
+    for lyr in net.layers:
+        if lyr.kind not in ('conv', 'depthwise'):
+            continue
+        k = str(lyr.index)
+        p = {f: host(f, v) for f, v in params[k].items()}
+        if lyr.bn:
+            st = {f: host(f, v) for f, v in state[k].items()}
+            inv = p['gamma'] / np.sqrt(st['var'] + BN_EPS)
+            w = p['w'] * inv[None, None, None, :]
+            b = (p['beta'] + (p.get('b', 0) - st['mean']) * inv
+                 if 'b' in p else p['beta'] - st['mean'] * inv)
+        else:
+            w, b = p['w'], p.get('b', np.zeros(lyr.filters, np.float32))
+        out[lyr.index] = (w, b)
+    return out

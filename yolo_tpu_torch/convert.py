@@ -1,4 +1,17 @@
-"""Move weights between the JAX package's pytrees and the port's tensors.
+"""Move weights between the JAX package's pytrees and the port's tensors,
+and the weight-format CLI, ``python -m yolo_tpu_torch.convert``
+(counterpart of the root ``convert.py``, which belongs to the JAX
+package):
+
+    python -m yolo_tpu_torch.convert --cfg cfg/yolov3/yolov3.cfg \
+        --weights weights/last.npz [--output weights/last.weights]
+
+converts by extension: a .npz checkpoint to darknet .weights (or to the
+``--output`` given: .npz, .weights, or a reference .pt), .weights and
+reference .pt files to .npz. A training checkpoint exports its EMA pair,
+the deployable weights. Conversion runs on the host; ``--device``,
+``--img_size`` and ``--gray-scale`` are accepted as the root CLI accepts
+them.
 
 Both sides are ``{layer_index_str: {field: array}}`` dicts for params and
 for BN state. Conv weights are HWIO in JAX and OIHW here (for a grouped
@@ -111,3 +124,79 @@ def opt_state_to_jax(net: NetworkIR, opt_state):
         out[name] = (np.asarray(int(tree), np.int32) if name == 'step'
                      else to_jax(net, tree, {})[0])
     return out
+
+
+def main(argv=None):
+    from .ir import build_ir
+    from .models.darknet_io import load_darknet_weights, save_darknet_weights
+    from .models.network import init_params
+    from .models.torch_import import (load_torch_checkpoint,
+                                      save_torch_checkpoint)
+    from .utils.checkpoint import load_checkpoint, save_checkpoint
+    from .utils.cli import FlexParser
+
+    p = FlexParser()
+    p.add_argument('--cfg', type=str, default='cfg/yolov3/yolov3.cfg')
+    p.add_argument('--weights', type=str, required=True,
+                   help='.npz -> .weights or .weights -> .npz by extension')
+    p.add_argument('--output', type=str, default='',
+                   help='target path (default: source path with the '
+                        'extension swapped)')
+    p.add_argument('--img_size', '--img-size', dest='img_size', type=int,
+                   default=416, help='accepted for CLI compat; weight '
+                                     'conversion is size-independent')
+    p.add_argument('--gray-scale', '--gray_scale', dest='gray_scale',
+                   action='store_true',
+                   help='accepted for CLI compat; channel count comes from '
+                        'the cfg')
+    p.add_argument('--device', type=str, default='cuda',
+                   help='accepted for CLI compat; conversion runs on the '
+                        'host')
+    opt = p.parse_args(argv)
+
+    net = build_ir(opt.cfg)
+    params, state = init_params(net)
+    stem = opt.weights.rsplit('.', 1)[0]
+
+    def write(target, params, state, meta=None):
+        meta = meta or {}
+        if target.endswith('.npz'):
+            p_, s_ = to_jax(net, params, state)
+            save_checkpoint(target, params=p_, state=s_,
+                            epoch=meta.get('epoch', -1))
+        elif target.endswith('.weights'):
+            save_darknet_weights(net, params, state, target)
+        elif target.endswith(('.pt', '.pth')):
+            save_torch_checkpoint(net, params, state, target,
+                                  epoch=meta.get('epoch', -1),
+                                  best_fitness=meta.get('best_fitness', 0.0))
+        else:
+            raise SystemExit(f'Error: unsupported target extension {target}')
+        print(f"Success: converted '{opt.weights}' to '{target}'")
+        return target
+
+    if opt.weights.endswith('.npz'):
+        ck = load_checkpoint(opt.weights)
+        # the EMA pair when the checkpoint holds one: the reference's
+        # checkpoint 'model' is the EMA state_dict, the weights whose mAP
+        # the run reported
+        if ck.get('ema') is not None and ck.get('ema_state') is not None:
+            src = from_jax(net, ck['ema'], ck['ema_state'])
+        else:
+            src = from_jax(net, ck['params'], ck['state'])
+        return write(opt.output or stem + '.weights', *src,
+                     {'epoch': int(ck.get('epoch', -1))})
+    if opt.weights.endswith('.weights'):
+        params, state, _, _ = load_darknet_weights(net, params, state,
+                                                   opt.weights)
+        return write(opt.output or stem + '.npz', params, state)
+    if opt.weights.endswith(('.pt', '.pth')):
+        params, state, _, meta = load_torch_checkpoint(net, params, state,
+                                                        opt.weights)
+        return write(opt.output or stem + '.npz', params, state, meta)
+    print('Error: extension not supported.')
+    return None
+
+
+if __name__ == '__main__':
+    main()

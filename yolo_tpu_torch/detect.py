@@ -17,6 +17,12 @@ of the JAX package, a .pt of the PyTorch reference or darknet .weights.
 quantized checkpoint (its ``qstate`` key or a sibling ``_qstate.npz``): the
 true-int8 engine for google (1) and cos-PTQ (3), the fake-quant sim for
 the others. ``--augment`` runs test-time augmentation on a float model.
+``--quantizer_output`` (with ``--reorder``, ``--TM``, ``--TN`` and
+``--layer_idx``) dumps the FPGA cross-check artifacts of a quantized model
+into ``./quantizer_output`` once, on the first preprocessed image
+(``compress/fpga_export.py``): the per-layer integer weights, biases,
+shift exponents and activations, the input dumps under ``--maxabsscaler``
+and, for the whole net, the upsample layers' streams.
 Stream sources are not ported yet (see ROADMAP.md).
 """
 
@@ -68,6 +74,13 @@ def parse_args(argv=None):
     p.add_argument('--shortcut_way', type=int, default=1)
     p.add_argument('--augment', action='store_true',
                    help='test-time augmentation (float models)')
+    p.add_argument('--quantizer_output', action='store_true',
+                   help='dump per-layer FPGA cross-check artifacts')
+    p.add_argument('--reorder', action='store_true')
+    p.add_argument('--TM', type=int, default=32)
+    p.add_argument('--TN', type=int, default=32)
+    p.add_argument('--layer_idx', type=int, default=-1,
+                   help='restrict --quantizer_output dumps to one layer')
     return p.parse_args(argv)
 
 
@@ -102,6 +115,27 @@ def main(argv=None):
                          is_gray_scale=opt.gray_scale, rect=opt.rect)
     vid_writer = None
     bs = max(1, opt.batch_size)
+    dump_pending = bool(opt.quantizer_output)
+
+    def maybe_dump(x_u8):
+        """The FPGA dumps, once, on the first preprocessed image."""
+        nonlocal dump_pending
+        if not dump_pending:
+            return
+        dump_pending = False
+        if not bundle.quantized:
+            print('--quantizer_output ignored: model is not quantized')
+            return
+        from .compress.fpga_export import (dump_input_artifacts,
+                                           dump_quantizer_output,
+                                           upsample_activation_dumps)
+        xin = preprocess(x_u8[:1], opt.maxabsscaler, device=device)
+        dump_quantizer_output(bundle, x=xin, reorder=opt.reorder, TM=opt.TM,
+                              TN=opt.TN, layer_idx=opt.layer_idx)
+        if opt.maxabsscaler:
+            dump_input_artifacts(x_u8[0], bundle.qcfg.a_bits)
+        if opt.layer_idx == -1:
+            upsample_activation_dumps(bundle.net, TN=opt.TN)
 
     def handle(path, shape_hw, det, im0, vid_cap, dt):
         nonlocal vid_writer
@@ -135,6 +169,7 @@ def main(argv=None):
                       for b in buf])
         if len(buf) < bs:
             x = np.concatenate([x, np.repeat(x[-1:], bs - len(buf), axis=0)])
+        maybe_dump(x)
         t0 = time.time()
         dets = to_host_detections(
             infer(preprocess(x, opt.maxabsscaler, device=device)))

@@ -7,6 +7,9 @@
     python -m yolo_tpu_torch.train --prune 0 --s 0.001 ...   # sparse training
     python -m yolo_tpu_torch.train --resume ...   # from weights/last.npz
     python -m yolo_tpu_torch.train --quantized 1 --weights float.npz ...  # QAT
+    python -m yolo_tpu_torch.train --t_cfg teacher.cfg \
+        --t_weights teacher.npz --KDstr 5 ...   # knowledge distillation
+    python -m yolo_tpu_torch.train --evolve ...   # one evolve generation
 
 The flags and their defaults are the JAX CLI's; ``--device`` (default
 ``cuda``; ``cpu`` when asked) picks the device, and the convs compute in
@@ -15,11 +18,15 @@ bf16. It writes ``results.txt``,
 directory. ``--quantized N`` (1 google, 2 TPSQ, 3 cos-PTQ, 4 DoReFa, 5
 binary, 6 ternary weights) trains the quantized model (QAT) with
 ``--a-bit``, ``--w-bit``, ``--shortcut_way``, ``--qat-dtype`` and
-``--no-qat-bn-fast``. Flags of slices not ported yet raise
-``NotImplementedError`` (see ROADMAP.md): ``--evolve``, ``--bucket``,
-``--t_cfg`` (KD), ``--device-aug``, ``--tp`` > 1, ``--remat`` other than
-``none`` and the multi-host ones (``--coordinator``, ``--num-hosts``,
-``--host-id``).
+``--no-qat-bn-fast``. ``--t_cfg``/``--t_weights`` distil from a teacher
+with strategy ``--KDstr`` 1-6 (KD5's mask ``--kd5-mask``). ``--evolve``
+runs one generation of hyper-parameter evolution: a hyp mutated from
+``evolve.txt`` (or the defaults), a run without evaluation until the last
+epoch and without checkpoints, its results appended to ``evolve.txt``.
+Flags of slices not ported yet raise ``NotImplementedError`` (see
+ROADMAP.md): ``--bucket``, ``--device-aug``, ``--tp`` > 1, ``--remat``
+other than ``none`` and the multi-host ones (``--coordinator``,
+``--num-hosts``, ``--host-id``).
 """
 
 from __future__ import annotations
@@ -91,7 +98,7 @@ def parse_args(argv=None):
                    default=-1)
     p.add_argument('--t_cfg', type=str, default='', help='teacher cfg (KD)')
     p.add_argument('--t_weights', type=str, default='')
-    p.add_argument('--KDstr', type=int, default=1, help='KD strategy 1-5')
+    p.add_argument('--KDstr', type=int, default=1, help='KD strategy 1-6')
     p.add_argument('--kd5-mask', '--kd5_mask', dest='kd5_mask', type=str,
                    default='diag', choices=['rect', 'diag'])
     p.add_argument('--notest', action='store_true')
@@ -111,16 +118,24 @@ def parse_args(argv=None):
 
 def main(argv=None):
     opt = parse_args(argv)
-    if opt.evolve:
-        raise unported('--evolve (hyper-parameter evolution)')
     if opt.coordinator or opt.num_hosts or opt.host_id >= 0:
         raise unported('multi-host training (--coordinator)')
+    if opt.bucket:
+        raise unported('the gsutil bucket upload (--bucket)')
     from .loop import TrainOptions, run_training
     img_size = opt.img_size
     img_size.extend([img_size[-1]] * (3 - len(img_size)))
     weights = opt.weights
     if opt.resume and not weights:
         weights = 'weights/last.npz'
+    hyp_override = None
+    if opt.evolve:
+        # one generation a call: mutate from evolve.txt (or the defaults),
+        # train without evaluation and checkpoints, append the result
+        from ..config import load_hyp
+        from .evolve import mutate_hyp
+        opt.notest, opt.nosave = True, True
+        hyp_override = mutate_hyp(load_hyp(None))
     topt = TrainOptions(
         cfg=opt.cfg, data=opt.data, weights=weights, epochs=opt.epochs,
         batch_size=opt.batch_size, img_size=tuple(img_size[:3]),
@@ -131,13 +146,19 @@ def main(argv=None):
         shortcut_way=opt.shortcut_way, qat_dtype=opt.qat_dtype,
         qat_bn_fast=opt.qat_bn_fast, maxabsscaler=opt.maxabsscaler,
         gray_scale=opt.gray_scale, pt=opt.pt, t_cfg=opt.t_cfg,
-        notest=opt.notest, nosave=opt.nosave, seed=opt.seed,
-        device_aug=opt.device_aug, cutout=opt.cutout, ud_flip=opt.ud_flip,
-        resume=opt.resume, max_targets=opt.max_targets, tp=opt.tp,
-        remat=opt.remat, bucket=opt.bucket,
+        t_weights=opt.t_weights, kd_strategy=opt.KDstr,
+        kd5_mask=opt.kd5_mask, notest=opt.notest, nosave=opt.nosave,
+        seed=opt.seed, device_aug=opt.device_aug, cutout=opt.cutout,
+        ud_flip=opt.ud_flip, resume=opt.resume, hyp_override=hyp_override,
+        max_targets=opt.max_targets, tp=opt.tp, remat=opt.remat,
+        bucket=opt.bucket,
         results_file=f'results{opt.name}.txt' if opt.name else 'results.txt',
         device=opt.device)
-    return run_training(topt)
+    results = run_training(topt)
+    if opt.evolve:
+        from .evolve import print_mutation
+        print_mutation(hyp_override, results)
+    return results
 
 
 if __name__ == '__main__':

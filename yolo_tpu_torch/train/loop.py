@@ -22,9 +22,15 @@ to the apply without the BN statistics conv (``make_bn_frozen``) unless
 ``qat_bn_fast`` is off. Each epoch evaluates the sim, and the checkpoints
 hold ``qstate``.
 
-Not ported (see ROADMAP.md): knowledge distillation, the device
-augmentations, the gsutil bucket upload, tensor parallelism and multi-host
-training; they raise ``NotImplementedError``.
+Knowledge distillation (``t_cfg``): the teacher loads from ``t_cfg`` and
+``t_weights`` in bf16 on the student's device, unfused, and
+``train/kd.make_kd_loss_fn`` adds strategy ``kd_strategy``'s term to every
+step (KD5 with ``kd5_mask``). The heads stay NHWC except for KD6, which
+needs them anchor-major; KD combines with QAT.
+
+Not ported (see ROADMAP.md): the device augmentations, the gsutil bucket
+upload, tensor parallelism and multi-host training; they raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ from ..eval.evaluator import evaluate
 from ..eval.metrics import fitness
 from ..runtime import load_model, preprocess
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
+from .kd import make_kd_loss_fn
 from .loss import LossHyp
 from .schedules import burn_in_scalars
 from .trainer import init_train_state, make_train_functions
@@ -59,7 +66,7 @@ from .trainer import init_train_state, make_train_functions
 @dataclass
 class TrainOptions:
     """The training flags (the JAX package's ``TrainOptions``, less its
-    mesh and the settings of the unported KD path, plus ``device``)."""
+    mesh, plus ``device``)."""
     cfg: str = 'cfg/yolov3/yolov3.cfg'
     data: str = 'data_cfg/coco2014.data'
     weights: str = ''
@@ -82,6 +89,10 @@ class TrainOptions:
     gray_scale: bool = False
     pt: bool = False
     t_cfg: str = ''                          # teacher cfg (KD)
+    t_weights: str = ''
+    kd_strategy: int = 1
+    kd5_mask: str = 'diag'                   # 'diag' (the reference's
+                                             # diagonal footprint) or 'rect'
     notest: bool = False
     nosave: bool = False
     weights_dir: str = 'weights'
@@ -111,8 +122,6 @@ class TrainOptions:
 
 
 def _check_ported(opt: TrainOptions):
-    if opt.t_cfg:
-        raise unported('knowledge distillation (--t_cfg)')
     if opt.device_aug:
         raise unported('the device augmentations (--device-aug)')
     if opt.bucket:
@@ -220,8 +229,22 @@ def run_training(opt: TrainOptions):
     elif opt.prune == 2:
         sparse_layers = tuple(prunable_sets_layer(net)[2])
 
+    # the heads' layout for the loss and the KD gathers: NHWC (a free
+    # reshape of the head conv) but for KD6, whose rows group anchor-major
+    train_layout = ('anchor_major' if opt.t_cfg and opt.kd_strategy == 6
+                    else 'nhwc')
+    kd_fn = None
+    if opt.t_cfg:
+        # the teacher: bf16, unfused, its BN on batch statistics in each
+        # step (kd.make_kd_loss_fn)
+        teacher = load_model(opt.t_cfg, opt.t_weights, device=device,
+                             dtype=torch.bfloat16).model()
+        kd_fn = make_kd_loss_fn(opt.kd_strategy, teacher, nc, anchor_vecs,
+                                img_size=img_size, strides=bundle.strides,
+                                kd5_mask=opt.kd5_mask, layout=train_layout)
+
     # QAT: the quant apply in train mode, bf16 MACs and bf16 eval snaps
-    # (qat_dtype 'bf16') or f32 all through, the NHWC head layout
+    # (qat_dtype 'bf16') or f32 all through
     quant_apply = None
     if quant:
         qat_bf16 = opt.qat_dtype != 'f32'
@@ -229,10 +252,10 @@ def run_training(opt: TrainOptions):
             net, bundle.qcfg,
             compute_dtype=torch.bfloat16 if qat_bf16 else None,
             eval_snap_dtype=torch.bfloat16 if qat_bf16 else None,
-            head_layout='nhwc')
+            head_layout=train_layout)
     use_adam = opt.adam or quant
     fn_kw = dict(sparsity_s=opt.sparsity if opt.prune != -1 else 0.0,
-                 sparse_gamma_layers=sparse_layers)
+                 sparse_gamma_layers=sparse_layers, kd_loss_fn=kd_fn)
     grad_fn, update_fn = make_train_functions(
         net, anchor_vecs, nc, loss_hyp, quant_apply=quant_apply, **fn_kw)
     # after bn_freeze_step the step without the BN statistics conv

@@ -2,7 +2,8 @@
 ``yolo_tpu/train/trainer.py``).
 
 ``grad_fn`` runs the train forward (``Darknet.forward_train``, BN on batch
-statistics), the loss in the NHWC head layout scaled by ``loss_scale``,
+statistics), the loss in the NHWC head layout (unless QAT or KD set
+another) scaled by ``loss_scale``,
 and ``backward``, which adds into the parameters' ``.grad`` (gradient
 accumulation, as JAX's ``grad_accum``); it adds the BN-gamma L1
 subgradient ``s*sign(gamma)`` of the sparse layers and writes the new BN
@@ -16,8 +17,13 @@ QAT: given a ``quant_apply`` (``compress/quant.make_quant_apply``),
 ``qstate``, in the apply's head layout; the new quantizer state replaces
 ``qstate`` without a gradient.
 
-Not ported (see ROADMAP.md): the KD loss term and the remat policies; they
-raise ``NotImplementedError``.
+KD: given a ``kd_loss_fn`` (``train/kd.make_kd_loss_fn``), the loss adds
+``kd_loss_fn(yolo_p, feats, targets, valid, imgs)`` (the teacher runs
+inside it); the heads take the quant apply's layout if there is one, else
+the KD function's.
+
+Not ported (see ROADMAP.md): the remat policies; they raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -121,16 +127,22 @@ def make_train_functions(net: NetworkIR, anchor_vecs, nc: int, hyp: LossHyp,
     training before pruning).
 
     ``quant_apply``: QAT; the forward is that apply in train mode (see the
-    module docstring), the loss in its ``head_layout``."""
-    if kd_loss_fn is not None:
-        raise unported('the KD loss term of the trainer')
+    module docstring), the loss in its ``head_layout``. ``kd_loss_fn``:
+    its term is added to the loss; with QAT both must use one layout."""
     if remat not in (False, None, 'none', ''):
         raise unported(f'remat={remat!r} (the remat policies)')
     anchors: dict = {}
     sparse_keys = tuple(str(i) for i in sparse_gamma_layers) \
         if sparsity_s > 0 else ()
-    layout = ('nhwc' if quant_apply is None
-              else getattr(quant_apply, 'head_layout', 'anchor_major'))
+    if quant_apply is not None:
+        layout = getattr(quant_apply, 'head_layout', 'anchor_major')
+    elif kd_loss_fn is not None:
+        layout = getattr(kd_loss_fn, 'layout', 'anchor_major')
+    else:
+        layout = 'nhwc'
+    if quant_apply is not None and kd_loss_fn is not None:
+        assert getattr(kd_loss_fn, 'layout', 'anchor_major') == layout, \
+            (getattr(kd_loss_fn, 'layout', None), layout)
 
     def grad_fn(state: TrainState, imgs, targets, valid, gr: float,
                 loss_scale: float):
@@ -140,13 +152,16 @@ def make_train_functions(net: NetworkIR, anchor_vecs, nc: int, hyp: LossHyp,
             anchors[dev] = [torch.as_tensor(a, dtype=torch.float32,
                                             device=dev) for a in anchor_vecs]
         if quant_apply is None:
-            (yolo_p, _), new_bn = model.forward_train(imgs, head_layout='nhwc')
+            (yolo_p, feats), new_bn = model.forward_train(imgs,
+                                                          head_layout=layout)
         else:
-            (yolo_p, _), new_bn, new_q = quant_apply(
+            (yolo_p, feats), new_bn, new_q = quant_apply(
                 state.params, state.bn_state, state.qstate, imgs, True)
             state.qstate = _tree_detach(new_q)
         loss, items = compute_loss(yolo_p, targets, valid, anchors[dev], nc,
                                    hyp, gr, layout=layout)
+        if kd_loss_fn is not None:
+            loss = loss + kd_loss_fn(yolo_p, feats, targets, valid, imgs)
         (loss * loss_scale).backward()
         if sparse_keys:
             gammas = [model.layer[k].gamma for k in sparse_keys
