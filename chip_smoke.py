@@ -236,6 +236,34 @@ Phases; any failure exits non-zero, and nothing runs on the CPU instead
    printed, the stem equal; (g) ``kmean_anchors`` over the files' labels
    (n 9, ``default_rng(0)``), the anchors, recall and seconds.
 
+13. the data path, in a child process (``chip_smoke.py --phase13 DIR``;
+   JPEG files, the loaders and the video need OpenCV), yolov3 @608 from
+   seed 0 (``CONV_SCALE``) and 64 seeded JPEG files labelled by it: (a)
+   the host library (``csrc/fastpre.cpp``) built by g++ (its seconds,
+   OpenMP's threads), ``BatchLoader`` taking the native path by default,
+   its batches equal to the cv2 path's at 608 (the eval letterbox of a
+   608² file is a copy), ``letterbox_batch`` against cv2's letterbox on
+   the files cut to 501-608 rows, to 416 (ratios, pads, pixels of median
+   difference <= 1 and > 95% within 2: the JAX package's tolerance),
+   ``evaluate`` at bs=8 from the files, native against
+   ``use_native=False`` in turns (images/s; K1 once a batch; the native
+   runs assembled every batch natively); (b) the device augmentation
+   (``data/device_aug.py``) at 608, bs=8, on the files' first batch, both
+   warp paths (phase 10's ``TRAIN_AFFINE``, and the same without rotation
+   and shear): the card against the CPU on the same draws (images and targets
+   within 1e-4, valid equal), draw and apply under
+   ``torch.cuda.set_sync_debug_mode('error')`` (no host sync), ms a batch
+   by ``cuda_ms``, a profile (kernels a batch), the share of mosaic boxes
+   kept; (c) ``python -m yolo_tpu_torch.train --device-aug`` (its
+   ``main``), one epoch of bs=8 on the files with its evaluate: the
+   augmentation on every batch, K1 once per eval batch (32), a finite
+   ``results.txt`` row, images/s from its batch lines, printed beside
+   phase 10 (c)'s host-augment loop; (d) ``python -m
+   yolo_tpu_torch.detect --source streams.txt --view-img --FPGA`` (its
+   ``main``) over two copies of a written MJPG video, the streams capped
+   at 4 frame steps: K1 once a step, the same detections in each stream,
+   a 4-frame video written for each.
+
 A kernel's time is taken twice, on the same inputs: ``cuda_ms``, what its
 caller waits for (median CUDA-event time, the host's work to queue the
 call included), and ``device_ms``, the device alone (a sleep kernel keeps
@@ -243,8 +271,9 @@ the card busy while the host queues the call). A pipeline's time is
 ``cuda_ms``.
 
 The line before the last is a JSON object with each kernel's launches on
-the main paths (phases 4, 6, 7, 8, 9, 10, 11 and 12; ``launches_phase9``
-to ``launches_phase12`` those of the later phases alone), error, times
+the main paths (phases 4, 6, 7, 8, 9, 10, 11, 12 and 13;
+``launches_phase9`` to ``launches_phase13`` those of the later phases
+alone), error, times
 and bound (``ms``, ``plain_ms`` and
 ``library_ms`` by ``cuda_ms``, ``device_ms`` beside them; for nms_suppress
 also its cluster and CTAs at k=512, bs=8, the wrapper's host time per call,
@@ -254,8 +283,8 @@ and its totals by class, phase 8's engine by route, and yolov4's
 ptq_cos engine's K2 calls summed and the TPSQ engine's count, phase 11);
 the line before it the card's name and power limit; the last line is the JSON device record. At the end the
 run checks that neither jax nor OpenCV nor any module of the JAX package
-``yolo_tpu`` was imported into this process (the children of phases 9,
-10, 11 and 12 load OpenCV).
+``yolo_tpu`` was imported into this process (the children of phases 9
+to 13 load OpenCV).
 """
 
 from __future__ import annotations
@@ -413,7 +442,7 @@ def device_setup():
 
 
 def phase_device():
-    print('[1/12] device')
+    print('[1/13] device')
     card = device_setup()
     print(f'  {torch.cuda.get_device_name(0)}; torch {torch.__version__}, '
           f'CUDA {torch.version.cuda}; TF32 off for matmul and cuDNN')
@@ -444,7 +473,7 @@ def conv_sass(lib_path):
 
 
 def phase_build():
-    print('[2/12] build')
+    print('[2/13] build')
     import re
     from yolo_tpu_torch import _build
     lib = _build.library_path()
@@ -535,7 +564,7 @@ def k1_compare(got, ref, what):
 
 
 def phase_kernel(dev):
-    print('[3/12] K1 nms_suppress vs plain version')
+    print('[3/13] K1 nms_suppress vs plain version')
     from yolo_tpu_torch.ops import nms_suppress as K1
     suppress, suppress_reference = K1.suppress, K1.suppress_reference
     rng = np.random.default_rng(0)
@@ -614,7 +643,7 @@ def phase_kernel(dev):
 
 
 def phase_pipeline(dev, card):
-    print('[4/12] yolov3 @608 float pipeline')
+    print('[4/13] yolov3 @608 float pipeline')
     from yolo_tpu_torch import runtime
     from yolo_tpu_torch.ops import nms
     from yolo_tpu_torch.ops.nms_suppress import suppress
@@ -831,7 +860,7 @@ def int_mm_ms(x8, w8, **timing):
 
 
 def phase_conv_kernel(dev):
-    print('[5/12] K2 conv_int8 vs plain version')
+    print('[5/13] K2 conv_int8 vs plain version')
     from yolo_tpu_torch.ops.conv_int8 import (fused_conv_int8,
                                               fused_conv_int8_reference)
     max_err = 0.0
@@ -1147,7 +1176,7 @@ def in_range(label, fn):
 
 
 def phase_int8(dev, card):
-    print('[6/12] yolov3 @608 int8 serving')
+    print('[6/13] yolov3 @608 int8 serving')
     from yolo_tpu_torch import runtime
     b, x = int8_bundle(dev, BS, SIZE)
     launches, plan, infer = int8_checks(b, x)
@@ -1344,7 +1373,7 @@ def phase_eval(dev, card, qb, cfg=CFG, n_images=EVAL_IMAGES):
     """The evaluation path: ``evaluate`` on float yolov3 (device and host
     matching), the f32 QAT sim and the int8 engine of phase 6's calibrated
     bundle ``qb``, each against pseudo-labels made by the model itself."""
-    print(f'[7/12] mAP evaluation: yolov3 @{SIZE}, {n_images} images, bs={BS}')
+    print(f'[7/13] mAP evaluation: yolov3 @{SIZE}, {n_images} images, bs={BS}')
     from yolo_tpu_torch import runtime
     from yolo_tpu_torch.compress.quant import make_quant_apply
     from yolo_tpu_torch.eval.evaluator import evaluate, int8_engine_apply
@@ -1710,7 +1739,7 @@ def phase_new_cfgs(dev, card):
     from yolo_tpu_torch import runtime
     from yolo_tpu_torch.models.torch_import import save_torch_checkpoint
     t0 = time.perf_counter()
-    print(f'[8/12] more cfgs: (a) yolov3-mobilenet @{MOBILE_SIZE}, (b) '
+    print(f'[8/13] more cfgs: (a) yolov3-mobilenet @{MOBILE_SIZE}, (b) '
           f'yolov3-asff @{SIZE}, (c) TTA yolov3 @{SIZE}, (d) mobilenet int8, '
           '(e) .pt')
     k1 = 0
@@ -2092,7 +2121,7 @@ def prune_child(root, dev):
 
 def phase_prune():
     """Phase 9 in a child process; returns its numbers."""
-    print(f'[9/12] pruning: yolov3 @{SIZE}, {PRUNE_IMAGES} JPEG files, '
+    print(f'[9/13] pruning: yolov3 @{SIZE}, {PRUNE_IMAGES} JPEG files, '
           f'bs={BS} (a child process)')
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as root:
@@ -2481,7 +2510,7 @@ def train_child(root, dev):
 def phase_train(dev, card, qb):
     """Phase 10: the train step on the card against the CPU, the step at
     full size, the loop from files in a child process, the eval snap."""
-    print(f'[10/12] float training: yolov3 @{SIZE}, bs={BS}')
+    print(f'[10/13] float training: yolov3 @{SIZE}, bs={BS}')
     from yolo_tpu_torch.ir import build_ir
     from yolo_tpu_torch.models.network import init_params
     t0 = time.perf_counter()
@@ -3244,7 +3273,7 @@ def quant_child(root, dev):
 
 def phase_quant():
     """Phase 11 in a child process; returns its numbers."""
-    print(f'[11/12] quantization: yolov4 @{SIZE} PTQ and its engine, QAT and '
+    print(f'[11/13] quantization: yolov4 @{SIZE} PTQ and its engine, QAT and '
           f'TPSQ on yolov3 @{SIZE}, the QAT loop')
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as root:
@@ -3818,7 +3847,7 @@ def kd_child(root, dev):
 
 def phase_kd():
     """Phase 12 in a child process; returns its numbers."""
-    print(f'[12/12] distillation, evolve, the FPGA export and anchors: '
+    print(f'[12/13] distillation, evolve, the FPGA export and anchors: '
           f'yolov3 @{SIZE} and its pruned student (a child process)')
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as root:
@@ -3833,10 +3862,390 @@ def phase_kd():
     return out
 
 
+# ------------------------------------------------------ phase 13: the data path
+
+DATA_IMAGES = 64              # (a), (c): 8 batches of BS, JPEG files on disk
+NATIVE_CHECK_SIZE = 416       # (a): the letterbox resizes 608 -> 416 there
+AUG_TOL = 1e-4                # (b): card against CPU, same draws
+STREAM_FRAMES = 4             # (d): frame steps of the capped streams
+STREAM_HW = (480, 640)        # (d): the written video's frames
+STREAM_CONF = 0.05            # (d): a few dozen boxes a frame
+
+
+def native_loader(root, dev, card, data, raw):
+    """(a) The host library: g++'s seconds and OpenMP's threads; the
+    native batches equal to the cv2 path's on the files at 608 (where the
+    eval letterbox is a copy); ``letterbox_batch`` against cv2's letterbox
+    where it resizes (the files cut to other heights, to 416: the JAX
+    package's tolerance); ``evaluate`` of yolov3 @608 from the files,
+    native against ``use_native=False`` in turns, K1 once a batch."""
+    from yolo_tpu_torch import _build, native
+    from yolo_tpu_torch.config import parse_data_cfg
+    from yolo_tpu_torch.data import datasets as D
+    t0 = time.perf_counter()
+    lib = _build.build_host()
+    build_s = time.perf_counter() - t0
+    check(native.available() and native.num_threads() >= 1,
+          f'(a) host library {os.path.basename(lib)} built by g++ '
+          f'{" ".join(_build.HOST_FLAGS)} in {build_s:.2f} s, OpenMP '
+          f'threads {native.num_threads()}')
+    valid = parse_data_cfg(data)['valid']
+    ds = D.DetectionDataset(valid, SIZE, BS, rect=True)
+    nat_loader = D.BatchLoader(ds, BS)
+    check(nat_loader.use_native, '(a) BatchLoader takes the native path by '
+          'default')
+    nat = list(nat_loader)
+    cv = list(D.BatchLoader(ds, BS, use_native=False))
+    same = all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+               and np.array_equal(a[2], b[2]) and a[3] == b[3]
+               for a, b in zip(nat, cv))
+    check(same and len(nat) == DATA_IMAGES // BS,
+          f'(a) native vs cv2 batches at {SIZE}: {len(nat)} batches equal '
+          f'(the eval letterbox of a {SIZE}² file is a copy)')
+    # where the letterbox resizes: each file cut to another height, then
+    # letterboxed to NATIVE_CHECK_SIZE by the library and by cv2
+    import cv2
+    from yolo_tpu_torch.data.transforms import letterbox
+    paths = open(valid).read().split()
+    cut = [cv2.imread(p)[:SIZE * (40 - j % 8) // 40]
+           for j, p in enumerate(paths)]
+    n = NATIVE_CHECK_SIZE
+    dst, ratios, pads = native.letterbox_batch(cut, n, n)
+    diffs, r_err, p_err = [], 0.0, 0.0
+    for j, im in enumerate(cut):
+        ref, (rw, _), (dw, dh) = letterbox(im, n, auto=False)
+        diffs.append(np.abs(dst[j].astype(int) - ref[..., ::-1]).ravel())
+        r_err = max(r_err, abs(float(ratios[j]) - rw))
+        p_err = max(p_err, abs(float(pads[j, 0]) - dw),
+                    abs(float(pads[j, 1]) - dh))
+    diff = np.concatenate(diffs)
+    check(r_err < 1e-6 and p_err < 0.51 and np.median(diff) <= 1
+          and (diff <= 2).mean() > 0.95,
+          f'(a) letterbox_batch vs cv2 on {len(cut)} files cut to '
+          f'{SIZE * 33 // 40}-{SIZE} rows, to {n}: ratios within '
+          f'{r_err:.1e}, '
+          f'pads within {p_err:.2f}, pixels median {np.median(diff):.0f}, '
+          f'{100 * (diff <= 2).mean():.3f}% within 2, '
+          f'{100 * (diff == 0).mean():.3f}% equal, max {diff.max()} (the '
+          f'JAX package\'s tolerance)')
+    counts = {'native': 0}
+
+    def counted(label, fn):
+        def call(*a, **k):
+            counts[label] += 1
+            return fn(*a, **k)
+        return call
+    runs = {'native': [], 'cv2': []}
+    k1 = 0
+    n_batches = DATA_IMAGES // BS
+    with patched({'native': (D.BatchLoader, '_assemble_native')}, counted):
+        for name in ('native', 'cv2', 'cv2', 'native'):
+            loader = (None if name == 'native' else D.BatchLoader(
+                D.DetectionDataset(valid, SIZE, BS, rect=True), BS,
+                use_native=False))
+            res, launches, wall = timed_eval(raw.net, raw.params, raw.state,
+                                             loader, dev, data=data)
+            check(launches['nms_suppress'] == n_batches,
+                  f'(a) evaluate ({name}): K1 launched '
+                  f'{launches["nms_suppress"]} times for {n_batches} batches, '
+                  f'mAP@0.5 {res[0][2]:.4f}')
+            k1 += launches['nms_suppress']
+            runs[name].append(DATA_IMAGES / wall)
+    check(counts['native'] == 2 * n_batches,
+          f'(a) the native evaluates assembled {counts["native"]} batches '
+          f'natively ({2 * n_batches} expected)')
+    rate = {k: statistics.median(v) for k, v in runs.items()}
+    print(f'  (a) evaluate yolov3 @{SIZE} bs={BS} from {DATA_IMAGES} JPEG '
+          f'files: native {rate["native"]:.1f} images/s (runs '
+          f'{", ".join(f"{r:.1f}" for r in runs["native"])}), cv2 '
+          f'{rate["cv2"]:.1f} (runs {", ".join(f"{r:.1f}" for r in runs["cv2"])}'
+          f'), in turns ({card})')
+    return {'build_s': build_s, 'threads': native.num_threads(),
+            'eval_native': runs['native'], 'eval_cv2': runs['cv2'],
+            'nms_suppress': k1}
+
+
+def device_aug_check(dev, card, data, per_image):
+    """(b) The device augmentation at 608, bs=8, on the files' first batch,
+    on both warp paths (phase 10's affine jitter, and that without
+    rotation and shear), card against CPU with the same draws: the
+    geometry (mosaic, warp, boxes, flips; the augmentation without its
+    HSV gains) within ``AUG_TOL``, and the HSV jitter on the card's warped
+    batch within ``AUG_TOL`` of the CPU's on the same batch. The whole
+    program's images are not held to the CPU's: the hue gain multiplies
+    the hue, which jumps from 1 to 0 at pure red (g == b), so a pixel
+    there whose warp rounds g - b to the other sign on the other device
+    takes another hue shift (up to the gain's 0.0138 of a turn); the share
+    of such pixels is printed. Draw and apply under
+    ``set_sync_debug_mode('error')`` (no host sync), ms a batch by CUDA
+    events, kernels a batch from the profiler, the share of boxes kept."""
+    import dataclasses
+    from yolo_tpu_torch.config import DEFAULT_HYP, parse_data_cfg
+    from yolo_tpu_torch.data import datasets as D
+    from yolo_tpu_torch.data.device_aug import hsv_jitter, make_device_augment
+    from yolo_tpu_torch.runtime import preprocess
+    ds = D.DetectionDataset(parse_data_cfg(data)['valid'], SIZE, BS)
+    imgs, tgt, valid, _, _ = next(iter(D.BatchLoader(
+        ds, BS, max_targets=4 * per_image * BS)))
+    x = preprocess(imgs, device=dev)
+    t, v = torch.from_numpy(tgt).to(dev), torch.from_numpy(valid).to(dev)
+    n_in = int(valid.sum())
+    out = {}
+    for name, hyp in (('affine', {**DEFAULT_HYP, **TRAIN_AFFINE}),
+                      ('scale_translate', {**DEFAULT_HYP, **TRAIN_AFFINE,
+                                           'degrees': 0.0, 'shear': 0.0})):
+        aug = make_device_augment(SIZE, hyp)
+        geo = dataclasses.replace(aug, hgain=0.0, sgain=0.0, vgain=0.0)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(100003)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            draws = aug.draw(BS, gen)
+            got = aug.apply(x, t, v, draws)
+            aug(x, t, v, gen)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        cpu_draws = {k: d.cpu() for k, d in draws.items()}
+        g_card = geo.apply(x, t, v, draws)
+        g_cpu = geo.apply(x.cpu(), t.cpu(), v.cpu(), cpu_draws)
+        gains = (aug.hgain, aug.sgain, aug.vgain)
+        h_card = hsv_jitter(g_card[0], draws['hsv'], *gains)
+        h_cpu = hsv_jitter(g_card[0].cpu(), cpu_draws['hsv'], *gains)
+        err_geo = float((g_card[0].cpu() - g_cpu[0]).abs().max())
+        err_hsv = float((h_card.cpu() - h_cpu).abs().max())
+        err_t = float((got[1].cpu() - g_cpu[1]).abs().max())
+        same_v = (torch.equal(got[2].cpu(), g_cpu[2])
+                  and torch.equal(g_card[2], got[2]))
+        composed = torch.equal(h_card, got[0])
+        whole = (got[0].cpu() - aug.apply(x.cpu(), t.cpu(), v.cpu(),
+                                          cpu_draws)[0]).abs()
+        kept = int(got[2].sum())
+        check(err_geo <= AUG_TOL and err_hsv <= AUG_TOL and err_t <= AUG_TOL
+              and same_v and composed,
+              f'(b) {name}: card vs CPU on the same draws: the geometry\'s '
+              f'images within {err_geo:.2e}, targets within {err_t:.2e}, '
+              f'valid equal; the HSV jitter of one batch within '
+              f'{err_hsv:.2e}, and the program is the two composed (bit-'
+              f'equal); the whole program\'s images '
+              f'{100 * float((whole > AUG_TOL).float().mean()):.4f}% '
+              f'beyond {AUG_TOL} (max {float(whole.max()):.2e}: the hue '
+              f'wrap); no host sync under set_sync_debug_mode("error"); '
+              f'{kept} of {4 * n_in} mosaic boxes kept '
+              f'({kept / (4 * n_in):.4f})')
+        ms = cuda_ms(lambda: aug(x, t, v, gen), iters=10)
+        prof = profile_device(lambda: aug(x, t, v, gen), n=3)
+        print(f'  (b) {name}: {ms:.3f} ms a batch of {BS} at {SIZE} '
+              f'({card})')
+        out[name] = {'ms': ms, 'kernels': prof and prof['kernels'],
+                     'busy_ms': prof and prof['busy_ms'],
+                     'err_geometry': err_geo, 'err_hsv': err_hsv,
+                     'err_targets': err_t,
+                     'whole_beyond_tol': float((whole > AUG_TOL).float()
+                                               .mean()),
+                     'kept_share': kept / (4 * n_in)}
+    return out
+
+
+def device_aug_cli(root, dev, card, data, init, per_image):
+    """(c) ``python -m yolo_tpu_torch.train --device-aug`` (its ``main``):
+    one epoch of yolov3 @608 bs=8 on the files with its evaluate; K1 once
+    per eval batch, a finite results row, images/s from its batch lines."""
+    from yolo_tpu_torch.config import parse_data_cfg
+    from yolo_tpu_torch.data import device_aug
+    from yolo_tpu_torch.ops.nms_suppress import suppress
+    from yolo_tpu_torch.train.__main__ import main
+    work = os.path.join(root, 'train')
+    os.makedirs(work)
+    os.chdir(work)
+    lst = parse_data_cfg(data)['valid']
+    with open(data, 'a') as f:
+        f.write(f'train={lst}\n')
+    argv = ['--cfg', CFG, '--weights', init, '--data', data, '--epochs', '1',
+            '--batch-size', str(BS), '--img-size', str(SIZE), str(SIZE),
+            str(SIZE), '--max-targets', str(4 * per_image * BS),
+            '--device-aug', '--device', str(dev)]
+    calls = [0]
+
+    def counted(label, fn):
+        def call(*a, **k):
+            calls[0] += 1
+            return fn(*a, **k)
+        return call
+    torch.cuda.synchronize()
+    suppress.launches = 0
+    t0 = time.perf_counter()
+    with patched({'aug': (device_aug.DeviceAugment, '__call__')}, counted), \
+            TimedLines() as tl:
+        main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = suppress.launches
+    n_eval = DATA_IMAGES // max(BS // 4, 1)
+    nb = DATA_IMAGES // BS
+    rows = np.loadtxt('results.txt', ndmin=2)
+    check(k1 == n_eval and calls[0] == nb and rows.shape == (1, 12)
+          and np.isfinite(rows).all(),
+          f'(c) train --device-aug: exit 0 after {wall:.1f} s, the device '
+          f'augmentation on {calls[0]} of {nb} batches, K1 {k1} times for '
+          f'{n_eval} eval batches, results.txt finite (train loss '
+          f'{rows[0, 4]:.4f})')
+    steps = [t for t, m in tl.lines
+             if m.lstrip().startswith('epoch ') and ' batch ' in m]
+    rate = (nb - 1) * BS / (steps[nb - 1] - steps[0])
+    print(f'  (c) the --device-aug loop: {rate:.1f} images/s (batches 0 to '
+          f'{nb - 1}), set-up to the first batch {steps[0] - t0:.2f} s '
+          f'({card})')
+    return {'s': wall, 'images_per_s': rate, 'setup_s': steps[0] - t0,
+            'nms_suppress': k1}
+
+
+def stream_detect(root, dev, init, data):
+    """(d) ``python -m yolo_tpu_torch.detect --source streams.txt`` (its
+    ``main``) over two copies of a written MJPG video of one repeated
+    frame, the streams capped at ``STREAM_FRAMES`` frame steps, with
+    ``--view-img --FPGA``: K1 once a frame step (both streams in one
+    batch), the same detections in each stream, a video of every frame
+    written for each stream."""
+    import cv2
+    from yolo_tpu_torch.data import datasets as D
+    from yolo_tpu_torch.detect import main
+    from yolo_tpu_torch.ops.nms_suppress import suppress
+    work = os.path.join(root, 'streams')
+    os.makedirs(work)
+    h, w = STREAM_HW
+    # every frame alike: whichever frame each reader thread holds when a
+    # step reads it, both streams show the same picture
+    frame = np.ascontiguousarray(images(90, 1, max(h, w))[0, :h, :w, ::-1])
+    srcs = [os.path.join(work, f'{n}.avi') for n in ('cam0', 'cam1')]
+    vw = cv2.VideoWriter(srcs[0], cv2.VideoWriter_fourcc(*'MJPG'), 10, (w, h))
+    check(vw.isOpened(), '(d) an MJPG .avi writer opens')
+    for _ in range(2 * STREAM_FRAMES):
+        vw.write(frame)
+    vw.release()
+    shutil.copy(srcs[0], srcs[1])
+    lst = os.path.join(work, 'streams.txt')
+    with open(lst, 'w') as f:
+        f.write('\n'.join(srcs) + '\n')
+
+    class Capped(D.LoadStreams):
+        def __next__(self):
+            if self.count + 1 >= STREAM_FRAMES:
+                raise StopIteration
+            return super().__next__()
+    out = os.path.join(work, 'out')
+    argv = ['--cfg', CFG, '--weights', init, '--data', data, '--source', lst,
+            '--img-size', str(SIZE), '--conf-thres', str(STREAM_CONF),
+            '--output', out, '--save-txt', '--fourcc', 'MJPG', '--view-img',
+            '--FPGA', '--device', str(dev)]
+    saved = D.LoadStreams
+    D.LoadStreams = Capped
+    try:
+        torch.cuda.synchronize()
+        suppress.launches = 0
+        t0 = time.perf_counter()
+        main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1 = suppress.launches
+    finally:
+        D.LoadStreams = saved
+    per = {}
+    for src in srcs:
+        name = os.path.splitext(os.path.basename(src))[0]
+        txt = os.path.join(out, name + '.txt')
+        per[name] = (len(np.loadtxt(txt, ndmin=2))
+                     if os.path.exists(txt) else 0)
+        cap = cv2.VideoCapture(os.path.join(out, os.path.basename(src)))
+        n = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+        cap.release()
+        check(n == STREAM_FRAMES, f'(d) {name}: {n} annotated frames written')
+    check(k1 == STREAM_FRAMES and per['cam0'] == per['cam1'] > 0,
+          f'(d) detect on 2 streams: {wall:.2f} s, K1 {k1} times for '
+          f'{STREAM_FRAMES} frame steps, detections a stream '
+          f'{per} over {STREAM_FRAMES} frames at conf {STREAM_CONF}')
+    return {'s': wall, 'detections': per, 'nms_suppress': k1}
+
+
+def data_child(root, dev):
+    """Phase 13 in a process of its own (the JPEG files, the loaders and
+    the video need OpenCV). Writes its numbers to ``root/phase13.json``."""
+    from yolo_tpu_torch import runtime
+    from yolo_tpu_torch.convert import to_jax
+    from yolo_tpu_torch.utils.checkpoint import save_checkpoint
+    card = device_setup()
+    t_phase = time.perf_counter()
+    raw = runtime.load_model(CFG, device=dev, conv_scale=CONV_SCALE,
+                             generator=torch.Generator().manual_seed(0))
+    kw = dict(conf_thres=CONF_THRES, iou_thres=0.6, top_k=512, max_det=300)
+    data, _, labels = write_jpeg_set(os.path.join(root, 'set'),
+                                     raw.fuse().make_infer(**kw), dev,
+                                     DATA_IMAGES)
+    per_image = max(len(lab) for per in labels for lab in per)
+    init = os.path.join(root, 'init.npz')
+    p, s = to_jax(raw.net, raw.params, raw.state)
+    save_checkpoint(init, params=p, state=s)
+    out = {'seconds': {}}
+    for name, fn in (('a', lambda: native_loader(root, dev, card, data, raw)),
+                     ('b', lambda: device_aug_check(dev, card, data,
+                                                    per_image)),
+                     ('c', lambda: device_aug_cli(root, dev, card, data, init,
+                                                  per_image)),
+                     ('d', lambda: stream_detect(root, dev, init, data))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        out['seconds'][name] = time.perf_counter() - t0
+        print(f'  ({name}) {out["seconds"][name]:.1f} s')
+    out['nms_suppress'] = (out['a']['nms_suppress'] + out['c']['nms_suppress']
+                           + out['d']['nms_suppress'])
+    out['seconds']['all'] = time.perf_counter() - t_phase
+    print(f'  phase 13 (child): {out["seconds"]["all"]:.1f} s')
+    with open(os.path.join(root, 'phase13.json'), 'w') as f:
+        json.dump(out, f)
+
+
+def phase_data(train):
+    """Phase 13 in a child process; returns its numbers. ``train``: phase
+    10's numbers, whose host-augment loop (c) is printed beside the
+    ``--device-aug`` one."""
+    print(f'[13/13] the data path: the native letterbox, the device '
+          f'augmentation, train --device-aug, detect on streams (a child '
+          f'process)')
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        sys.stdout.flush()
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            '--phase13', root], timeout=900)
+        if r.returncode != 0:
+            raise SmokeFailure(f'phase 13 (child) exited {r.returncode}')
+        with open(os.path.join(root, 'phase13.json')) as f:
+            out = json.load(f)
+    host = train['loop']['loop_images_per_s']
+    print(f'  the training loop: --device-aug {out["c"]["images_per_s"]:.1f} '
+          f'images/s (phase 13 c) against the host augmentation\'s '
+          f'{", ".join(f"{r:.1f}" for r in host)} (phase 10 c, by epoch)')
+    print(f'  phase 13: {time.perf_counter() - t0:.1f} s')
+    return out
+
+
+# imported into this process at the end as well: the data path's and the
+# host utilities' modules (the phases' children run them; their imports
+# must load neither jax, nor OpenCV, nor the JAX package)
+IMPORT_CHECKED = ('native', 'data.datasets', 'data.device_aug',
+                  'data.augment_extra', 'detect', 'train.__main__',
+                  'utils.profiler', 'utils.gsutil', 'utils.downloads',
+                  'utils.dev')
+
+
 def check_imports():
+    import importlib
+    for m in IMPORT_CHECKED:
+        importlib.import_module(f'yolo_tpu_torch.{m}')
     bad = sorted(m for m in sys.modules if m in ('jax', 'cv2')
                  or m == 'yolo_tpu' or m.startswith(('jax.', 'yolo_tpu.')))
-    check(not bad, f'no jax, OpenCV or yolo_tpu module imported {bad or ""}')
+    check(not bad, f'no jax, OpenCV or yolo_tpu module imported '
+          f'({len(IMPORT_CHECKED)} data-path and utility modules among the '
+          f'imported) {bad or ""}')
 
 
 def main():
@@ -3858,6 +4267,7 @@ def main():
     train = phase_train(dev, card, qb)
     quant = phase_quant()
     kd = phase_kd()
+    data = phase_data(train)
     check_imports()
     print(f'build {build_s:.2f} s; whole run {time.perf_counter() - t0:.1f} s')
     print(card)
@@ -3871,12 +4281,14 @@ def main():
                       + prune['nms_suppress']
                       + train['loop']['nms_suppress']
                       + train['snap']['nms_suppress']
-                      + quant['nms_suppress'] + kd['nms_suppress']), **k1,
+                      + quant['nms_suppress'] + kd['nms_suppress']
+                      + data['nms_suppress']), **k1,
          'launches_phase9': prune['nms_suppress'],
          'launches_phase10': (train['loop']['nms_suppress']
                               + train['snap']['nms_suppress']),
          'launches_phase11': quant['nms_suppress'],
          'launches_phase12': kd['nms_suppress'],
+         'launches_phase13': data['nms_suppress'],
          'main_path_ms': k1_main['ms'],
          'main_path_device_ms': k1_main['device_ms']},
         {'name': 'conv_int8', 'route': 'cuda',
@@ -3909,7 +4321,7 @@ def main():
 
 
 def main_child(child, root):
-    """The child process of phase 9, 10, 11 or 12 (``chip_smoke.py
+    """The child process of phase 9, 10, 11, 12 or 13 (``chip_smoke.py
     --phase9 DIR`` and so on)."""
     dev = torch.device('cuda', 0)
     torch.cuda.set_device(dev)
@@ -3927,6 +4339,8 @@ if __name__ == '__main__':
             main_child(quant_child, sys.argv[2])
         elif sys.argv[1:2] == ['--phase12']:
             main_child(kd_child, sys.argv[2])
+        elif sys.argv[1:2] == ['--phase13']:
+            main_child(data_child, sys.argv[2])
         else:
             main()
     except SmokeFailure as e:

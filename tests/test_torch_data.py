@@ -6,8 +6,9 @@ CPU.
 A synthetic set written with OpenCV (images of several sizes and aspect
 ratios, one to three labels each, one image without a label file) goes
 through both packages, square and rect, with a ragged tail: every batch
-must be bit-equal (the JAX loader with ``use_native=False``, the per-image
-path the port copies).
+must be bit-equal (both loaders with ``use_native=False``, the per-image
+cv2 path; their default native path is held equal in
+``test_torch_native.py``).
 """
 
 import os
@@ -79,7 +80,7 @@ def test_dataset_and_loader_batches_equal_jax(synth_list, rect):
         if rect:
             np.testing.assert_array_equal(ds.batch_shapes, jds.batch_shapes)
             assert len({tuple(s) for s in ds.batch_shapes}) > 1
-        got = list(BatchLoader(ds, 3))
+        got = list(BatchLoader(ds, 3, use_native=False))
         want = list(JLoader(jds, 3, use_native=False))
         _assert_batches_equal(got, want)
         assert len(got) == 3 and got[-1][3][1:] == ['', '']

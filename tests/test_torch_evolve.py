@@ -64,10 +64,11 @@ def test_mutate_hyp_matches_jax(with_file, tmp_path):
     assert with_file == (got != load_hyp(None))
 
 
-def test_print_mutation_byte_equal(tmp_path, capsys):
+def test_print_mutation_byte_equal(tmp_path, capsys, monkeypatch):
     """Five generations appended by each package: evolve.txt byte-equal
-    (rows deduplicated and sorted by fitness), the same printed lines; a
-    bucket raises NotImplementedError (gsutil is not ported)."""
+    (rows deduplicated and sorted by fitness), the same printed lines; with
+    a bucket, the same gsutil transfers around the append (through a
+    recording runner: no transfer runs)."""
     from yolo_tpu.config import load_hyp
     from yolo_tpu.train import evolve as J
     from yolo_tpu_torch.train import evolve as T
@@ -85,8 +86,20 @@ def test_print_mutation_byte_equal(tmp_path, capsys):
         assert capsys.readouterr().out == want
         assert open(tf, 'rb').read() == open(jf, 'rb').read()
     assert np.loadtxt(tf, ndmin=2).shape == (5, 25)
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        T.print_mutation(rows[0][0], rows[0][1], tf, bucket='gs://b')
+    from yolo_tpu.utils import gsutil as jgsutil
+    from yolo_tpu_torch.utils import gsutil as tgsutil
+    calls = {}
+    for mod, f, name, pm in ((jgsutil, jf, 'jax', J.print_mutation),
+                             (tgsutil, tf, 'torch', T.print_mutation)):
+        got = calls[name] = []
+        monkeypatch.setattr(mod, 'runner',
+                            lambda cmd, got=got: got.append(cmd) or 0)
+        pm(rows[0][0], rows[0][1], f, bucket='b')
+        got[:] = [[a.replace(f, 'evolve.txt') for a in c] for c in got]
+    assert calls['torch'] == calls['jax'] == [
+        ['gsutil', 'cp', 'gs://b/evolve.txt', 'evolve.txt'],
+        ['gsutil', 'cp', 'evolve.txt', 'gs://b/evolve.txt']]
+    assert open(tf, 'rb').read() == open(jf, 'rb').read()
 
 
 def test_run_evolution_matches_jax(tmp_path, monkeypatch):
@@ -163,7 +176,10 @@ def label_set(tmp_path_factory):
 def test_evolve_cli_two_generations(label_set, tmp_path, monkeypatch):
     """``python -m yolo_tpu_torch.train --evolve`` twice (its ``main``, 1
     epoch at 64 px): evolve.txt holds 2 rows of 7 results + 18 hyps, and
-    no checkpoint is written (evolve implies notest/nosave)."""
+    no checkpoint is written (evolve implies notest/nosave). A third
+    generation with ``--bucket`` (its training stubbed, gsutil's runner
+    recording) fetches the bucket's evolve.txt before the mutation and
+    around the append, and copies it back, as the root train.py does."""
     from yolo_tpu_torch.train.__main__ import main
     _, _, data, cfg = label_set
     monkeypatch.chdir(tmp_path)
@@ -176,9 +192,18 @@ def test_evolve_cli_two_generations(label_set, tmp_path, monkeypatch):
     assert rows.shape[0] == 2 and rows.shape[1] >= 7 + 18
     assert not os.path.exists('weights/best.npz')
     assert not os.path.exists('weights/last.npz')
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        main(['--cfg', cfg, '--data', data, '--evolve', '--bucket', 'gs://b',
-              '--device', 'cpu'])
+    from yolo_tpu_torch.train import loop
+    from yolo_tpu_torch.utils import gsutil
+    calls = []
+    monkeypatch.setattr(gsutil, 'runner', lambda cmd: calls.append(cmd) or 0)
+    monkeypatch.setattr(loop, 'run_training',
+                        lambda opt: (0.5, 0.5, 0.5, 0.5, 1.0, 1.0, 1.0))
+    main(['--cfg', cfg, '--data', data, '--evolve', '--bucket', 'b',
+          '--device', 'cpu'])
+    assert calls == [['gsutil', 'cp', 'gs://b/evolve.txt', 'evolve.txt'],
+                     ['gsutil', 'cp', 'gs://b/evolve.txt', 'evolve.txt'],
+                     ['gsutil', 'cp', 'evolve.txt', 'gs://b/evolve.txt']]
+    assert np.loadtxt('evolve.txt', ndmin=2).shape[0] == 3
 
 
 @pytest.mark.parametrize('img_size', [(64, 64), (48, 128)])

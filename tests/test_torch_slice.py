@@ -200,9 +200,10 @@ def test_unported_paths_raise(toy_cfg, toy_checkpoint, tmp_path):
 def test_port_never_imports_jax_or_cv2():
     """Importing every module of the port (the evaluation, training and
     quantization paths' included: ``compress/quant_legacy`` and ``ptq``;
-    KD, evolve, the FPGA export and its CLI, and the anchors)
-    loads neither jax, nor OpenCV or PIL (imported inside functions only),
-    nor any module of the JAX package."""
+    KD, evolve, the FPGA export and its CLI, and the anchors; the host
+    library, the device augmentation, the extra masks and the host
+    utilities) loads neither jax, nor OpenCV, PIL or matplotlib (imported
+    inside functions only), nor any module of the JAX package."""
     code = ('import pkgutil, importlib, sys, yolo_tpu_torch; '
             'mods = [m.name for m in pkgutil.walk_packages('
             "yolo_tpu_torch.__path__, 'yolo_tpu_torch.')]; "
@@ -216,9 +217,13 @@ def test_port_never_imports_jax_or_cv2():
             "'train.optim', 'train.schedules', 'train.ema', "
             "'train.trainer', 'train.loop', 'train.__main__', "
             "'compress.quant_legacy', 'ptq', 'train.kd', 'train.evolve', "
-            "'compress.fpga_export', 'convert_fpga', 'utils.anchors')}; "
+            "'compress.fpga_export', 'convert_fpga', 'utils.anchors', "
+            "'native', 'data.device_aug', 'data.augment_extra', "
+            "'utils.profiler', 'utils.gsutil', 'utils.downloads', "
+            "'utils.dev')}; "
             "assert need <= set(mods), need - set(mods); "
             "assert 'PIL' not in sys.modules; "
+            "assert 'matplotlib' not in sys.modules; "
             "bad = [m for m in sys.modules if m in ('jax', 'cv2') "
             "or m == 'yolo_tpu' or m.startswith(('jax.', 'yolo_tpu.'))]; "
             'assert not bad, bad')

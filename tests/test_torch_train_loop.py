@@ -209,11 +209,36 @@ def test_cli_runs_on_cpu(train_set, tmp_path):
 
 
 @pytest.mark.parametrize('argv', [
-    ['--evolve', '--bucket', 'gs://b'],
-    ['--device-aug'], ['--tp', '2'], ['--remat', 'blocks'],
-    ['--bucket', 'gs://b'], ['--coordinator', 'localhost:1234']],
+    ['--tp', '2'], ['--remat', 'blocks'],
+    ['--coordinator', 'localhost:1234'], ['--num-hosts', '2'],
+    ['--host-id', '1'], ['--num_hosts', '4']],
     ids=lambda a: a[0].lstrip('-'))
 def test_cli_unported_flags_raise(argv):
+    """The multi-device flags and --remat still raise."""
     from yolo_tpu_torch.train.__main__ import main
     with pytest.raises(NotImplementedError, match='ROADMAP.md'):
         main(argv + ['--device', 'cpu'])
+
+
+@pytest.mark.parametrize('argv', [
+    ['--evolve', '--bucket', 'b'], ['--device-aug'],
+    ['--bucket', 'b', '--name', 'r1']],
+    ids=lambda a: a[0].lstrip('-'))
+def test_cli_ported_flags_reach_the_loop(argv, tmp_path, monkeypatch):
+    """--device-aug and --bucket (with --evolve too) no longer raise: the
+    CLI hands them to ``run_training`` (stubbed here; gsutil's runner
+    records, no transfer runs)."""
+    from yolo_tpu_torch.train import loop
+    from yolo_tpu_torch.train.__main__ import main
+    from yolo_tpu_torch.utils import gsutil
+    opts = []
+    monkeypatch.setattr(gsutil, 'runner', lambda cmd: 0)
+    monkeypatch.setattr(loop, 'run_training', lambda o: opts.append(o)
+                        or (0.5, 0.5, 0.5, 0.5, 1.0, 1.0, 1.0))
+    monkeypatch.chdir(tmp_path)
+    main(argv + ['--device', 'cpu'])
+    o = opts[0]
+    assert o.device_aug == ('--device-aug' in argv)
+    assert o.bucket == ('b' if '--bucket' in argv else '')
+    assert o.name == ('r1' if '--name' in argv else '')
+    assert (o.notest and o.nosave) == ('--evolve' in argv)

@@ -1,12 +1,16 @@
-"""Build ``csrc/*.cu`` into one shared library with a plain C interface.
+"""Build ``csrc/*.cu`` into one shared library with a plain C interface,
+and ``csrc/fastpre.cpp`` into a host library of its own.
 
-The library is compiled with ``nvcc`` for Hopper (``sm_90a``) at first use
-(one ``nvcc`` per source, all started together, then one link), cached in
-``yolo_tpu_torch/_build/`` under a hash of the sources and flags, and
+The CUDA library is compiled with ``nvcc`` for Hopper (``sm_90a``) at first
+use (one ``nvcc`` per source, all started together, then one link), cached
+in ``yolo_tpu_torch/_build/`` under a hash of the sources and flags, and
 loaded with ``ctypes``. Kernels launch on PyTorch's current stream; the
 wrappers in ``ops/`` pass device pointers and the stream as integers.
-
 A failed build or load raises: there is no fallback.
+
+The host library (the batch letterbox of ``native/``, C++ with OpenMP) is
+compiled with ``g++`` under the JAX package's flags (``HOST_FLAGS``), into
+the same directory under a hash of its source and flags; it needs no CUDA.
 """
 
 from __future__ import annotations
@@ -29,6 +33,13 @@ BUILD_DIR = Path(__file__).resolve().parent / '_build'
 # to the build log (``build_log()``).
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '--fmad=false', '-Xptxas=-v', '-Xcompiler', '-fPIC')
+
+
+# the JAX package's flags for native/fastpre.cpp, and no -march=native:
+# with FMA, g++ contracts the four-term bilinear sum, and values on a .5
+# would round apart from the JAX package's library
+HOST_FLAGS = ('-O3', '-fopenmp', '-shared', '-fPIC')
+HOST_SOURCE = CSRC_DIR / 'fastpre.cpp'
 
 
 def _sources() -> list[Path]:
@@ -117,3 +128,47 @@ def load_library() -> ctypes.CDLL:
     lib.conv_int8_error_string.argtypes = [i]
     lib.conv_int8_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def host_library_path() -> Path:
+    """Where the host library for the current source and flags lives."""
+    h = hashlib.sha256(' '.join(HOST_FLAGS).encode())
+    h.update(HOST_SOURCE.read_bytes())
+    return BUILD_DIR / f'libfastpre_{h.hexdigest()[:16]}.so'
+
+
+def build_host() -> Path:
+    """Compile ``csrc/fastpre.cpp`` with g++ unless it is already built.
+    Several processes may build at once: each writes a private name and
+    renames it into place. g++'s output goes to ``host_build_log()``; a
+    failed build raises ``RuntimeError`` with it."""
+    out = host_library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    log = Path(str(out) + '.log')
+    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = ['g++', *HOST_FLAGS, str(HOST_SOURCE), '-o', tmp]
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+        except OSError as e:            # no g++ on the machine
+            log.write_text(f'{" ".join(cmd)}\n{e}\n')
+            raise RuntimeError(f'g++ failed: {e}') from e
+        log.write_text(f'{" ".join(cmd)}\n{proc.stdout}{proc.stderr}')
+        if proc.returncode != 0:
+            raise RuntimeError(f'g++ failed ({proc.returncode}):\n'
+                               f'{" ".join(cmd)}\n{proc.stderr}')
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out
+
+
+def host_build_log() -> str:
+    """What g++ printed while building (or failing to build) the host
+    library."""
+    log = Path(str(host_library_path()) + '.log')
+    return log.read_text() if log.exists() else ''

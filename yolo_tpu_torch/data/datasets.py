@@ -1,6 +1,9 @@
 """Image sources of the port (copies from ``yolo_tpu/data/datasets.py``).
 
 - ``LoadImages``: the detection CLI's image and video source.
+- ``LoadWebcam`` (a local camera) and ``LoadStreams`` (RTSP/HTTP URLs, a
+  video file, or a ``.txt`` listing them, one reader thread a source): the
+  detection CLI's live sources.
 - ``DetectionDataset``: an image-list txt with its label txt files, the
   label cache and its validation, rectangular batching by aspect ratio
   (the ``.shapes`` sidecar), ``subset_len`` sampling, the letterbox and
@@ -11,15 +14,17 @@
 - ``BatchLoader``: fixed-shape batches (uint8 NHWC images, capacity-padded
   targets and their mask, paths, shapes) from a background prefetch
   thread; a ragged tail is padded with empty images and empty paths.
-  Training takes ``shuffle``, ``drop_last`` and ``seed``.
+  Training takes ``shuffle``, ``drop_last`` and ``seed``. Batches that are
+  neither augmented nor gray are letterboxed by the host library
+  (``native.letterbox_batch``, one OpenMP pass a batch) when it builds, as
+  the JAX package's loader does.
 
 Every random draw of the augmentations goes through the dataset's
 ``random.Random(seed)`` (the batch order through the loader's), in the JAX
 package's order, and one prefetch thread draws them in batch order, so a
 seed gives the JAX package's batches bit for bit. OpenCV and PIL are
 imported inside the functions only. Not ported yet (see ROADMAP.md):
-``process_shard`` (the multi-host split) and the JAX package's native C++
-batch letterbox.
+``process_shard`` (the multi-host split).
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import os
 import queue
 import random
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -122,6 +128,130 @@ class LoadImages:
             img = img[:, :, ::-1]  # BGR -> RGB
         img = np.ascontiguousarray(img.transpose(2, 0, 1))
         return path, img, img0, self.cap
+
+
+def _quit_pressed() -> bool:
+    """'q' pressed in an OpenCV window. A build without a window system
+    has no keys to read."""
+    import cv2
+    try:
+        return cv2.waitKey(1) == ord('q')
+    except cv2.error:
+        return False
+
+
+def _close_windows():
+    import cv2
+    try:
+        cv2.destroyAllWindows()
+    except cv2.error:
+        pass
+
+
+class LoadWebcam:
+    """A local camera (``pipe`` 0, mirrored) or any capture source, one
+    frame a step until 'q'. Iterates ('webcam.jpg', letterboxed CHW RGB,
+    the BGR frame, None)."""
+
+    def __init__(self, pipe=0, img_size=416):
+        import cv2
+        self.img_size = img_size
+        self.pipe = pipe
+        self.cap = cv2.VideoCapture(pipe)
+        self.cap.set(cv2.CAP_PROP_BUFFERSIZE, 3)
+        self.mode = 'webcam'
+
+    def __iter__(self):
+        self.count = -1
+        return self
+
+    def __len__(self):
+        return 0
+
+    def __next__(self):
+        import cv2
+        self.count += 1
+        if _quit_pressed():
+            self.cap.release()
+            _close_windows()
+            raise StopIteration
+        ok, img0 = self.cap.read()
+        if not ok:
+            raise RuntimeError(f'Camera Error {self.pipe}')
+        if self.pipe == 0:
+            img0 = cv2.flip(img0, 1)  # mirror the local webcam
+        img = letterbox(img0, new_shape=self.img_size)[0]
+        img = np.ascontiguousarray(img[:, :, ::-1].transpose(2, 0, 1))
+        return 'webcam.jpg', img, img0, None
+
+
+class LoadStreams:
+    """Live sources read by one daemon thread each: ``sources`` is a
+    ``.txt`` listing one source a line, or one source ('0' a local camera,
+    an RTSP/HTTP URL, a video file). Each thread decodes every 4th frame
+    and keeps the last good one; a source that ends keeps its last frame.
+    Iterates (sources, (S, 3, H, W) letterboxed RGB, the S BGR frames,
+    None), every frame letterboxed to one rectangle (``rect``) when the
+    first frames all give the same one, else to the full square."""
+
+    def __init__(self, sources='streams.txt', img_size=416):
+        import cv2
+        self.mode = 'images'
+        self.img_size = img_size
+        if str(sources).endswith('.txt') and os.path.isfile(sources):
+            with open(sources) as f:
+                sources = [x.strip() for x in f.read().splitlines()
+                           if x.strip()]
+        else:
+            sources = [sources]
+        self.sources = sources
+        self.imgs = [None] * len(sources)
+        self.threads = []
+        for i, s in enumerate(sources):
+            cap = cv2.VideoCapture(0 if s == '0' else s)
+            if not cap.isOpened():
+                raise FileNotFoundError(f'Failed to open {s}')
+            ok, self.imgs[i] = cap.read()
+            if not ok:
+                raise RuntimeError(f'No frame from {s}')
+            t = threading.Thread(target=self._update, args=(i, cap),
+                                 daemon=True)
+            t.start()
+            self.threads.append(t)
+        shapes = [letterbox(x, new_shape=self.img_size)[0].shape
+                  for x in self.imgs]
+        self.rect = len(set(shapes)) == 1
+
+    def _update(self, i, cap):
+        n = 0
+        while cap.isOpened():
+            n += 1
+            if not cap.grab():
+                break       # the end of a file, or a closed stream
+            if n == 4:      # decode every 4th frame
+                ok, frame = cap.retrieve()
+                if ok:      # keep the last good frame on a dropout
+                    self.imgs[i] = frame
+                n = 0
+            time.sleep(0.01)
+
+    def __iter__(self):
+        self.count = -1
+        return self
+
+    def __len__(self):
+        return 0
+
+    def __next__(self):
+        self.count += 1
+        img0 = [x.copy() for x in self.imgs]
+        if _quit_pressed():
+            _close_windows()
+            raise StopIteration
+        img = [letterbox(x, new_shape=self.img_size, auto=self.rect)[0]
+               for x in img0]
+        img = np.stack(img, 0)[:, :, :, ::-1].transpose(0, 3, 1, 2)
+        return self.sources, np.ascontiguousarray(img), img0, None
 
 
 class DetectionDataset:
@@ -397,11 +527,17 @@ class BatchLoader:
 
     Yields (imgs (bs, H, W, C) uint8, targets (max_t, 6), valid (max_t,),
     paths, shapes), numpy; a ragged tail is padded to ``batch_size`` with
-    zero images, no labels and empty paths."""
+    zero images, no labels and empty paths.
+
+    ``use_native``: letterbox each batch in one pass of the host library
+    (``_assemble_native``). None takes it under the JAX package's rule:
+    the library builds, the dataset does not augment and is not gray. A
+    failure there raises."""
 
     def __init__(self, dataset: DetectionDataset, batch_size: int,
                  max_targets: int = 0, shuffle: bool = False,
-                 prefetch: int = 2, drop_last: bool = False, seed=None):
+                 prefetch: int = 2, drop_last: bool = False, seed=None,
+                 use_native: bool | None = None):
         self.ds = dataset
         self.bs = batch_size
         self.max_t = max_targets or (30 * batch_size)
@@ -409,14 +545,63 @@ class BatchLoader:
         self.prefetch = prefetch
         self.drop_last = drop_last
         self.rnd = random.Random(seed)
+        if use_native is None:
+            from .. import native
+            use_native = (not dataset.augment and not dataset.is_gray_scale
+                          and native.available())
+        self.use_native = use_native
 
     def __len__(self):
         if self.drop_last:
             return self.ds.n // self.bs
         return math.ceil(self.ds.n / self.bs)
 
+    def _assemble_native(self, idxs):
+        """The batch letterboxed by the host library in one pass; the
+        label arithmetic is ``DetectionDataset.__getitem__``'s with the
+        library's ratio and pads, as in the JAX package."""
+        from ..native import letterbox_batch
+        from ..train.loss import pad_targets
+        ds = self.ds
+        raw, metas = [], []
+        for i in idxs:
+            img, (h0, w0), (h, w) = ds._load_image(i)
+            raw.append(img)
+            metas.append((i, h0, w0, h, w))
+        shape = (ds.batch_shapes[ds.batch[idxs[0]]] if ds.rect
+                 else (ds.img_size, ds.img_size))
+        dst_h, dst_w = int(shape[0]), int(shape[1])
+        batch, ratios, pads = letterbox_batch(raw, dst_h, dst_w,
+                                              scaleup=ds.augment)
+        labels, paths, shapes = [], [], []
+        for j, (i, h0, w0, h, w) in enumerate(metas):
+            r = float(ratios[j])
+            padw, padh = float(pads[j, 0]), float(pads[j, 1])
+            lab = ds.labels[i]
+            if lab.size:
+                px = xywhn_to_xyxy_pixels(lab, w, h, padw, padh, r, r)
+                out = px.copy()
+                out[:, 1:5] = xyxy2xywh_np(px[:, 1:5])
+                out[:, [2, 4]] /= dst_h
+                out[:, [1, 3]] /= dst_w
+                labels.append(out.astype(np.float32))
+            else:
+                labels.append(np.zeros((0, 5), np.float32))
+            paths.append(ds.path_of(i))
+            shapes.append(((h0, w0), ((h / h0, w / w0), (padw, padh))))
+        while len(labels) < self.bs:
+            batch = np.concatenate(
+                [batch, np.zeros((1, dst_h, dst_w, batch.shape[3]), np.uint8)])
+            labels.append(np.zeros((0, 5), np.float32))
+            paths.append('')
+            shapes.append(None)
+        tgt, valid = pad_targets(labels, self.max_t)
+        return batch, tgt, valid, paths, shapes
+
     def _assemble(self, idxs):
         from ..train.loss import pad_targets
+        if self.use_native:
+            return self._assemble_native(idxs)
         imgs, labels, paths, shapes = [], [], [], []
         for i in idxs:
             im, lab, p, sh = self.ds[i]

@@ -1,6 +1,6 @@
 """Detection CLI of the PyTorch port: images and videos from a file or a
-directory, forward + decode + NMS on one device, boxes rescaled to the
-original frames, drawn and saved.
+directory, or live sources, forward + decode + NMS on one device, boxes
+rescaled to the original frames, drawn and saved.
 
     python -m yolo_tpu_torch.detect --cfg cfg/yolov3/yolov3.cfg \\
         --weights weights/last.npz --source data/samples --device cuda
@@ -10,6 +10,9 @@ original frames, drawn and saved.
 
     python -m yolo_tpu_torch.detect --cfg cfg/yolov3/yolov3.cfg \\
         --weights weights/best.pt --augment --source data/samples
+
+    python -m yolo_tpu_torch.detect --cfg cfg/yolov3/yolov3.cfg \\
+        --weights weights/last.npz --source streams.txt
 
 The flags are those of the root ``detect.py``. ``--weights`` takes a .npz
 of the JAX package, a .pt of the PyTorch reference or darknet .weights.
@@ -23,7 +26,14 @@ into ``./quantizer_output`` once, on the first preprocessed image
 (``compress/fpga_export.py``): the per-layer integer weights, biases,
 shift exponents and activations, the input dumps under ``--maxabsscaler``
 and, for the whole net, the upsample layers' streams.
-Stream sources are not ported yet (see ROADMAP.md).
+``--source 0`` reads the local camera (``LoadWebcam``); an ``rtsp://`` or
+``http://`` URL, or a ``.txt`` listing such sources (or video files) one a
+line, reads them all at once (``LoadStreams``): each frame step of every
+stream goes through one forward, and each stream's frames are drawn and
+written into a video of its name (``--fourcc``), as a video file's are.
+The JAX package's CLI writes them with ``cv2.imwrite`` instead, which
+OpenCV refuses for a video's name. ``--view-img`` and ``--FPGA`` are accepted
+and ignored, as the JAX package's CLI does.
 """
 
 from __future__ import annotations
@@ -54,6 +64,8 @@ def parse_args(argv=None):
     p.add_argument('--classes', nargs='+', type=int)
     p.add_argument('--agnostic-nms', action='store_true')
     p.add_argument('--save-txt', action='store_true')
+    p.add_argument('--view-img', action='store_true',
+                   help='accepted and ignored, as in the root detect.py')
     p.add_argument('--gray-scale', '--gray_scale', dest='gray_scale',
                    action='store_true')
     p.add_argument('--maxabsscaler', '-mas', action='store_true')
@@ -81,6 +93,8 @@ def parse_args(argv=None):
     p.add_argument('--TN', type=int, default=32)
     p.add_argument('--layer_idx', type=int, default=-1,
                    help='restrict --quantizer_output dumps to one layer')
+    p.add_argument('--FPGA', action='store_true',
+                   help='accepted and ignored, as in the root detect.py')
     return p.parse_args(argv)
 
 
@@ -89,7 +103,7 @@ def main(argv=None):
     # OpenCV is needed only here, for reading and drawing images
     import cv2
     from .config import load_classes, parse_data_cfg
-    from .data.datasets import LoadImages
+    from .data import datasets
     from .utils.plots import color_for_class, plot_one_box
 
     from .ops.boxes import scale_coords
@@ -111,9 +125,16 @@ def main(argv=None):
                               agnostic=opt.agnostic_nms, augment=opt.augment,
                               classes=tuple(opt.classes) if opt.classes
                               else None)
-    dataset = LoadImages(opt.source, img_size=opt.img_size,
-                         is_gray_scale=opt.gray_scale, rect=opt.rect)
-    vid_writer = None
+    src = opt.source
+    if src == '0':
+        dataset = datasets.LoadWebcam(0, img_size=opt.img_size)
+    elif src.startswith(('rtsp', 'http')) or src.endswith('.txt'):
+        dataset = datasets.LoadStreams(src, img_size=opt.img_size)
+    else:
+        dataset = datasets.LoadImages(src, img_size=opt.img_size,
+                                      is_gray_scale=opt.gray_scale,
+                                      rect=opt.rect)
+    vid_writers = {}            # save path -> its cv2.VideoWriter
     bs = max(1, opt.batch_size)
     dump_pending = bool(opt.quantizer_output)
 
@@ -137,8 +158,10 @@ def main(argv=None):
         if opt.layer_idx == -1:
             upsample_activation_dumps(bundle.net, TN=opt.TN)
 
-    def handle(path, shape_hw, det, im0, vid_cap, dt):
-        nonlocal vid_writer
+    def handle(path, shape_hw, det, im0, vid_cap, dt, video=False):
+        """Draw ``det`` on ``im0`` and save it: an image as an image, a
+        frame of a video, the camera or a stream (``video``) into the
+        video of its name."""
         s = f'{path}: {shape_hw[1]}x{shape_hw[0]} '
         save_path = str(Path(opt.output) / Path(path).name)
         if det is not None and len(det):
@@ -152,15 +175,24 @@ def main(argv=None):
                     with open(save_path.rsplit('.', 1)[0] + '.txt', 'a') as f:
                         f.write(('%g ' * 6 + '\n') % (*xyxy, cls, conf))
         print(f'{s}Done. ({dt:.3f}s)')
-        if dataset.mode == 'images':
+        if dataset.mode == 'images' and not video:
             cv2.imwrite(save_path, im0)
             return
-        if vid_writer is None:
+        if save_path not in vid_writers:
             fps = vid_cap.get(cv2.CAP_PROP_FPS) if vid_cap else 30
             h, w = im0.shape[:2]
-            vid_writer = cv2.VideoWriter(
+            vid_writers[save_path] = cv2.VideoWriter(
                 save_path, cv2.VideoWriter_fourcc(*opt.fourcc), fps, (w, h))
-        vid_writer.write(im0)
+        vid_writers[save_path].write(im0)
+
+    def detect(x):
+        """Detections of the uint8 NHWC batch ``x`` and the seconds an
+        image."""
+        maybe_dump(x)
+        t0 = time.time()
+        dets = to_host_detections(
+            infer(preprocess(x, opt.maxabsscaler, device=device)))
+        return dets, (time.time() - t0) / len(x)
 
     def flush(buf):
         if not buf:
@@ -169,17 +201,22 @@ def main(argv=None):
                       for b in buf])
         if len(buf) < bs:
             x = np.concatenate([x, np.repeat(x[-1:], bs - len(buf), axis=0)])
-        maybe_dump(x)
-        t0 = time.time()
-        dets = to_host_detections(
-            infer(preprocess(x, opt.maxabsscaler, device=device)))
-        dt = (time.time() - t0) / len(buf)
+        dets, dt = detect(x)
         for (path, img, im0, vid_cap), det in zip(buf, dets):
             handle(path, img.shape[1:3], det, im0, vid_cap, dt)
 
     try:
         buf = []
         for item in dataset:
+            if item[1].ndim == 4:
+                # a frame of every stream (S, 3, H, W): one forward
+                paths, img, im0s, _ = item
+                dets, dt = detect(np.ascontiguousarray(
+                    img.transpose(0, 2, 3, 1)))
+                for path, det, im0 in zip(paths, dets, im0s):
+                    handle(path, img.shape[2:4], det, im0, None, dt,
+                           video=True)
+                continue
             if buf and item[1].shape != buf[0][1].shape:
                 flush(buf)
                 buf = []
@@ -189,8 +226,8 @@ def main(argv=None):
                 buf = []
         flush(buf)
     finally:
-        if vid_writer is not None:
-            vid_writer.release()
+        for w in vid_writers.values():
+            w.release()
     print(f'Results saved to {opt.output}')
 
 

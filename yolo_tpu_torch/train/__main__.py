@@ -23,10 +23,13 @@ with strategy ``--KDstr`` 1-6 (KD5's mask ``--kd5-mask``). ``--evolve``
 runs one generation of hyper-parameter evolution: a hyp mutated from
 ``evolve.txt`` (or the defaults), a run without evaluation until the last
 epoch and without checkpoints, its results appended to ``evolve.txt``.
-Flags of slices not ported yet raise ``NotImplementedError`` (see
-ROADMAP.md): ``--bucket``, ``--device-aug``, ``--tp`` > 1, ``--remat``
-other than ``none`` and the multi-host ones (``--coordinator``,
-``--num-hosts``, ``--host-id``).
+``--device-aug`` runs mosaic, affine, HSV and flip on the device.
+``--bucket B`` copies ``results<name>.txt`` (with ``--name``) to
+``gs://B`` after each epoch and the checkpoints at the end, and with
+``--evolve`` shares ``evolve.txt`` there (``gsutil cp``). Flags of slices
+not ported yet raise ``NotImplementedError`` (see ROADMAP.md): ``--tp`` >
+1, ``--remat`` other than ``none`` and the multi-host ones
+(``--coordinator``, ``--num-hosts``, ``--host-id``).
 """
 
 from __future__ import annotations
@@ -120,8 +123,6 @@ def main(argv=None):
     opt = parse_args(argv)
     if opt.coordinator or opt.num_hosts or opt.host_id >= 0:
         raise unported('multi-host training (--coordinator)')
-    if opt.bucket:
-        raise unported('the gsutil bucket upload (--bucket)')
     from .loop import TrainOptions, run_training
     img_size = opt.img_size
     img_size.extend([img_size[-1]] * (3 - len(img_size)))
@@ -135,6 +136,10 @@ def main(argv=None):
         from ..config import load_hyp
         from .evolve import mutate_hyp
         opt.notest, opt.nosave = True, True
+        if opt.bucket:
+            # the fleet's evolve.txt first
+            from ..utils import gsutil
+            gsutil.download_evolve(opt.bucket)
         hyp_override = mutate_hyp(load_hyp(None))
     topt = TrainOptions(
         cfg=opt.cfg, data=opt.data, weights=weights, epochs=opt.epochs,
@@ -151,13 +156,13 @@ def main(argv=None):
         seed=opt.seed, device_aug=opt.device_aug, cutout=opt.cutout,
         ud_flip=opt.ud_flip, resume=opt.resume, hyp_override=hyp_override,
         max_targets=opt.max_targets, tp=opt.tp, remat=opt.remat,
-        bucket=opt.bucket,
+        bucket=opt.bucket, name=opt.name,
         results_file=f'results{opt.name}.txt' if opt.name else 'results.txt',
         device=opt.device)
     results = run_training(topt)
     if opt.evolve:
         from .evolve import print_mutation
-        print_mutation(hyp_override, results)
+        print_mutation(hyp_override, results, bucket=opt.bucket)
     return results
 
 

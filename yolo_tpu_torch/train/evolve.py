@@ -14,8 +14,8 @@ import os
 
 import numpy as np
 
-from ..compress.quant import unported
 from ..eval.metrics import fitness
+from ..utils import gsutil
 
 # hyp keys in evolve.txt column order; gains control mutation strength per key
 HYP_KEYS = ['giou', 'cls', 'cls_pw', 'obj', 'obj_pw', 'iou_t', 'lr0', 'lrf',
@@ -58,10 +58,10 @@ def mutate_hyp(hyp: dict, evolve_file='evolve.txt', rng=None) -> dict:
 def print_mutation(hyp: dict, results, evolve_file='evolve.txt',
                    bucket: str = ''):
     """Append the (results, hyp) row to ``evolve_file``, drop duplicate
-    rows and keep it sorted by fitness. A shared ``bucket`` (gsutil) is
-    not ported."""
+    rows and keep it sorted by fitness; with a gsutil ``bucket``, the
+    bucket's ``evolve.txt`` is fetched first and the result copied back."""
     if bucket:
-        raise unported('the gsutil evolve.txt bucket (--bucket)')
+        gsutil.download_evolve(bucket, evolve_file)
     b = '%10.3g' * len(HYP_KEYS) % tuple(hyp[k] for k in HYP_KEYS)
     c = '%10.4g' * len(results) % tuple(results)
     print(f'\nEvolved fitness: {c}\n')
@@ -69,6 +69,8 @@ def print_mutation(hyp: dict, results, evolve_file='evolve.txt',
         f.write(c + b + '\n')
     x = np.unique(np.loadtxt(evolve_file, ndmin=2), axis=0)
     np.savetxt(evolve_file, x[np.argsort(-fitness(x))], '%10.3g')
+    if bucket:
+        gsutil.upload_evolve(bucket, evolve_file)
 
 
 def plot_evolution_results(hyp: dict, evolve_file='evolve.txt',

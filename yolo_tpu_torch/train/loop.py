@@ -28,9 +28,17 @@ Knowledge distillation (``t_cfg``): the teacher loads from ``t_cfg`` and
 step (KD5 with ``kd5_mask``). The heads stay NHWC except for KD6, which
 needs them anchor-major; KD combines with QAT.
 
-Not ported (see ROADMAP.md): the device augmentations, the gsutil bucket
-upload, tensor parallelism and multi-host training; they raise
-``NotImplementedError``.
+Device augmentation (``device_aug``): the dataset only decodes and
+letterboxes, and mosaic, affine, HSV and flip run on the device
+(``data/device_aug.py``) after ``preprocess`` and before the multi-scale
+resize, from a generator on the device seeded ``seed * 100003 + ni`` at
+each batch ``ni``.
+
+``bucket``: ``results.txt`` is copied to the gsutil bucket after each
+epoch (with ``name``) and the checkpoints at the end (``utils/gsutil.py``).
+
+Not ported (see ROADMAP.md): tensor parallelism and multi-host training;
+they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -53,9 +61,11 @@ from ..config import load_hyp, parse_data_cfg
 from ..convert import (from_jax, opt_state_from_jax, opt_state_to_jax,
                        qstate_to_jax, to_jax)
 from ..data.datasets import BatchLoader, DetectionDataset
+from ..data.device_aug import make_device_augment
 from ..eval.evaluator import evaluate
 from ..eval.metrics import fitness
 from ..runtime import load_model, preprocess
+from ..utils import gsutil
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from .kd import make_kd_loss_fn
 from .loss import LossHyp
@@ -97,7 +107,8 @@ class TrainOptions:
     nosave: bool = False
     weights_dir: str = 'weights'
     results_file: str = 'results.txt'
-    bucket: str = ''
+    bucket: str = ''                         # gsutil bucket: per-epoch
+    name: str = ''                           # results upload needs both
     tb_logdir: str = ''                      # TensorBoard logdir ('' = off)
     tp: int = 1
     max_targets: int = 0
@@ -121,11 +132,14 @@ class TrainOptions:
     device: str = 'cuda'
 
 
-def _check_ported(opt: TrainOptions):
-    if opt.device_aug:
-        raise unported('the device augmentations (--device-aug)')
-    if opt.bucket:
-        raise unported('the gsutil bucket upload (--bucket)')
+def _check_options(opt: TrainOptions):
+    if opt.augment and opt.device_aug:
+        if opt.maxabsscaler:
+            raise ValueError('--device-aug works on [0, 1] inputs: no '
+                             '--maxabsscaler')
+        if opt.rect:
+            raise ValueError('--device-aug needs square letterboxed '
+                             'batches: no --rect')
     if opt.tp > 1:
         raise unported(f'tensor parallelism (--tp {opt.tp})')
     if opt.remat not in ('none', ''):
@@ -166,7 +180,7 @@ def _restore(ts, ck, net, log):
 def run_training(opt: TrainOptions):
     """Train as the JAX package's ``run_training`` does; returns the last
     epoch's (P, R, mAP@0.5, F1, val lbox, lobj, lcls)."""
-    _check_ported(opt)
+    _check_options(opt)
     device = torch.device(opt.device)
     cuda = device.type == 'cuda'
     log = opt.log_fn
@@ -287,10 +301,15 @@ def run_training(opt: TrainOptions):
         _restore(ts, ck, net, log)
 
     dataset = DetectionDataset(
-        train_path, img_size, opt.batch_size, augment=opt.augment, hyp=hyp,
-        rect=opt.rect, cache_images=opt.cache_images,
-        is_gray_scale=opt.gray_scale, image_weights=opt.image_weights,
-        seed=opt.seed, cutout=opt.cutout, ud_flip=opt.ud_flip)
+        train_path, img_size, opt.batch_size,
+        augment=opt.augment and not opt.device_aug, hyp=hyp, rect=opt.rect,
+        cache_images=opt.cache_images, is_gray_scale=opt.gray_scale,
+        image_weights=opt.image_weights, seed=opt.seed, cutout=opt.cutout,
+        ud_flip=opt.ud_flip)
+    dev_aug = None
+    if opt.augment and opt.device_aug:
+        dev_aug = make_device_augment(img_size, hyp, mosaic=True)
+        aug_gen = torch.Generator(device=device)
     loader = BatchLoader(dataset, opt.batch_size,
                          max_targets=opt.max_targets or 30 * opt.batch_size,
                          shuffle=True, drop_last=True, seed=opt.seed)
@@ -352,6 +371,11 @@ def run_training(opt: TrainOptions):
                     log(f'first-batch plot failed: {e}')
 
             x = preprocess(upload(imgs), opt.maxabsscaler, device=device)
+            tgt_in = upload(np.asarray(tgt, np.float32))
+            valid_in = upload(np.asarray(valid, bool))
+            if dev_aug is not None:
+                aug_gen.manual_seed(opt.seed * 100003 + ni)
+                x, tgt_in, valid_in = dev_aug(x, tgt_in, valid_in, aug_gen)
             if multi_scale:
                 # a new size every ``accumulate`` batches
                 if (ni / max(accumulate, 1)) % 1 == 0:
@@ -360,9 +384,7 @@ def run_training(opt: TrainOptions):
                     x = resize_batch(x, cur_size)
             step_fn = (grad_fn_frozen if grad_fn_frozen is not None
                        and qat_steps >= freeze_at else grad_fn)
-            ts, items = step_fn(ts, x, upload(np.asarray(tgt, np.float32)),
-                                upload(np.asarray(valid, bool)), gr,
-                                loss_scale)
+            ts, items = step_fn(ts, x, tgt_in, valid_in, gr, loss_scale)
             qat_steps += 1
             # the optimizer steps when ni % accumulate == 0, not every
             # accumulate-th batch since the last step (they differ while
@@ -411,6 +433,8 @@ def run_training(opt: TrainOptions):
 
         with open(opt.results_file, 'a') as f:
             f.write(('%10.4g' * 12 + '\n') % (epoch, *mloss, *results))
+        if opt.bucket and opt.name:
+            gsutil.sync_results(opt.bucket, opt.name, opt.results_file)
 
         fi = float(fitness(np.array(results).reshape(1, -1))[0])
         if fi > best_fitness:
@@ -424,6 +448,10 @@ def run_training(opt: TrainOptions):
                     best, ts, net, epoch=epoch, best_fitness=best_fitness,
                     results_file=opt.results_file, with_opt=False)
 
+    if opt.bucket and not opt.nosave:
+        for ck in (last, best):
+            if os.path.exists(ck):
+                gsutil.upload_weights(opt.bucket, ck)
     log(f'{opt.epochs} epochs completed in {(time.time() - t0) / 3600:.3f} '
         f'hours.')
     return results

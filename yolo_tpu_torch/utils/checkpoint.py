@@ -4,7 +4,8 @@ The port's own copy (numpy only). A checkpoint stores nested dicts of
 arrays as flat path-keyed arrays in one ``.npz`` (no pickle): ``params``,
 ``state`` and, where present, ``opt_state``, ``ema``, ``ema_state`` and
 ``qstate`` (quantizer calibration), plus a JSON ``__meta__`` record.
-Files written by either package load in the other.
+Files written by either package load in the other. ``strip_optimizer``
+turns a training checkpoint into a deployable one in place.
 """
 
 from __future__ import annotations
@@ -84,3 +85,21 @@ def load_checkpoint(path):
             if _META_KEY in data.files else {})
     tree.update(meta)
     return tree
+
+
+def strip_optimizer(path):
+    """Rewrite a training checkpoint in place as a deployable one: the
+    optimizer state dropped (the named form the port writes or the JAX
+    package's positional one), and the EMA pair, when the file holds both
+    its params and its BN state, promoted to params/state (the pair that
+    each epoch's evaluation ran on). The result does not resume."""
+    ck = load_checkpoint(path)
+    if ck.get('ema') is not None and ck.get('ema_state') is not None:
+        params, state = ck['ema'], ck['ema_state']
+    else:
+        params, state = ck['params'], ck['state']
+    save_checkpoint(path, params=params, state=state,
+                    epoch=ck.get('epoch', -1),
+                    best_fitness=ck.get('best_fitness', 0.0),
+                    training_results=ck.get('training_results', ''),
+                    qstate=ck.get('qstate'))

@@ -1,10 +1,12 @@
-"""Box drawing (the port's copy of ``plot_one_box``, ``color_for_class``
-and ``plot_images`` from ``yolo_tpu/utils/plots.py``): the detection CLI's
-boxes and the evaluator's batch mosaics. OpenCV is imported inside the
-functions only."""
+"""Box drawing and training curves (the port's copy of
+``yolo_tpu/utils/plots.py``): ``plot_one_box`` and ``color_for_class`` for
+the detection CLI's boxes, ``plot_images`` for the batch mosaics,
+``plot_results`` for the curves of ``results.txt``. OpenCV and matplotlib
+are imported inside the functions only."""
 
 from __future__ import annotations
 
+import os
 import random
 
 import numpy as np
@@ -64,3 +66,28 @@ def plot_images(images, targets, paths=None, fname='images.jpg', names=None,
     if fname:
         cv2.imwrite(fname, mosaic)
     return mosaic[..., ::-1]
+
+
+def plot_results(results_file='results.txt', save='results.png'):
+    """The training curves of ``results_file`` (epoch, the four train
+    losses, P, R, mAP@0.5, F1, ...) against the epoch, eight panels,
+    written to ``save``; None when the file is missing or empty."""
+    import matplotlib
+    matplotlib.use('Agg')
+    import matplotlib.pyplot as plt
+    if not os.path.exists(results_file):
+        return None
+    data = np.loadtxt(results_file, ndmin=2)
+    if data.size == 0:
+        return None
+    titles = ['GIoU', 'Objectness', 'Classification', 'Train loss',
+              'Precision', 'Recall', 'mAP@0.5', 'F1']
+    fig, axes = plt.subplots(2, 4, figsize=(12, 6), tight_layout=True)
+    x = data[:, 0]
+    for ax, t, c in zip(axes.ravel(), titles, range(1, 9)):
+        if c < data.shape[1]:
+            ax.plot(x, data[:, c], marker='.')
+        ax.set_title(t)
+    fig.savefig(save, dpi=200)
+    plt.close(fig)
+    return save
