@@ -264,6 +264,30 @@ Phases; any failure exits non-zero, and nothing runs on the CPU instead
    at 4 frame steps: K1 once a step, the same detections in each stream,
    a 4-frame video written for each.
 
+14. data parallelism, in a child process (``chip_smoke.py --phase14
+   DIR``; JPEG files and the loader need OpenCV) that starts the ranks
+   (``--phase14-rank``, ``--phase14-cli``, ``--phase14-nccl``), yolov3
+   @608 from seed 0 (``CONV_SCALE``) and 64 seeded JPEG files labelled by
+   it: (a) a job of two ranks sharing ``cuda:0`` over gloo (CUDA tensors
+   in its all-reduces and broadcasts): one f32 ``grad_fn`` of yolov3 @320,
+   global bs 4 as 2 x 2, its summed gradient against one process on the
+   card (loss items within 1e-4 relative, every tensor within 2.3e-2 of
+   its norm, the head convs within 1e-3), then 10 bf16 SGD steps @608,
+   global bs 8 (ms a step by CUDA events beside one process's, the
+   collectives of a step, the gradient all-reduce's ms), both ranks'
+   parameters bit-equal after them; (b) ``python -m yolo_tpu_torch.train
+   --coordinator localhost:P --num-hosts 2 --host-id i`` (its ``main``),
+   1 epoch of bs 8 with its evaluate: the same loss lines on both ranks,
+   ``results.txt`` and the checkpoint on rank 0 alone, K1 once per local
+   eval batch, images/s beside phase 10 (c)'s, the epoch losses within
+   rtol 2e-2 / atol 2e-3 of one process fed the ranks' batches; (c)
+   ``evaluate(mesh=...)`` over the two ranks on the files: the same
+   results on both, K1 once per local batch, against one process within
+   ``DP_EVAL_TOL``, in bf16 and in f32; (d) a job of one rank through
+   ``--coordinator auto`` (``env://``): NCCL, the CLI for one step and its
+   evaluate, and a ``grad_fn`` whose every collective runs through NCCL
+   against the step without a mesh.
+
 A kernel's time is taken twice, on the same inputs: ``cuda_ms``, what its
 caller waits for (median CUDA-event time, the host's work to queue the
 call included), and ``device_ms``, the device alone (a sleep kernel keeps
@@ -271,8 +295,8 @@ the card busy while the host queues the call). A pipeline's time is
 ``cuda_ms``.
 
 The line before the last is a JSON object with each kernel's launches on
-the main paths (phases 4, 6, 7, 8, 9, 10, 11, 12 and 13;
-``launches_phase9`` to ``launches_phase13`` those of the later phases
+the main paths (phases 4, 6, 7, 8, 9, 10, 11, 12, 13 and 14;
+``launches_phase9`` to ``launches_phase14`` those of the later phases
 alone), error, times
 and bound (``ms``, ``plain_ms`` and
 ``library_ms`` by ``cuda_ms``, ``device_ms`` beside them; for nms_suppress
@@ -284,7 +308,7 @@ ptq_cos engine's K2 calls summed and the TPSQ engine's count, phase 11);
 the line before it the card's name and power limit; the last line is the JSON device record. At the end the
 run checks that neither jax nor OpenCV nor any module of the JAX package
 ``yolo_tpu`` was imported into this process (the children of phases 9
-to 13 load OpenCV).
+to 14 load OpenCV).
 """
 
 from __future__ import annotations
@@ -442,7 +466,7 @@ def device_setup():
 
 
 def phase_device():
-    print('[1/13] device')
+    print('[1/14] device')
     card = device_setup()
     print(f'  {torch.cuda.get_device_name(0)}; torch {torch.__version__}, '
           f'CUDA {torch.version.cuda}; TF32 off for matmul and cuDNN')
@@ -473,7 +497,7 @@ def conv_sass(lib_path):
 
 
 def phase_build():
-    print('[2/13] build')
+    print('[2/14] build')
     import re
     from yolo_tpu_torch import _build
     lib = _build.library_path()
@@ -564,7 +588,7 @@ def k1_compare(got, ref, what):
 
 
 def phase_kernel(dev):
-    print('[3/13] K1 nms_suppress vs plain version')
+    print('[3/14] K1 nms_suppress vs plain version')
     from yolo_tpu_torch.ops import nms_suppress as K1
     suppress, suppress_reference = K1.suppress, K1.suppress_reference
     rng = np.random.default_rng(0)
@@ -643,7 +667,7 @@ def phase_kernel(dev):
 
 
 def phase_pipeline(dev, card):
-    print('[4/13] yolov3 @608 float pipeline')
+    print('[4/14] yolov3 @608 float pipeline')
     from yolo_tpu_torch import runtime
     from yolo_tpu_torch.ops import nms
     from yolo_tpu_torch.ops.nms_suppress import suppress
@@ -860,7 +884,7 @@ def int_mm_ms(x8, w8, **timing):
 
 
 def phase_conv_kernel(dev):
-    print('[5/13] K2 conv_int8 vs plain version')
+    print('[5/14] K2 conv_int8 vs plain version')
     from yolo_tpu_torch.ops.conv_int8 import (fused_conv_int8,
                                               fused_conv_int8_reference)
     max_err = 0.0
@@ -1176,7 +1200,7 @@ def in_range(label, fn):
 
 
 def phase_int8(dev, card):
-    print('[6/13] yolov3 @608 int8 serving')
+    print('[6/14] yolov3 @608 int8 serving')
     from yolo_tpu_torch import runtime
     b, x = int8_bundle(dev, BS, SIZE)
     launches, plan, infer = int8_checks(b, x)
@@ -1373,7 +1397,7 @@ def phase_eval(dev, card, qb, cfg=CFG, n_images=EVAL_IMAGES):
     """The evaluation path: ``evaluate`` on float yolov3 (device and host
     matching), the f32 QAT sim and the int8 engine of phase 6's calibrated
     bundle ``qb``, each against pseudo-labels made by the model itself."""
-    print(f'[7/13] mAP evaluation: yolov3 @{SIZE}, {n_images} images, bs={BS}')
+    print(f'[7/14] mAP evaluation: yolov3 @{SIZE}, {n_images} images, bs={BS}')
     from yolo_tpu_torch import runtime
     from yolo_tpu_torch.compress.quant import make_quant_apply
     from yolo_tpu_torch.eval.evaluator import evaluate, int8_engine_apply
@@ -1739,7 +1763,7 @@ def phase_new_cfgs(dev, card):
     from yolo_tpu_torch import runtime
     from yolo_tpu_torch.models.torch_import import save_torch_checkpoint
     t0 = time.perf_counter()
-    print(f'[8/13] more cfgs: (a) yolov3-mobilenet @{MOBILE_SIZE}, (b) '
+    print(f'[8/14] more cfgs: (a) yolov3-mobilenet @{MOBILE_SIZE}, (b) '
           f'yolov3-asff @{SIZE}, (c) TTA yolov3 @{SIZE}, (d) mobilenet int8, '
           '(e) .pt')
     k1 = 0
@@ -2121,7 +2145,7 @@ def prune_child(root, dev):
 
 def phase_prune():
     """Phase 9 in a child process; returns its numbers."""
-    print(f'[9/13] pruning: yolov3 @{SIZE}, {PRUNE_IMAGES} JPEG files, '
+    print(f'[9/14] pruning: yolov3 @{SIZE}, {PRUNE_IMAGES} JPEG files, '
           f'bs={BS} (a child process)')
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as root:
@@ -2180,14 +2204,15 @@ def train_batch(seed, bs, size, dev, n=6, nc=80):
             torch.from_numpy(tgt).to(dev), torch.from_numpy(valid).to(dev))
 
 
-def train_functions(net):
+def train_functions(net, mesh=None):
     from yolo_tpu_torch.config import DEFAULT_HYP
     from yolo_tpu_torch.train.loss import LossHyp
     from yolo_tpu_torch.train.trainer import make_train_functions
     avecs = [np.asarray(l.anchors) / l.yolo_stride
              for l in net.layers if l.kind == 'yolo']
     return make_train_functions(net, avecs, net.nc,
-                                LossHyp.from_dict(DEFAULT_HYP, nc=net.nc))
+                                LossHyp.from_dict(DEFAULT_HYP, nc=net.nc),
+                                mesh=mesh)
 
 
 def rel_l2(got, want):
@@ -2510,7 +2535,7 @@ def train_child(root, dev):
 def phase_train(dev, card, qb):
     """Phase 10: the train step on the card against the CPU, the step at
     full size, the loop from files in a child process, the eval snap."""
-    print(f'[10/13] float training: yolov3 @{SIZE}, bs={BS}')
+    print(f'[10/14] float training: yolov3 @{SIZE}, bs={BS}')
     from yolo_tpu_torch.ir import build_ir
     from yolo_tpu_torch.models.network import init_params
     t0 = time.perf_counter()
@@ -3273,7 +3298,7 @@ def quant_child(root, dev):
 
 def phase_quant():
     """Phase 11 in a child process; returns its numbers."""
-    print(f'[11/13] quantization: yolov4 @{SIZE} PTQ and its engine, QAT and '
+    print(f'[11/14] quantization: yolov4 @{SIZE} PTQ and its engine, QAT and '
           f'TPSQ on yolov3 @{SIZE}, the QAT loop')
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as root:
@@ -3377,8 +3402,8 @@ def kd_fn_for(strategy, teacher, net, avecs, strides, size, record=None):
     if record is None:
         return fn
 
-    def rec(*a):
-        v = fn(*a)
+    def rec(*a, **k):
+        v = fn(*a, **k)
         record.append(v.detach())
         return v
     rec.layout = fn.layout
@@ -3847,7 +3872,7 @@ def kd_child(root, dev):
 
 def phase_kd():
     """Phase 12 in a child process; returns its numbers."""
-    print(f'[12/13] distillation, evolve, the FPGA export and anchors: '
+    print(f'[12/14] distillation, evolve, the FPGA export and anchors: '
           f'yolov3 @{SIZE} and its pruned student (a child process)')
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as root:
@@ -4208,7 +4233,7 @@ def phase_data(train):
     """Phase 13 in a child process; returns its numbers. ``train``: phase
     10's numbers, whose host-augment loop (c) is printed beside the
     ``--device-aug`` one."""
-    print(f'[13/13] the data path: the native letterbox, the device '
+    print(f'[13/14] the data path: the native letterbox, the device '
           f'augmentation, train --device-aug, detect on streams (a child '
           f'process)')
     t0 = time.perf_counter()
@@ -4228,13 +4253,630 @@ def phase_data(train):
     return out
 
 
+# ------------------------------------ phase 14: data parallelism
+
+DP_RANKS = 2                  # two ranks share the one card, over gloo
+DP_GRAD_SIZE, DP_GRAD_BS = 320, 4   # (a): the f32 gradient, 2 x 2
+# (a): the f32 gradient over the ranks against one process on the card:
+# the loss items relative, every tensor of its norm (the card's f32
+# gradients behind train-mode BN, ROADMAP.md "Gradients on the card": the
+# card and the CPU 2.3e-2 apart), the head convs (no BN behind them) of
+# theirs (phase 10 (a)'s GRAD_TOL)
+DP_LOSS_TOL = 1e-4
+DP_GRAD_TOL = 2.3e-2
+DP_STEPS, DP_WARMUP = 10, 3   # (a): bf16 SGD steps @608, global bs 8
+# (c): evaluate over the ranks (local bs 4) against one process (bs 8).
+# cuDNN may pick other algorithms for 4 images than for 8, so each
+# detection's score moves by the rounding of its sums; where two of the
+# ~19k detections' scores sit closer than that, their ranks can swap, and
+# a swap near the top of a class of ~20 labels moves its AP by up to 0.05.
+# In f32 (TF32 off) the scores move by ~1e-6 of themselves: P, R, mAP@0.5,
+# F1 and every class AP within 5e-3, the val losses within 1e-4 relative.
+# In bf16 (the default) they move by up to a bf16 ulp (2^-8 of
+# themselves): P, R, mAP@0.5 and F1 within 0.01, the val losses within 1%;
+# the class APs are printed, not held (2.2e-2 apart measured on an H100)
+DP_EVAL_TOL = {'f32': (5e-3, 1e-4), 'bf16': (1e-2, 1e-2)}
+DP_CLI_TOL = dict(rtol=2e-2, atol=2e-3)   # (b): tests/test_parallel.py's
+DP_NCCL_IMAGES = 8            # (d): one step of bs 8, its evaluate
+
+
+def dp_block(x, tgt, valid, rank, n_ranks=DP_RANKS):
+    """Rank ``rank``'s block of a global batch on the device: its images,
+    the targets with block-local image indices and the others' masked
+    (the capacity stays the global one)."""
+    lb = x.shape[0] // n_ranks
+    b = tgt[:, 0]
+    mine = valid & (b >= rank * lb) & (b < (rank + 1) * lb)
+    t = torch.cat([tgt[:, :1] - rank * lb, tgt[:, 1:]], 1)
+    return x[rank * lb:(rank + 1) * lb], t, mine
+
+
+def dp_steps(grad_fn, update_fn, ts, x, tgt, valid, bs, counted=None):
+    """``DP_STEPS`` bf16 SGD steps on one batch, the last ones timed by
+    CUDA events: (ms a step, grad_fn ms, update_fn ms, losses)."""
+    from yolo_tpu_torch.train.optim import PerGroupScalars
+    sc = PerGroupScalars(lr=(TRAIN_LR,) * 4,
+                         weight_decay=(0.000484, 0.0, 0.0, 0.0),
+                         momentum=0.937)
+    evs, losses = [], []
+    for _ in range(DP_STEPS):
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        e[0].record()
+        ts, items = grad_fn(ts, x, tgt, valid, 1.0, bs / 64)
+        e[1].record()
+        ts = update_fn(ts, sc)
+        e[2].record()
+        evs.append(e)
+        losses.append(items)
+    torch.cuda.synchronize()
+    med = lambda i, j: statistics.median(e[i].elapsed_time(e[j])
+                                         for e in evs[DP_WARMUP:])
+    return med(0, 2), med(0, 1), med(1, 2), torch.stack(losses)
+
+
+def param_digest(ts):
+    """sha256 of every parameter's bytes, in key order."""
+    import hashlib
+    h = hashlib.sha256()
+    for k, d in sorted(ts.params.items()):
+        for f, p in sorted(d.items()):
+            h.update(p.detach().cpu().numpy().tobytes())
+    return np.frombuffer(h.digest(), np.uint8)
+
+
+class DpCounts:
+    """Within the block, counts the calls of ``torch.distributed``'s
+    ``all_reduce`` and ``broadcast``."""
+
+    def __init__(self):
+        self.n = 0
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.saved = dist.all_reduce, dist.broadcast
+
+        def wrap(fn):
+            def call(*a, **k):
+                self.n += 1
+                return fn(*a, **k)
+            return call
+        dist.all_reduce, dist.broadcast = map(wrap, self.saved)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        dist.all_reduce, dist.broadcast = self.saved
+
+
+def dp_rank(rank, port, root):
+    """(a) and (c) on rank ``rank`` of a job of ``DP_RANKS`` on the card
+    (gloo: the ranks share it). Writes ``root/rank{rank}.json`` and, on
+    rank 0, the summed f32 gradient to ``root/grad_dp.pt``."""
+    import torch.distributed as dist
+    from yolo_tpu_torch import runtime
+    from yolo_tpu_torch.ir import build_ir
+    from yolo_tpu_torch.models.network import init_params
+    from yolo_tpu_torch.ops.nms_suppress import suppress
+    from yolo_tpu_torch.parallel import (allgather_host_values,
+                                         init_multihost, make_mesh)
+    from yolo_tpu_torch.parallel.collectives import (all_reduce_nograd,
+                                                     sum_gradients)
+    from yolo_tpu_torch.train import trainer
+    from yolo_tpu_torch.train.trainer import init_train_state
+    dev = init_multihost(f'localhost:{port}', DP_RANKS, rank)
+    device_setup()
+    mesh = make_mesh(dev)
+    group = mesh.data_group
+    out = {'backend': dist.get_backend(), 'device': str(dev)}
+    net = build_ir(CFG)
+    params, state = init_params(net, torch.Generator().manual_seed(0),
+                                conv_scale=CONV_SCALE)
+    # (a) the f32 gradient of the global batch, summed over the ranks
+    grad_fn, update_fn = train_functions(net, mesh)
+    ts = init_train_state(net, params, state, compute_dtype=None, device=dev)
+    x, tgt, valid = train_batch(70, DP_GRAD_BS, DP_GRAD_SIZE, dev)
+    ts, items = grad_fn(ts, *dp_block(x, tgt, valid, rank), 1.0,
+                        DP_GRAD_BS / 64)
+    sum_gradients([p for g in ts.optimizer.param_groups
+                   for p in g['params']], group)
+    items = all_reduce_nograd(items, group)
+    if rank == 0:
+        torch.save({'items': items.cpu(),
+                    'grads': {f'{k}.{f}': p.grad.cpu()
+                              for k, g in ts.params.items()
+                              for f, p in g.items()}},
+                   os.path.join(root, 'grad_dp.pt'))
+    del ts
+    # (a) bf16 SGD steps @608, global bs 8: times, collectives, all-reduce
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ts = init_train_state(net, params, state, compute_dtype=torch.bfloat16,
+                          device=dev)
+    xb = dp_block(*train_batch(71, BS, SIZE, dev), rank)
+    ar_s = []
+    sum_grads = trainer.sum_gradients
+
+    def timed_sum(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sum_grads(*a)
+        torch.cuda.synchronize()
+        ar_s.append(time.perf_counter() - t)
+    trainer.sum_gradients = timed_sum
+    try:
+        step, g_ms, u_ms, losses = dp_steps(grad_fn, update_fn, ts, *xb, BS)
+        with DpCounts() as cnt:
+            ts, _ = grad_fn(ts, *xb, 1.0, BS / 64)
+            ts = update_fn(ts, trainer.PerGroupScalars(
+                lr=(0.0,) * 4, weight_decay=(0.0,) * 4, momentum=0.0))
+            torch.cuda.synchronize()
+    finally:
+        trainer.sum_gradients = sum_grads
+    losses = all_reduce_nograd(losses, group).cpu().numpy()
+    digests = allgather_host_values(param_digest(ts))
+    out.update(step_ms=step, grad_ms=g_ms, update_ms=u_ms,
+               allreduce_ms=1e3 * statistics.median(ar_s[DP_WARMUP:]),
+               collectives=cnt.n, peak_gib=torch.cuda.max_memory_allocated()
+               / 2**30, loss_first=float(losses[:3, 3].mean()),
+               loss_last=float(losses[-3:, 3].mean()),
+               params_equal=bool((digests == digests[0]).all()))
+    del ts, xb
+    torch.cuda.empty_cache()
+    # (c) evaluate over the ranks, from the files
+    from yolo_tpu_torch.config import DEFAULT_HYP
+    from yolo_tpu_torch.eval.evaluator import evaluate
+    from yolo_tpu_torch.train.loss import LossHyp
+    b = runtime.load_model(CFG, os.path.join(root, 'init.npz'), device=dev)
+    os.chdir(os.path.join(root, f'rank{rank}'))
+    for tag, dtype in (('bf16', torch.bfloat16), ('f32', torch.float32)):
+        torch.cuda.synchronize()
+        suppress.launches = 0
+        t0 = time.perf_counter()
+        res, maps, _ = evaluate(
+            b.net, b.params, b.state, os.path.join(root, 'set', 'set.data'),
+            batch_size=BS, img_size=SIZE, mesh=mesh, device=dev,
+            compute_dtype=dtype,
+            loss_hyp=LossHyp.from_dict(DEFAULT_HYP, nc=b.net.nc),
+            anchor_vecs=[np.asarray(l.anchors) / l.yolo_stride
+                         for l in b.net.layers if l.kind == 'yolo'],
+            plot=tag == 'bf16')
+        torch.cuda.synchronize()
+        out[f'eval_{tag}'] = {'s': time.perf_counter() - t0,
+                              'k1': suppress.launches,
+                              'res': [float(v) for v in res],
+                              'maps': [float(v) for v in maps]}
+    dist.destroy_process_group()
+    with open(os.path.join(root, f'rank{rank}.json'), 'w') as f:
+        json.dump(out, f)
+
+
+def dp_cli_argv(data, init, per_image, epochs=1):
+    return ['--cfg', CFG, '--weights', init, '--data', data, '--epochs',
+            str(epochs), '--batch-size', str(BS), '--img-size', str(SIZE),
+            str(SIZE), str(SIZE), '--max-targets', str(4 * per_image * BS)]
+
+
+def dp_cli_rank(rank, port, root):
+    """(b) rank ``rank`` of ``python -m yolo_tpu_torch.train --coordinator``
+    (its ``main``), in ``root/cli{rank}``; writes ``root/cli{rank}.json``."""
+    from yolo_tpu_torch.ops.nms_suppress import suppress
+    from yolo_tpu_torch.train.__main__ import main
+    with open(os.path.join(root, 'cli.json')) as f:
+        cfg = json.load(f)
+    os.chdir(os.path.join(root, f'cli{rank}'))
+    suppress.launches = 0
+    t0 = time.perf_counter()
+    with TimedLines() as tl:
+        main(cfg['argv'] + ['--coordinator', f'localhost:{port}',
+                            '--num-hosts', str(DP_RANKS), '--host-id',
+                            str(rank)])
+    torch.cuda.synchronize()
+    lines = [(t, m) for t, m in tl.lines
+             if m.lstrip().startswith('epoch ') and ' batch ' in m]
+    nb = len(lines)
+    with open(os.path.join(root, f'cli{rank}.json'), 'w') as f:
+        json.dump({'s': time.perf_counter() - t0, 'k1': suppress.launches,
+                   'totals': [m.split(' total ')[1].split()[0]
+                              for _, m in lines],
+                   'images_per_s': (nb - 1) * BS / (lines[-1][0]
+                                                    - lines[0][0]),
+                   'batches': nb}, f)
+
+
+def dp_nccl(root):
+    """(d) a job of one rank through ``--coordinator auto`` (``env://``):
+    the train CLI for one step of bs 8 and its evaluate; then a new job of
+    one rank through ``init_multihost()`` (NCCL) and a ``grad_fn`` with
+    the mesh's data group forced to that rank, so that every collective
+    of the step runs through NCCL, against the step without a mesh.
+    Writes ``root/nccl.json``."""
+    import torch.distributed as dist
+    from yolo_tpu_torch.ir import build_ir
+    from yolo_tpu_torch.models.network import init_params
+    from yolo_tpu_torch.ops.nms_suppress import suppress
+    from yolo_tpu_torch.parallel import Mesh
+    from yolo_tpu_torch.train.__main__ import main
+    from yolo_tpu_torch.train.trainer import init_train_state
+    device_setup()
+    with open(os.path.join(root, 'cli.json')) as f:
+        cfg = json.load(f)
+    from yolo_tpu_torch.parallel import init_multihost
+    os.chdir(os.path.join(root, 'nccl'))
+    suppress.launches = 0
+    main(cfg['argv_nccl'] + ['--coordinator', 'auto'])
+    torch.cuda.synchronize()
+    out = {'k1': suppress.launches,
+           'rows': np.loadtxt('results.txt', ndmin=2).tolist()}
+    # the CLI left the job at its end: join a new one on another port
+    import socket
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        os.environ['MASTER_PORT'] = str(s.getsockname()[1])
+    dev = init_multihost()
+    out['backend'] = dist.get_backend()
+    net = build_ir(CFG)
+    params, state = init_params(net, torch.Generator().manual_seed(0),
+                                conv_scale=CONV_SCALE)
+    mesh = Mesh(shape={'data': 1, 'model': 1}, data_index=0,
+                data_group=dist.group.WORLD, device=dev)
+    x, tgt, valid = train_batch(70, 2, DP_GRAD_SIZE, dev)
+    items = {}
+    for name, m in (('nccl', mesh), ('none', None)):
+        grad_fn, _ = train_functions(net, m)
+        ts = init_train_state(net, params, state, compute_dtype=None,
+                              device=dev)
+        with DpCounts() as cnt:
+            _, it = grad_fn(ts, x, tgt, valid, 1.0, 2 / 64)
+            torch.cuda.synchronize()
+        items[name] = it.cpu().tolist()
+        out[f'collectives_{name}'] = cnt.n
+    out['items'] = items
+    dist.destroy_process_group()
+    with open(os.path.join(root, 'nccl.json'), 'w') as f:
+        json.dump(out, f)
+
+
+def paired_loaders(ds_cls, loader_cls, n_ranks=DP_RANKS):
+    """(DetectionDataset, BatchLoader) stand-ins for one process that
+    deliver what the ranks of a job load: each rank's ``process_shard`` at
+    the local batch, their batches concatenated, image indices shifted."""
+    class Paired:
+        image_weights = False
+
+        def __init__(self, path, img_size, batch_size, **kw):
+            kw.pop('process_shard', None)
+            self.parts = [ds_cls(path, img_size, batch_size // n_ranks,
+                                 process_shard=(r, n_ranks), **kw)
+                          for r in range(n_ranks)]
+
+    class Loader:
+        def __init__(self, ds, batch_size, max_targets, **kw):
+            self.lbs = batch_size // n_ranks
+            self.loaders = [loader_cls(d, self.lbs,
+                                       max_targets=max_targets // n_ranks,
+                                       **kw) for d in ds.parts]
+
+        def __len__(self):
+            return len(self.loaders[0])
+
+        def __iter__(self):
+            for parts in zip(*self.loaders):
+                tgts = []
+                for r, p in enumerate(parts):
+                    t = np.array(p[1], np.float32)
+                    t[:, 0] += r * self.lbs
+                    tgts.append(t)
+                yield (np.concatenate([np.asarray(p[0]) for p in parts]),
+                       np.concatenate(tgts),
+                       np.concatenate([np.asarray(p[2]) for p in parts]),
+                       [q for p in parts for q in p[3]],
+                       [q for p in parts for q in p[4]])
+    return Paired, Loader
+
+
+def dp_spawn(argv_of_rank, n, env=None, timeout=600):
+    """Start ``n`` processes, wait for all of them and check that each
+    exited 0 (their output goes to ours)."""
+    sys.stdout.flush()
+    procs = [subprocess.Popen(argv_of_rank(r), env=env) for r in range(n)]
+    codes = []
+    try:
+        for p in procs:
+            codes.append(p.wait(timeout=timeout))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(codes):
+        raise SmokeFailure(f'phase 14 ranks exited {codes}')
+
+
+def dp_child(root, dev):
+    """Phase 14 in a process of its own (the JPEG files and the loader need
+    OpenCV); it starts the ranks. Writes ``root/phase14.json``."""
+    import socket
+    from yolo_tpu_torch import runtime
+    from yolo_tpu_torch.config import parse_data_cfg
+    from yolo_tpu_torch.convert import to_jax
+    from yolo_tpu_torch.data import datasets as tds
+    from yolo_tpu_torch.data.datasets import DetectionDataset
+    from yolo_tpu_torch.eval.evaluator import evaluate
+    from yolo_tpu_torch.ir import build_ir
+    from yolo_tpu_torch.models.network import init_params
+    from yolo_tpu_torch.ops.nms_suppress import suppress
+    from yolo_tpu_torch.train import loop
+    from yolo_tpu_torch.train.__main__ import main
+    from yolo_tpu_torch.train.trainer import init_train_state
+    from yolo_tpu_torch.utils.checkpoint import save_checkpoint
+    card = device_setup()
+    t_phase = time.perf_counter()
+    out = {'seconds': {}, 'card': card}
+
+    def port():
+        with socket.socket() as s:
+            s.bind(('localhost', 0))
+            return s.getsockname()[1]
+    me = os.path.abspath(__file__)
+    raw = runtime.load_model(CFG, device=dev, conv_scale=CONV_SCALE,
+                             generator=torch.Generator().manual_seed(0))
+    kw = dict(conf_thres=CONF_THRES, iou_thres=0.6, top_k=512, max_det=300)
+    data, _, labels = write_jpeg_set(os.path.join(root, 'set'),
+                                     raw.fuse().make_infer(**kw), dev,
+                                     TRAIN_IMAGES)
+    per_image = max(len(lab) for per in labels for lab in per)
+    lst = parse_data_cfg(data)['valid']
+    with open(data, 'a') as f:
+        f.write(f'train={lst}\n')
+    init = os.path.join(root, 'init.npz')
+    p, s = to_jax(raw.net, raw.params, raw.state)
+    save_checkpoint(init, params=p, state=s)
+    del raw
+    # (d)'s set: the first DP_NCCL_IMAGES files
+    with open(lst) as f:
+        files = f.read().split()[:DP_NCCL_IMAGES]
+    lst8 = os.path.join(root, 'set', 'first.txt')
+    with open(lst8, 'w') as f:
+        f.write('\n'.join(files) + '\n')
+    data8 = os.path.join(root, 'set', 'first.data')
+    with open(data8, 'w') as f:
+        f.write(f'classes=80\ntrain={lst8}\nvalid={lst8}\n'
+                f'names={ROOT}/data_cfg/coco.names\n')
+    with open(os.path.join(root, 'cli.json'), 'w') as f:
+        json.dump({'argv': dp_cli_argv(data, init, per_image),
+                   'argv_nccl': dp_cli_argv(data8, init, per_image)}, f)
+    for d in ('rank0', 'rank1', 'cli0', 'cli1', 'nccl', 'single'):
+        os.makedirs(os.path.join(root, d))
+
+    # one process on the card: the f32 gradient @320 and the bf16 steps
+    t0 = time.perf_counter()
+    net = build_ir(CFG)
+    params, state = init_params(net, torch.Generator().manual_seed(0),
+                                conv_scale=CONV_SCALE)
+    g_one, _, it_one = grad_run(net, params, state, dev, size=DP_GRAD_SIZE,
+                                bs=DP_GRAD_BS)
+    grad_fn, update_fn = train_functions(net)
+    ts = init_train_state(net, params, state, compute_dtype=torch.bfloat16,
+                          device=dev)
+    step1, g1, u1, _ = dp_steps(grad_fn, update_fn, ts,
+                                *train_batch(71, BS, SIZE, dev), BS)
+    del ts
+    torch.cuda.empty_cache()
+    print(f'  one process: bf16 step @{SIZE} bs={BS} {step1:.3f} ms '
+          f'(grad_fn {g1:.3f}, update_fn {u1:.3f}; CUDA events, median of '
+          f'{DP_STEPS - DP_WARMUP}) ({card})')
+    out['seconds']['single'] = time.perf_counter() - t0
+
+    # (a) and (c): two ranks on the card
+    t0 = time.perf_counter()
+    pt = port()
+    dp_spawn(lambda r: [sys.executable, me, '--phase14-rank', str(r),
+                        str(pt), root], DP_RANKS)
+    ranks = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(root, f'rank{r}.json')) as f:
+            ranks.append(json.load(f))
+    out['seconds']['a_c'] = time.perf_counter() - t0
+    a = ranks[0]
+    check(all(q['backend'] == 'gloo' and q['device'] == 'cuda:0'
+              for q in ranks),
+          f'(a) {DP_RANKS} ranks joined over gloo, both on cuda:0 (more '
+          f'ranks than cards)')
+    dp = torch.load(os.path.join(root, 'grad_dp.pt'))
+    check(torch.allclose(dp['items'], it_one, rtol=DP_LOSS_TOL),
+          f'(a) f32 grad_fn @{DP_GRAD_SIZE}, global bs {DP_GRAD_BS} as '
+          f'{DP_RANKS} x {DP_GRAD_BS // DP_RANKS}: loss items '
+          f'{dp["items"].tolist()} against one process\'s '
+          f'{it_one.tolist()} (rtol {DP_LOSS_TOL:g})')
+    err, err_all = rel_l2(dp['grads'], g_one)
+    heads = {str(l.index) for l in net.layers if l.kind == 'conv'
+             and not l.bn}
+    head_err = max(e for k, e in err.items() if k.split('.')[0] in heads)
+    k_w = max(err, key=err.get)
+    check(err[k_w] <= DP_GRAD_TOL and head_err <= GRAD_TOL,
+          f'(a) the summed gradient against one process\'s: {len(err)} '
+          f'tensors, the worst {k_w} at {err[k_w]:.2e} of its norm (<= '
+          f'{DP_GRAD_TOL:g}), all together {err_all:.2e}, the head convs '
+          f'{head_err:.2e} (<= {GRAD_TOL:g})')
+    out['a'] = {'grad_err_worst': err[k_w], 'grad_err_all': err_all,
+                'head_grad_err': head_err, 'step_ms_one': step1,
+                'grad_ms_one': g1, 'update_ms_one': u1,
+                **{k: a[k] for k in ('step_ms', 'grad_ms', 'update_ms',
+                                     'allreduce_ms', 'collectives',
+                                     'peak_gib')}}
+    check(all(q['params_equal'] for q in ranks)
+          and a['loss_last'] < a['loss_first'],
+          f'(a) {DP_STEPS} bf16 SGD steps @{SIZE}, global bs {BS}: both '
+          f'ranks\' parameters bit-equal (sha256), the loss '
+          f'{a["loss_first"]:.4f} -> {a["loss_last"]:.4f}')
+    print(f'  (a) a step over {DP_RANKS} ranks on one card: '
+          f'{a["step_ms"]:.3f} ms (grad_fn {a["grad_ms"]:.3f}, update_fn '
+          f'{a["update_ms"]:.3f}; one process {step1:.3f}); '
+          f'{a["collectives"]} collectives a step; the gradient all-reduce '
+          f'(one bucket, {sum(t.numel() for t in g_one.values()) * 4 / 2**20:.1f}'
+          f' MiB f32) {a["allreduce_ms"]:.3f} ms by the host clock; peak '
+          f'{a["peak_gib"]:.2f} GiB a rank ({card})')
+
+    # (c) evaluate over the ranks against one process, bf16 and f32
+    b = runtime.load_model(CFG, init, device=dev)
+    from yolo_tpu_torch.config import DEFAULT_HYP
+    from yolo_tpu_torch.train.loss import LossHyp
+    os.chdir(os.path.join(root, 'single'))
+    n_local = TRAIN_IMAGES // DP_RANKS // (BS // DP_RANKS)
+    out['c'] = {}
+    for tag, dtype in (('bf16', torch.bfloat16), ('f32', torch.float32)):
+        res1, maps1, _ = evaluate(
+            b.net, b.params, b.state, data, batch_size=BS, img_size=SIZE,
+            device=dev, dataset=DetectionDataset(lst, SIZE, BS, rect=False),
+            compute_dtype=dtype,
+            loss_hyp=LossHyp.from_dict(DEFAULT_HYP, nc=b.net.nc),
+            anchor_vecs=[np.asarray(l.anchors) / l.yolo_stride
+                         for l in b.net.layers if l.kind == 'yolo'])
+        res1, maps1 = np.asarray(res1), np.asarray(maps1)
+        ev = [q[f'eval_{tag}'] for q in ranks]
+        rs = [np.asarray(e['res']) for e in ev]
+        ms = [np.asarray(e['maps']) for e in ev]
+        check(all(np.array_equal(rs[0], q) for q in rs)
+              and all(np.array_equal(ms[0], q) for q in ms)
+              and all(e['k1'] == n_local for e in ev),
+              f'(c) {tag} evaluate over {DP_RANKS} ranks: the same results '
+              f'and maps on both, K1 {[e["k1"] for e in ev]} times (once per '
+              f'local batch of {BS // DP_RANKS}, {n_local} each)')
+        d_met = float(np.abs(rs[0][:4] - res1[:4]).max())
+        d_maps = float(np.abs(ms[0] - maps1).max())
+        d_loss = float(np.abs(rs[0][4:] / res1[4:] - 1).max())
+        tol, ltol = DP_EVAL_TOL[tag]
+        check(d_met <= tol and (tag == 'bf16' or d_maps <= tol)
+              and d_loss <= ltol and res1[2] > 0.9,
+              f'(c) {tag} against one process (bs {BS}, square letterboxes):'
+              f' P R mAP F1 {np.round(rs[0][:4], 6).tolist()} against '
+              f'{np.round(res1[:4], 6).tolist()} (|d| {d_met:.2e} <= '
+              f'{tol:g}), class APs |d| {d_maps:.2e}'
+              f'{"" if tag == "bf16" else f" (<= {tol:g})"}, val losses '
+              f'{d_loss:.2e} relative (<= {ltol:g})')
+        out['c'][tag] = {'metric_diff': d_met, 'maps_diff': d_maps,
+                         'loss_rdiff': d_loss, 'eval_s': ev[0]['s'],
+                         'k1': [e['k1'] for e in ev]}
+    del b
+    torch.cuda.empty_cache()
+
+    # (b) the train CLI over two ranks, against one process fed their
+    # batches
+    t0 = time.perf_counter()
+    pt = port()
+    dp_spawn(lambda r: [sys.executable, me, '--phase14-cli', str(r),
+                        str(pt), root], DP_RANKS)
+    clis = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(root, f'cli{r}.json')) as f:
+            clis.append(json.load(f))
+    out['seconds']['b'] = time.perf_counter() - t0
+    rows = np.loadtxt(os.path.join(root, 'cli0', 'results.txt'), ndmin=2)
+    n_eval = TRAIN_IMAGES // DP_RANKS // max(BS // 4 // DP_RANKS, 1)
+    check(clis[0]['totals'] == clis[1]['totals'] and rows.shape == (1, 12)
+          and np.isfinite(rows).all()
+          and os.path.exists(os.path.join(root, 'cli0', 'weights',
+                                          'last.npz'))
+          and not any(os.path.exists(os.path.join(root, 'cli1', f))
+                      for f in ('results.txt', 'weights/last.npz'))
+          and all(c['k1'] == n_eval for c in clis),
+          f'(b) train --coordinator over {DP_RANKS} ranks, 1 epoch of bs '
+          f'{BS}: the same {len(clis[0]["totals"])} loss lines on both '
+          f'ranks, results.txt and weights/last.npz on rank 0 alone, K1 '
+          f'{[c["k1"] for c in clis]} times ({n_eval} local eval batches '
+          f'each)')
+    ds_cls, loader_cls = paired_loaders(tds.DetectionDataset,
+                                        tds.BatchLoader)
+    saved = loop.DetectionDataset, loop.BatchLoader
+    loop.DetectionDataset, loop.BatchLoader = ds_cls, loader_cls
+    os.chdir(os.path.join(root, 'single'))
+    suppress.launches = 0
+    try:
+        main(dp_cli_argv(data, init, per_image) + ['--no-mesh'])
+    finally:
+        loop.DetectionDataset, loop.BatchLoader = saved
+    torch.cuda.synchronize()
+    k1_single = suppress.launches
+    one = np.loadtxt('results.txt', ndmin=2)
+    check(np.allclose(rows[:, 1:5], one[:, 1:5], **DP_CLI_TOL),
+          f'(b) the epoch losses {np.round(rows[0, 1:5], 5).tolist()} '
+          f'against one process fed the ranks\' batches '
+          f'{np.round(one[0, 1:5], 5).tolist()} (rtol '
+          f'{DP_CLI_TOL["rtol"]:g}, atol {DP_CLI_TOL["atol"]:g})')
+    out['b'] = {'images_per_s': clis[0]['images_per_s'],
+                'k1': [c['k1'] for c in clis], 's': clis[0]['s'],
+                'loss': rows[0, 1:5].tolist(), 'loss_one': one[0, 1:5].tolist()}
+    print(f'  (b) the loop over {DP_RANKS} ranks on one card: '
+          f'{clis[0]["images_per_s"]:.1f} images/s (global, batches 0 to '
+          f'{clis[0]["batches"] - 1}), {clis[0]["s"]:.1f} s with set-up and '
+          f'evaluate ({card})')
+
+    # (d) NCCL: one rank through --coordinator auto
+    t0 = time.perf_counter()
+    env = dict(os.environ, RANK='0', WORLD_SIZE='1', LOCAL_RANK='0',
+               LOCAL_WORLD_SIZE='1', MASTER_ADDR='localhost',
+               MASTER_PORT=str(port()))
+    dp_spawn(lambda r: [sys.executable, me, '--phase14-nccl', root], 1,
+             env=env)
+    with open(os.path.join(root, 'nccl.json')) as f:
+        nc = json.load(f)
+    out['seconds']['d'] = time.perf_counter() - t0
+    it_n, it_0 = np.asarray(nc['items']['nccl']), np.asarray(
+        nc['items']['none'])
+    n_eval8 = DP_NCCL_IMAGES // max(BS // 4, 1)
+    check(nc['backend'] == 'nccl' and nc['k1'] == n_eval8
+          and len(nc['rows']) == 1 and np.isfinite(nc['rows']).all()
+          and nc['collectives_nccl'] > 0 and nc['collectives_none'] == 0
+          and np.allclose(it_n, it_0, rtol=DP_LOSS_TOL),
+          f'(d) --coordinator auto (env://), one rank: backend '
+          f'{nc["backend"]}, one step and its evaluate (K1 {nc["k1"]} '
+          f'times), a finite results row; the f32 grad_fn with every '
+          f'collective through NCCL ({nc["collectives_nccl"]} of them): loss '
+          f'items {it_n.tolist()} against {it_0.tolist()} without a mesh')
+    out['nms_suppress'] = (sum(q[f'eval_{t}']['k1'] for q in ranks
+                               for t in ('bf16', 'f32'))
+                           + sum(c['k1'] for c in clis) + k1_single
+                           + nc['k1'])
+    out['seconds']['all'] = time.perf_counter() - t_phase
+    print(f'  phase 14 (child): {out["seconds"]["all"]:.1f} s '
+          f'({", ".join(f"{k} {v:.1f}" for k, v in out["seconds"].items() if k != "all")})')
+    with open(os.path.join(root, 'phase14.json'), 'w') as f:
+        json.dump(out, f)
+
+
+def phase_parallel(train):
+    """Phase 14 in a child process, which starts the ranks; returns its
+    numbers. ``train``: phase 10's, whose one-process loop is printed
+    beside the two ranks'."""
+    print(f'[14/14] data parallelism: {DP_RANKS} ranks on the card (gloo), '
+          f'the train CLI across them, evaluate over them, NCCL (a child '
+          f'process)')
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        sys.stdout.flush()
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            '--phase14', root], timeout=900)
+        if r.returncode != 0:
+            raise SmokeFailure(f'phase 14 (child) exited {r.returncode}')
+        with open(os.path.join(root, 'phase14.json')) as f:
+            out = json.load(f)
+    one = train['loop']['loop_images_per_s']
+    print(f'  the training loop: {DP_RANKS} ranks on one card '
+          f'{out["b"]["images_per_s"]:.1f} images/s (phase 14 b) against one '
+          f'process\'s {", ".join(f"{r:.1f}" for r in one)} (phase 10 c, '
+          f'by epoch)')
+    print(f'  phase 14: {time.perf_counter() - t0:.1f} s')
+    return out
+
+
 # imported into this process at the end as well: the data path's and the
 # host utilities' modules (the phases' children run them; their imports
 # must load neither jax, nor OpenCV, nor the JAX package)
 IMPORT_CHECKED = ('native', 'data.datasets', 'data.device_aug',
                   'data.augment_extra', 'detect', 'train.__main__',
                   'utils.profiler', 'utils.gsutil', 'utils.downloads',
-                  'utils.dev')
+                  'utils.dev', 'parallel', 'parallel.mesh',
+                  'parallel.multihost', 'parallel.collectives')
 
 
 def check_imports():
@@ -4268,6 +4910,7 @@ def main():
     quant = phase_quant()
     kd = phase_kd()
     data = phase_data(train)
+    par = phase_parallel(train)
     check_imports()
     print(f'build {build_s:.2f} s; whole run {time.perf_counter() - t0:.1f} s')
     print(card)
@@ -4282,13 +4925,14 @@ def main():
                       + train['loop']['nms_suppress']
                       + train['snap']['nms_suppress']
                       + quant['nms_suppress'] + kd['nms_suppress']
-                      + data['nms_suppress']), **k1,
+                      + data['nms_suppress'] + par['nms_suppress']), **k1,
          'launches_phase9': prune['nms_suppress'],
          'launches_phase10': (train['loop']['nms_suppress']
                               + train['snap']['nms_suppress']),
          'launches_phase11': quant['nms_suppress'],
          'launches_phase12': kd['nms_suppress'],
          'launches_phase13': data['nms_suppress'],
+         'launches_phase14': par['nms_suppress'],
          'main_path_ms': k1_main['ms'],
          'main_path_device_ms': k1_main['device_ms']},
         {'name': 'conv_int8', 'route': 'cuda',
@@ -4321,7 +4965,7 @@ def main():
 
 
 def main_child(child, root):
-    """The child process of phase 9, 10, 11, 12 or 13 (``chip_smoke.py
+    """The child process of phase 9, 10, 11, 12, 13 or 14 (``chip_smoke.py
     --phase9 DIR`` and so on)."""
     dev = torch.device('cuda', 0)
     torch.cuda.set_device(dev)
@@ -4341,6 +4985,16 @@ if __name__ == '__main__':
             main_child(kd_child, sys.argv[2])
         elif sys.argv[1:2] == ['--phase13']:
             main_child(data_child, sys.argv[2])
+        elif sys.argv[1:2] == ['--phase14']:
+            main_child(dp_child, sys.argv[2])
+        elif sys.argv[1:2] in (['--phase14-rank'], ['--phase14-cli']):
+            # a rank of phase 14's job picks its card in init_multihost
+            sys.path.insert(0, ROOT)
+            (dp_rank if sys.argv[1] == '--phase14-rank' else dp_cli_rank)(
+                int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        elif sys.argv[1:2] == ['--phase14-nccl']:
+            sys.path.insert(0, ROOT)
+            dp_nccl(sys.argv[2])
         else:
             main()
     except SmokeFailure as e:

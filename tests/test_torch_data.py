@@ -140,13 +140,16 @@ def test_plot_images_matches_jax(tmp_path):
 
 
 def test_unported_dataset_options_raise(synth_list):
-    """``process_shard`` (the multi-host split) raises NotImplementedError
-    naming ROADMAP.md; the training options, which the evaluation slice
-    refused, build (their batches are held to JAX's in
-    ``test_torch_augment.py``)."""
+    """No dataset option raises any more: ``process_shard`` (the multi-host
+    split, refused until the parallel slice) builds a wrap-padded shard of
+    ``ceil(n / 2)`` files (held to JAX's in ``test_torch_parallel.py``),
+    and the training options, which the evaluation slice refused, build
+    (their batches are held to JAX's in ``test_torch_augment.py``)."""
     from yolo_tpu_torch.data.datasets import DetectionDataset
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        DetectionDataset(synth_list, process_shard=(0, 2))
+    full = DetectionDataset(synth_list)
+    shard = DetectionDataset(synth_list, process_shard=(1, 2))
+    assert shard.n == -(-full.n // 2)
+    assert shard.img_files[:full.n // 2] == full.img_files[1::2]
     assert DetectionDataset(synth_list, augment=True).mosaic
     ds = DetectionDataset(synth_list, image_weights=True)
     assert ds.image_weights and not ds.rect

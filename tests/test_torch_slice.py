@@ -202,7 +202,7 @@ def test_port_never_imports_jax_or_cv2():
     quantization paths' included: ``compress/quant_legacy`` and ``ptq``;
     KD, evolve, the FPGA export and its CLI, and the anchors; the host
     library, the device augmentation, the extra masks and the host
-    utilities) loads neither jax, nor OpenCV, PIL or matplotlib (imported
+    utilities; data parallelism) loads neither jax, nor OpenCV, PIL or matplotlib (imported
     inside functions only), nor any module of the JAX package."""
     code = ('import pkgutil, importlib, sys, yolo_tpu_torch; '
             'mods = [m.name for m in pkgutil.walk_packages('
@@ -220,7 +220,8 @@ def test_port_never_imports_jax_or_cv2():
             "'compress.fpga_export', 'convert_fpga', 'utils.anchors', "
             "'native', 'data.device_aug', 'data.augment_extra', "
             "'utils.profiler', 'utils.gsutil', 'utils.downloads', "
-            "'utils.dev')}; "
+            "'utils.dev', 'parallel', 'parallel.mesh', "
+            "'parallel.multihost', 'parallel.collectives')}; "
             "assert need <= set(mods), need - set(mods); "
             "assert 'PIL' not in sys.modules; "
             "assert 'matplotlib' not in sys.modules; "

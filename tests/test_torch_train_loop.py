@@ -210,11 +210,14 @@ def test_cli_runs_on_cpu(train_set, tmp_path):
 
 @pytest.mark.parametrize('argv', [
     ['--tp', '2'], ['--remat', 'blocks'],
-    ['--coordinator', 'localhost:1234'], ['--num-hosts', '2'],
-    ['--host-id', '1'], ['--num_hosts', '4']],
+    ['--coordinator', 'localhost:1234', '--tp', '2'],
+    ['--num-hosts', '2', '--tp', '2'], ['--host-id', '1', '--remat', 'full'],
+    ['--num_hosts', '4', '--tp', '4']],
     ids=lambda a: a[0].lstrip('-'))
 def test_cli_unported_flags_raise(argv):
-    """The multi-device flags and --remat still raise."""
+    """--tp > 1 and --remat still raise, beside the multi-host flags too
+    (which are ported: ``test_torch_parallel.py``), before the process
+    would join a job."""
     from yolo_tpu_torch.train.__main__ import main
     with pytest.raises(NotImplementedError, match='ROADMAP.md'):
         main(argv + ['--device', 'cpu'])

@@ -19,7 +19,11 @@ shortcut (ways 1 and 2) and concat, and ``make_quant_apply``. Its train
 mode is both the calibration step and the QAT forward: it returns the new
 BN state and quantizer state, and autograd differentiates through the BN
 fold on batch statistics, its statistics conv and every fake-quant
-(straight-through estimators, written ``x + (t - x).detach()``). Its eval
+(straight-through estimators, written ``x + (t - x).detach()``). In a
+data-parallel step the train mode takes the data group (``apply(...,
+group=...)``): the activation trackers' min/max, the cos-PTQ votes' cosines
+and the BN fold's batch statistics are then the global batch's, as under
+the JAX package's mesh; weights are replicated and need no collective. Its eval
 mode is the sim the int8 engine is held against. SE, global avgpool,
 scale_channels and a standalone [batchnorm] stay float, as in the JAX
 package's sim.
@@ -48,6 +52,7 @@ from ..ops import activations as act_mod
 from ..ops import conv as conv_ops
 from ..ops.conv import LONE_BN_EPS, LONE_BN_MOM
 from ..ops.conv_int8 import round_half_away
+from ..parallel.collectives import all_reduce_nograd, batch_moments
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.01     # quantized-conv BN momentum
@@ -164,8 +169,18 @@ def tracker_init(device=None):
             'zp': z(0.0), 'step': z(0.0)}
 
 
-def _update_range(qs, x, track: str):
+def _min_max(x, group=None):
+    """(min, max) of ``x``, over the ranks of ``group`` too (one MAX
+    all-reduce of (-min, max))."""
     mn, mx = torch.min(x), torch.max(x)
+    if group is None:
+        return mn, mx
+    r = all_reduce_nograd(torch.stack([-mn, mx]), group, 'max')
+    return -r[0], r[1]
+
+
+def _update_range(qs, x, track: str, group=None):
+    mn, mx = _min_max(x, group)
     first = qs['first'] == 0
     if track == 'ema':     # averaged range tracker
         new_min = torch.where(first, mn, qs['min'] * (1 - EMA_MOMENTUM)
@@ -200,16 +215,17 @@ def _update_scale(qs, bits: int, sym: bool, sign: bool):
 
 def google_quantize(x, qs, *, bits: int, train: bool, freeze_step: float,
                     sym: bool = True, sign: bool = True, track: str = 'ema',
-                    snap_dtype=None):
+                    snap_dtype=None, group=None):
     """One tracker-quantizer application. In train mode the range and scale
-    update while ``step < freeze_step``, and ``step`` counts up; eval
-    snaps in ``snap_dtype`` when given. Returns (y, qs')."""
+    update while ``step < freeze_step`` (the range over the ranks of
+    ``group`` too), and ``step`` counts up; eval snaps in ``snap_dtype``
+    when given. Returns (y, qs')."""
     if bits == 32:
         return x, qs
     if train:
         do_update = qs['step'] < freeze_step
-        updated = _update_scale(_update_range(qs, x.detach(), track), bits,
-                                sym, sign)
+        updated = _update_scale(_update_range(qs, x.detach(), track, group),
+                                bits, sym, sign)
         qs = {k: torch.where(do_update, updated[k], v) for k, v in qs.items()}
         qs['step'] = qs['step'] + 1
     return fq(x, qs['scale'], qs['zp'], bits, sign,
@@ -322,13 +338,15 @@ def cospt_init(bits: int, device=None):
             'scale': _scalar(1.0, device), 'step': _scalar(0.0, device)}
 
 
-def cospt_quantize(x, qs, *, bits: int, train: bool):
+def cospt_quantize(x, qs, *, bits: int, train: bool, group=None):
     """The cos-similarity scale search: candidate float ranges 2^(i-5), i in
     [0, bits + 7); the batch's winner (the first of equal cosines) gets a
     vote and the most-voted candidate is the working scale. The candidates
     run in chunks (``SEARCH_CHUNK``; the JAX package vectorises all of them
     at once), so that a large activation is in memory one copy at a
-    time."""
+    time. Under ``group`` the cosines are the global batch's: each
+    candidate's dot product with x and squared norm, and x's squared norm,
+    summed over the ranks in one all-reduce."""
     if bits == 32:
         return x, qs
     qmin, qmax = qrange(bits, True)
@@ -339,13 +357,28 @@ def cospt_quantize(x, qs, *, bits: int, train: bool):
             n = bits + 7
             scales = torch.exp2(torch.arange(n, dtype=torch.float32,
                                              device=flat.device) - 5.0) / qr
-            xn = flat / torch.clamp_min(torch.linalg.vector_norm(flat), 1e-12)
-            cos = []
-            for c in _chunks(n, flat.numel()):
-                sc = scales[c][:, None]
-                cos.append(_cosines(torch.clamp(round_half_away(
-                    flat[None, :] / sc), qmin, qmax) * sc, xn))
-            winner = torch.argmax(torch.cat(cos))
+            if group is None:
+                xn = flat / torch.clamp_min(torch.linalg.vector_norm(flat),
+                                            1e-12)
+                cos = []
+                for c in _chunks(n, flat.numel()):
+                    sc = scales[c][:, None]
+                    cos.append(_cosines(torch.clamp(round_half_away(
+                        flat[None, :] / sc), qmin, qmax) * sc, xn))
+                cos = torch.cat(cos)
+            else:
+                dot, sq = [], []
+                for c in _chunks(n, flat.numel()):
+                    sc = scales[c][:, None]
+                    dq = torch.clamp(round_half_away(flat[None, :] / sc),
+                                     qmin, qmax) * sc
+                    dot.append(torch.mv(dq, flat))
+                    sq.append(dq.square().sum(1))
+                g = all_reduce_nograd(torch.cat(
+                    dot + sq + [flat.square().sum()[None]]), group)
+                cos = g[:n] / torch.clamp_min(g[n:2 * n].sqrt(), 1e-12) \
+                    / torch.clamp_min(g[-1].sqrt(), 1e-12)
+            winner = torch.argmax(cos)
             votes = qs['votes'] + (torch.arange(n, device=flat.device)
                                    == winner).to(torch.float32)
             scale = torch.exp2(torch.argmax(votes).to(torch.float32)
@@ -426,19 +459,25 @@ def init_quant_state(net: NetworkIR, cfg: QuantConfig, device=None):
     return qstate, extra
 
 
-def _bn_fold(p, st, qs, out_f, train: bool, cfg: QuantConfig):
+def _bn_fold(p, st, qs, out_f, train: bool, cfg: QuantConfig, group=None):
     """Two-phase BN fold: batch statistics before ``bn_freeze_step``,
     running ones after; running stats are an EMA of momentum 0.01 whose
     first batch is copied in while they are still all zero (stats loaded
     from a checkpoint are never overwritten). The statistics are f32
-    whatever the conv's dtype. Returns (w_fold_scale, bias_fold, new_st,
-    new_qs)."""
+    whatever the conv's dtype, and the global batch's (two-pass, through
+    differentiable all-reduces) under ``group``. Returns (w_fold_scale,
+    bias_fold, new_st, new_qs)."""
     gamma, beta = p['gamma'], p['beta']
     if train:
         out32 = out_f.to(torch.float32)                      # NHWC
-        n = out32.shape[0] * out32.shape[1] * out32.shape[2]
-        batch_mean = out32.mean((0, 1, 2))
-        bv = out32.var((0, 1, 2), unbiased=False) * n / max(n - 1, 1)
+        if group is None:
+            n = out32.shape[0] * out32.shape[1] * out32.shape[2]
+            batch_mean = out32.mean((0, 1, 2))
+            bv = out32.var((0, 1, 2), unbiased=False)
+        else:
+            batch_mean, bv, n = batch_moments(out32, (0, 1, 2), group,
+                                              one_pass=False)
+        bv = bv * n / max(n - 1, 1)
         first = ((qs['first_bn'] == 0) & torch.all(st['mean'] == 0)
                  & torch.all(st['var'] == 0))
         new_mean = torch.where(first, batch_mean, st['mean'] * (1 - BN_MOMENTUM)
@@ -475,17 +514,20 @@ def _conv(x, w, lyr, compute_dtype):
 
 
 def _fold_quant_weights(cfg, lyr, p, st, qs, *, train, warmup=False,
-                        bn_frozen=False, compute_dtype=None, x=None):
+                        bn_frozen=False, compute_dtype=None, x=None,
+                        group=None):
     """BN fold + weight/bias quantization of one conv, per scheme. Returns
     (qw OIHW, qb, st, qs); trackers and statistics update only when
     ``train`` (the statistics conv runs on ``x`` then, unless
-    ``bn_frozen``); ``warmup`` records TPSQ's search winners in qs."""
+    ``bn_frozen``, its statistics over ``group`` too); ``warmup`` records
+    TPSQ's search winners in qs."""
     from . import quant_legacy as QL
     sch = cfg.scheme
     if lyr.bn:
         stat_fold = train and not bn_frozen
         out_f = _conv(x, p['w'], lyr, compute_dtype) if stat_fold else None
-        inv, bias, st, qs = _bn_fold(p, st, qs, out_f, stat_fold, cfg)
+        inv, bias, st, qs = _bn_fold(p, st, qs, out_f, stat_fold, cfg,
+                                     group)
         w_fold = p['w'] * inv[:, None, None, None]
     else:
         w_fold = p['w']
@@ -566,14 +608,15 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig, compute_dtype=None,
                      eval_snap_dtype=None, capture_trace: bool = False):
     """Build the fake-quant apply of ``cfg.scheme`` on NHWC inputs:
 
-    apply(params, state, qstate, x, train=False) ->
+    apply(params, state, qstate, x, train=False, group=None) ->
       train: ((yolo_p, feats), new_state, new_qstate)
       eval:  (io, yolo_p, feats), or (head_out, [None] * n) with
              ``heads_only``
 
     ``capture_trace`` appends ``{str(layer index): output}`` of every layer
     to the return, in both modes (the per-layer dump of
-    ``compress/fpga_export.py``); not with ``heads_only``.
+    ``compress/fpga_export.py``); not with ``heads_only``. ``group``: the
+    data group of a data-parallel train step (module docstring).
 
     conv and depthwise conv -> BN-fold quantized conv with a quantized
     activation; shortcut -> requantized add (min or max way) and multi-route
@@ -610,13 +653,14 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig, compute_dtype=None,
 
     snap = lambda train: None if train else eval_snap_dtype
 
-    def qconv(lyr, p, st, qs, x, train):
+    def qconv(lyr, p, st, qs, x, train, group):
         if not train and 'qw' in p:
             qw, qb = p['qw'], p['qb']
         else:
             qw, qb, st, qs = _fold_quant_weights(
                 cfg, lyr, p, st, qs, train=train, warmup=warmup,
-                bn_frozen=bn_frozen, compute_dtype=compute_dtype, x=x)
+                bn_frozen=bn_frozen, compute_dtype=compute_dtype, x=x,
+                group=group)
         out = _conv(x, qw, lyr, compute_dtype)
         # qb sits on an 8-bit grid: exact in the compute dtype
         out = out + qb.to(out.dtype)
@@ -630,7 +674,8 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig, compute_dtype=None,
                                             train=train,
                                             freeze_step=cfg.scale_freeze_step,
                                             track='ema',
-                                            snap_dtype=eval_snap_dtype)
+                                            snap_dtype=eval_snap_dtype,
+                                            group=group)
         elif sch == 'tpsq':
             if warmup:
                 qs['a_scale'] = _tpsq_search_scale(out, bits)
@@ -642,12 +687,12 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig, compute_dtype=None,
                 out = QL.dorefa_activation(out, bits)
         elif sch == 'ptq_cos':
             out, qs['aq'] = cospt_quantize(out, qs['aq'], bits=bits,
-                                           train=train)
+                                           train=train, group=group)
         # wbin, ternary: weight-only, float activations
         qs['step'] = qs['step'] + 1
         return out, st, qs
 
-    def qshortcut(lyr, params, qs, x, outs, train):
+    def qshortcut(lyr, params, qs, x, outs, train, group):
         """Requantized residual add: way 1 (min range) shares an input
         scale and tracks the QUANTIZED sum; way 2 (max range) tracks the
         float sum up front and uses one scale for x, a and the sum."""
@@ -660,13 +705,14 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig, compute_dtype=None,
             if w is not None:
                 a = a * w[i + 1]
             if train:
-                qs['x'] = _update_range(qs['x'], x.detach(), 'ema')
-                qs['a'] = _update_range(qs['a'], a.detach(), 'ema')
+                qs['x'] = _update_range(qs['x'], x.detach(), 'ema', group)
+                qs['a'] = _update_range(qs['a'], a.detach(), 'ema', group)
                 if cfg.shortcut_way == 2:
                     # the overlapping channels only, not _add_sliced
                     c = min(x.shape[-1], a.shape[-1])
                     s = x[..., :c] + a[..., :c]
-                    qs['sum'] = _update_range(qs['sum'], s.detach(), 'ema')
+                    qs['sum'] = _update_range(qs['sum'], s.detach(), 'ema',
+                                              group)
                     fmax = torch.maximum(torch.maximum(qs['sum']['max'],
                                                        qs['x']['max']),
                                          qs['a']['max'])
@@ -702,7 +748,7 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig, compute_dtype=None,
                            - af).detach()
             s = _add_sliced(xq, aq)
             if train and cfg.shortcut_way == 1:
-                qs['sum'] = _update_range(qs['sum'], s.detach(), 'ema')
+                qs['sum'] = _update_range(qs['sum'], s.detach(), 'ema', group)
                 qs['scale'] = pow2_snap(torch.maximum(
                     torch.abs(qs['sum']['min']),
                     torch.abs(qs['sum']['max']))) / qr
@@ -719,15 +765,15 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig, compute_dtype=None,
             x = _add_sliced(x, a if w is None else a * w[i + 1])
         return x
 
-    def qconcat(lyr, qs, outs, train):
+    def qconcat(lyr, qs, outs, train, group):
         """Requantized concat: per-source EMA |max| list, one common pow-2
         scale = snap(max of the list)."""
         parts = [outs[j] for j in lyr.layers]
         if train:
             fmaxs = []
             for i, t in enumerate(parts):
-                t = t.detach()
-                m = torch.maximum(torch.max(t), torch.abs(torch.min(t)))
+                mn, mx = _min_max(t.detach(), group)
+                m = torch.maximum(mx, torch.abs(mn))
                 old = qs['float_max'][i]
                 fmaxs.append(torch.where(old == 0, m, old * (1 - EMA_MOMENTUM)
                                          + m * EMA_MOMENTUM))
@@ -740,7 +786,7 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig, compute_dtype=None,
     yolos = [l for l in layers if l.kind == 'yolo']
     anchor_cache: dict = {}
 
-    def apply(params, state, qstate, x, train: bool = False):
+    def apply(params, state, qstate, x, train: bool = False, group=None):
         outs: dict[int, Any] = {}
         trace: dict[str, Any] = {}
         yolo_p, head_out, feats = [], [], []
@@ -753,7 +799,7 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig, compute_dtype=None,
             if kind in ('conv', 'depthwise'):
                 st = state.get(k, {})
                 prev, st2, new_q[k] = qconv(lyr, params[k], st, new_q[k],
-                                            prev, train)
+                                            prev, train, group)
                 if st:
                     new_state[k] = st2
             elif kind == 'batchnorm':
@@ -762,7 +808,7 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig, compute_dtype=None,
                 if train:
                     y, m, v = conv_ops.batch_norm_train(
                         xc, p['gamma'], p['beta'], st['mean'], st['var'],
-                        LONE_BN_EPS, LONE_BN_MOM)
+                        LONE_BN_EPS, LONE_BN_MOM, group=group)
                     new_state[k] = {'mean': m, 'var': v}
                 else:
                     y = conv_ops.batch_norm_infer(xc, p['gamma'], p['beta'],
@@ -783,7 +829,8 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig, compute_dtype=None,
             elif kind == 'route':
                 if len(lyr.layers) > 1:
                     if k in new_q:
-                        prev, new_q[k] = qconcat(lyr, new_q[k], outs, train)
+                        prev, new_q[k] = qconcat(lyr, new_q[k], outs, train,
+                                                 group)
                     else:
                         prev = torch.cat([outs[j] for j in lyr.layers], -1)
                 elif lyr.route_groups:
@@ -793,7 +840,7 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig, compute_dtype=None,
             elif kind == 'shortcut':
                 if k in new_q:
                     prev, new_q[k] = qshortcut(lyr, params, new_q[k], prev,
-                                               outs, train)
+                                               outs, train, group)
                 else:
                     prev = fshortcut(lyr, params, prev, outs)
             elif kind == 'yolo':

@@ -23,8 +23,13 @@ Every random draw of the augmentations goes through the dataset's
 ``random.Random(seed)`` (the batch order through the loader's), in the JAX
 package's order, and one prefetch thread draws them in batch order, so a
 seed gives the JAX package's batches bit for bit. OpenCV and PIL are
-imported inside the functions only. Not ported yet (see ROADMAP.md):
-``process_shard`` (the multi-host split).
+imported inside the functions only.
+
+``process_shard=(pi, pc)`` is one rank's part of a data-parallel job (the
+reference's ``DistributedSampler``): every pc-th file from pi, wrap-padded
+with its own first files to ``ceil(n / pc)`` so that every rank has the
+same number of batches; ``path_of`` gives '' for a pad, which the
+evaluator then counts as it counts a ragged batch's empty slot.
 """
 
 from __future__ import annotations
@@ -40,7 +45,6 @@ from pathlib import Path
 
 import numpy as np
 
-from ..compress.quant import unported
 from .transforms import (PAD_VALUE, augment_hsv, cutout, letterbox,
                          random_affine, resize_to, xywhn_to_xyxy_pixels,
                          xyxy2xywh_np)
@@ -263,9 +267,6 @@ class DetectionDataset:
                  cache_images=False, is_gray_scale=False, subset_len=-1,
                  seed=None, process_shard=None, cutout=False,
                  ud_flip=False):
-        if process_shard is not None:
-            raise unported('DetectionDataset(process_shard=...) (multi-host '
-                            'evaluation)')
         path = str(Path(path))
         if not os.path.isfile(path):
             raise FileNotFoundError(f'File not found {path}')
@@ -273,12 +274,26 @@ class DetectionDataset:
             self.img_files = [x for x in f.read().splitlines()
                               if os.path.splitext(x)[-1].lower() in IMG_FORMATS]
         self.rnd = random.Random(seed)
+        self._real = None       # the shard's pad mask (all real otherwise)
+        if process_shard is not None:
+            pi, pc = process_shard
+            files = self.img_files[pi::pc]
+            if not files:
+                raise ValueError(f'process_shard {process_shard}: no files '
+                                 f'of {len(self.img_files)}')
+            n_pad = -(-len(self.img_files) // pc) - len(files)
+            self._real = [True] * len(files) + [False] * n_pad
+            self.img_files = files + [files[j % len(files)]
+                                      for j in range(n_pad)]
         if subset_len != -1:
             if subset_len > len(self.img_files):
                 raise ValueError(f'subset_len {subset_len} > '
                                  f'{len(self.img_files)} images')
+            # indices, so that the pad mask stays aligned with the files
             keep = self.rnd.sample(range(len(self.img_files)), subset_len)
             self.img_files = [self.img_files[i] for i in keep]
+            if self._real is not None:
+                self._real = [self._real[i] for i in keep]
         n = len(self.img_files)
         if n == 0:
             raise FileNotFoundError(f'No images found in {path}')
@@ -307,6 +322,8 @@ class DetectionDataset:
             order = ar.argsort()
             self.img_files = [self.img_files[i] for i in order]
             self.label_files = [self.label_files[i] for i in order]
+            if self._real is not None:
+                self._real = [self._real[i] for i in order]
             self.shapes = shapes[order]
             ar = ar[order]
             nb = bi[-1] + 1
@@ -357,30 +374,37 @@ class DetectionDataset:
                 self._load_image(i)
 
     def path_of(self, index):
-        """Image path for the batch metadata."""
+        """Image path for the batch metadata ('' for a shard's pad)."""
+        if self._real is not None and not self._real[index]:
+            return ''
         return self.img_files[index]
 
     def _read_shapes(self, path):
         """(w, h) of every image, from the ``.shapes`` sidecar of the list
-        file when it is in sync, else read with PIL and written there."""
+        file when it is in sync, else read with PIL and written there. A
+        shard's shapes are read directly: the sidecar is the whole list's,
+        and another rank's shard may have the same length."""
+        sharded = self._real is not None
         sp = path.replace('.txt', '.shapes')
-        try:
-            with open(sp) as f:
-                s = [x.split() for x in f.read().splitlines()]
-            if len(s) == self.n:
-                return np.array(s, np.float64)
-        except OSError:
-            pass
+        if not sharded:
+            try:
+                with open(sp) as f:
+                    s = [x.split() for x in f.read().splitlines()]
+                if len(s) == self.n:
+                    return np.array(s, np.float64)
+            except OSError:
+                pass
         from PIL import Image
         shapes = []
         for f in self.img_files:
             with Image.open(f) as im:
                 shapes.append(im.size)  # (w, h)
         s = np.array(shapes, np.float64)
-        try:
-            np.savetxt(sp, s, fmt='%g')
-        except OSError:
-            pass
+        if not sharded:
+            try:
+                np.savetxt(sp, s, fmt='%g')
+            except OSError:
+                pass
         return s
 
     def _load_image(self, index):

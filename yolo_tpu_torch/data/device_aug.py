@@ -24,6 +24,10 @@ Nothing in either reads a device value on the host. Labels ride through as
 the capacity-padded (T, 6) [img, cls, xywh normalised] targets with their
 valid mask; a dropped box clears its bit, and the mosaic's 4T rows are
 compacted back to T, valid rows first.
+
+Across processes the ranks augment the global batch alike (the same
+draws) and each keeps its own block (``rows_of``), as the JAX package
+augments its global batch and the mosaic rolls images across it.
 """
 
 from __future__ import annotations
@@ -292,6 +296,17 @@ class DeviceAugment:
     def __call__(self, imgs, targets, valid, generator):
         return self.apply(imgs, targets, valid,
                           self.draw(imgs.shape[0], generator))
+
+
+def rows_of(imgs, targets, valid, start: int, n: int):
+    """Images ``start`` to ``start + n`` of an augmented global batch with
+    their targets (image indices shifted to the block, the others' rows
+    masked; the capacity stays the global one): a rank's block after the
+    augmentation of the global batch."""
+    b = targets[:, 0]
+    mine = valid & (b >= start) & (b < start + n)
+    t = torch.cat([targets[:, :1] - start, targets[:, 1:]], 1)
+    return imgs[start:start + n], t, mine
 
 
 def make_device_augment(img_size: int, hyp: dict, *, mosaic: bool = True,

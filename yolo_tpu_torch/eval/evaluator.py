@@ -24,7 +24,13 @@ does a QAT training apply (its bf16 MACs, NHWC head layout and bf16 eval
 snaps as it was built); with ``sparse`` its heads-only twin
 (``make_heads_only``) feeds the sparse NMS.
 
-Not ported yet (see ROADMAP.md): mesh and multi-process evaluation.
+Across processes (``mesh`` over a data axis of several ranks, one rank a
+process): each rank evaluates its ``process_shard`` of the val set, square
+letterboxed, at the local batch ``batch_size // ranks``; the targets, their
+mask and the shard's pad mask, then the detections and the ``correct``
+matrix, are all-gathered over the gloo host group into the global batch
+(rank-major), the val losses' normalisers are summed over the ranks, and
+every rank computes the same statistics. Rank 0 prints and plots.
 """
 
 from __future__ import annotations
@@ -36,9 +42,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..compress.quant import prepare_eval_params, unported
+from ..compress.quant import prepare_eval_params
 from ..config import load_classes, parse_data_cfg
 from ..data.datasets import BatchLoader, DetectionDataset
+from ..parallel.mesh import DATA_AXIS
+from ..parallel.multihost import allgather_host_values
 from ..models.network import Darknet
 from ..models.yolo_head import reshape_pred
 from ..ops.nms import (non_max_suppression, non_max_suppression_heads,
@@ -110,10 +118,11 @@ def int8_engine_apply(net, params, state, qstate, qcfg, device):
 def _build_infer(net, params, state, qstate, *, quant_apply, anchor_vecs,
                  loss_hyp, want_loss, augment, sparse, fused, compute_dtype,
                  maxabsscaler, conf_thres, iou_thres, top_k, max_det,
-                 multi_label, iouv, device_match, nc, device):
+                 multi_label, iouv, device_match, nc, device, group=None):
     """The per-batch eval step: infer(x, targets, valid, img_w) ->
     (dets, val loss items (3,) or None, correct or None), all queued on
-    ``device`` without a host synchronise."""
+    ``device`` without a host synchronise (under ``group`` the loss items
+    are this rank's share, their normalisers the global batch's)."""
     nms_kw = dict(conf_thres=conf_thres, iou_thres=iou_thres, top_k=top_k,
                   max_det=max_det, multi_label=multi_label)
     yolos = [l for l in net.layers if l.kind == 'yolo']
@@ -174,7 +183,8 @@ def _build_infer(net, params, state, qstate, *, quant_apply, anchor_vecs,
         if want_loss:
             items = compute_loss([p.to(torch.float32) for p in yolo_p],
                                  targets, valid, anchor_vecs, nc, loss_hyp,
-                                 1.0, layout=layout, img_weight=img_w)[1][:3]
+                                 1.0, layout=layout, img_weight=img_w,
+                                 group=group)[1][:3]
         return dets, items, correct
     return infer
 
@@ -248,12 +258,31 @@ def evaluate(net, params, state, data, *, batch_size=16, img_size=416,
     (``matching.match_device``) instead of the host loop
     (``metrics.match_predictions``); both give the same result.
 
+    ``mesh`` (``parallel.make_mesh``): every rank of the job calls
+    ``evaluate`` with the same arguments and gets the same results (the
+    module docstring); ``batch_size`` is the global batch and divides by
+    the data axis. It needs ``device_match`` and takes no ``save_json``,
+    as in the JAX package. A mesh of one rank is the single-process path.
+
     ``t_inf`` is the host's time to queue the batches and to wait for their
     results; ``t_nms`` is 0 (NMS runs inside the timed step), as in the JAX
     package."""
-    if mesh is not None:
-        raise unported('mesh and multi-process evaluation (the parallel/ '
-                        'slice)')
+    pc = 1 if mesh is None else mesh.shape[DATA_AXIS]
+    multiproc = pc > 1
+    if multiproc:
+        if save_json:
+            raise ValueError('save_json is not supported across processes')
+        if not device_match:
+            raise ValueError('evaluation across processes needs '
+                             'device_match')
+        if batch_size % pc:
+            raise ValueError(f'batch_size {batch_size} does not split over '
+                             f'{pc} ranks')
+        device = mesh.device
+    pi = 0 if mesh is None else mesh.data_index
+    group = mesh.data_group if multiproc else None
+    local_bs = batch_size // pc
+    plot = plot and pi == 0
     device = torch.device(device)
     cuda = device.type == 'cuda'
     data_dict = parse_data_cfg(data)
@@ -289,14 +318,16 @@ def evaluate(net, params, state, data, *, batch_size=16, img_size=416,
         conf_thres=conf_thres,
         iou_thres=iou_thres, top_k=top_k, max_det=max_det,
         multi_label=multi_label, iouv=iouv_t, device_match=device_match,
-        nc=nc, device=device)
+        nc=nc, device=device, group=group)
 
     if loader is None:
         if dataset is None:
-            dataset = DetectionDataset(data_dict['valid'], img_size,
-                                       batch_size, rect=True,
-                                       is_gray_scale=is_gray_scale)
-        loader = BatchLoader(dataset, batch_size)
+            # across processes: square letterboxes, one shape on every rank
+            dataset = DetectionDataset(
+                data_dict['valid'], img_size, local_bs, rect=not multiproc,
+                is_gray_scale=is_gray_scale,
+                process_shard=(pi, pc) if multiproc else None)
+        loader = BatchLoader(dataset, local_bs)
 
     def upload(a):
         t = torch.from_numpy(np.ascontiguousarray(a))
@@ -316,8 +347,9 @@ def evaluate(net, params, state, data, *, batch_size=16, img_size=416,
     t_inf = t_nms = 0.0
     plot_stash: dict = {}
 
-    print(('%20s' + '%10s' * 6) % ('Class', 'Images', 'Targets', 'P', 'R',
-                                   'mAP@0.5', 'F1'))
+    if pi == 0:
+        print(('%20s' + '%10s' * 6) % ('Class', 'Images', 'Targets', 'P',
+                                       'R', 'mAP@0.5', 'F1'))
     val_loss = np.zeros(3)
     n_batches = 0
 
@@ -338,6 +370,15 @@ def evaluate(net, params, state, data, *, batch_size=16, img_size=416,
         if cuda:
             event = torch.cuda.Event()
             event.record()
+        if multiproc:
+            # the global batch's labels, image indices shifted to its rows
+            tgt = np.array(tgt, np.float32)
+            tgt[:, 0] += pi * local_bs
+            tgt = allgather_host_values(tgt).reshape(-1, tgt.shape[-1])
+            valid = allgather_host_values(np.asarray(valid, bool)).reshape(-1)
+            paths = ['host' if r else '' for r in allgather_host_values(
+                real_w.astype(bool)).reshape(-1)]
+            shapes = [None] * len(paths)
         return outs, event, tgt, valid, paths, shapes, imgs.shape[1:3]
 
     it = iter(loader)
@@ -362,8 +403,14 @@ def evaluate(net, params, state, data, *, batch_size=16, img_size=416,
         if event is not None:
             event.synchronize()           # batch n only; n+1 keeps running
         dets_np = dets.numpy()
-        det_list = to_host_detections(dets_np)
         correct_np = None if correct_dev is None else correct_dev.numpy()
+        if multiproc:
+            # every rank's detections, rank-major: the global batch
+            dets_np = allgather_host_values(dets_np).reshape(
+                -1, *dets_np.shape[1:])
+            correct_np = allgather_host_values(correct_np).reshape(
+                -1, *correct_np.shape[1:])
+        det_list = to_host_detections(dets_np)
         t_inf += time.perf_counter() - t0
         if loss_items is not None:
             val_loss += loss_items.numpy()
@@ -440,8 +487,9 @@ def evaluate(net, params, state, data, *, batch_size=16, img_size=416,
 
     nt = int(sum(len(s[3]) for s in stats))
     pf = '%20s' + '%10.3g' * 6
-    print(pf % ('all', seen, nt, mp, mr, map50, mf1))
-    if verbose and nc > 1 and len(ap_class):
+    if pi == 0:
+        print(pf % ('all', seen, nt, mp, mr, map50, mf1))
+    if verbose and nc > 1 and len(ap_class) and pi == 0:
         for i, c in enumerate(ap_class):
             n_c = int(sum(1 for s in stats for t in s[3] if t == c))
             print(pf % (names[c], seen, n_c, p[i], r[i], ap[i], f1[i]))
@@ -462,6 +510,9 @@ def evaluate(net, params, state, data, *, batch_size=16, img_size=416,
         except ImportError:
             pass
 
+    if multiproc:
+        # each rank's shares of every batch's val losses, summed
+        val_loss = allgather_host_values(val_loss).sum(0)
     vl = val_loss / max(n_batches, 1)
     return (mp, mr, map50, mf1, float(vl[0]), float(vl[1]),
             float(vl[2])), maps, (t_inf, t_nms)

@@ -225,17 +225,17 @@ class Darknet(nn.Module):
         """A parameter in the compute dtype (a no-op for a frozen model)."""
         return t if t.dtype == self.dtype else t.to(self.dtype)
 
-    def _bn(self, lyr, t, y, eps, momentum, train, new_state):
+    def _bn(self, lyr, t, y, eps, momentum, train, new_state, group=None):
         if not train:
             return conv_ops.batch_norm_infer(y, t.gamma, t.beta, t.mean,
                                              t.var, eps)
         y, m, v = conv_ops.batch_norm_train(y, t.gamma, t.beta, t.mean, t.var,
-                                            eps, momentum)
+                                            eps, momentum, group=group)
         new_state[str(lyr.index)] = {'mean': m, 'var': v}
         return y
 
     def _run(self, x, want_obj: bool, train: bool = False,
-             head_layout: str = 'anchor_major'):
+             head_layout: str = 'anchor_major', group=None):
         prev = x.permute(0, 3, 1, 2).to(self.dtype)
         outs, pending = {}, {}
         heads, objs = [], []
@@ -257,7 +257,7 @@ class Darknet(nn.Module):
                     y = conv_ops.conv2d(prev, w, stride=stride,
                                         padding=lyr.pad, groups=lyr.groups)
                     y = self._bn(lyr, t, y, CONV_BN_EPS, CONV_BN_MOM, train,
-                                 new_state)
+                                 new_state, group)
                 elif train:
                     # the JAX train forward adds the bias after the conv
                     y = conv_ops.conv2d(prev, w, stride=stride,
@@ -271,7 +271,7 @@ class Darknet(nn.Module):
             elif kind == 'batchnorm':
                 t = self.layer[str(lyr.index)]
                 prev = self._bn(lyr, t, prev, LONE_BN_EPS, LONE_BN_MOM, train,
-                                new_state)
+                                new_state, group)
             elif kind == 'maxpool':
                 prev = conv_ops.max_pool(prev, lyr.size, lyr.stride)
             elif kind == 'se':
@@ -370,16 +370,17 @@ class Darknet(nn.Module):
     def forward_heads(self, x):
         return self._run(x, want_obj=True)
 
-    def forward_train(self, x, head_layout: str = 'anchor_major'):
+    def forward_train(self, x, head_layout: str = 'anchor_major', group=None):
         """The train forward (JAX ``apply(params, state, x, train=True)``):
         BN on batch statistics, no slim objectness conv. Returns
         ((yolo_p, feature_out), new_state): yolo_p per scale (bs, na, ny,
         nx, no), or (bs, ny, nx, na, no) with ``head_layout='nhwc'``;
         feature_out the NHWC maps of the ``feature_out`` layers; new_state
         the BN layers' new running mean and var (detached; the buffers are
-        left as they are)."""
+        left as they are). ``group``: the data group of a data-parallel
+        step, over whose global batch BN takes its statistics."""
         return self._run(x, want_obj=False, train=True,
-                         head_layout=head_layout)
+                         head_layout=head_layout, group=group)
 
     def forward_augment(self, x):
         """Test-time augmentation (the JAX package's

@@ -11,6 +11,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.collectives import batch_moments
+
 
 def conv2d(x, w, *, stride=1, padding: int = 0, groups: int = 1, bias=None):
     """Grouped 2-D convolution; ``stride`` is an int or an (sy, sx) pair and
@@ -36,7 +38,7 @@ LONE_BN_EPS, LONE_BN_MOM = 1e-4, 0.03
 
 
 def batch_norm_train(x, gamma, beta, running_mean, running_var,
-                     eps: float = 1e-5, momentum: float = 0.1):
+                     eps: float = 1e-5, momentum: float = 0.1, group=None):
     """Training-mode BN over (N, H, W) of an NCHW tensor, in plain tensor
     ops so that autograd gives the JAX package's VJP (``F.batch_norm``
     would follow cuDNN's rules for the variance and the running update).
@@ -48,16 +50,28 @@ def batch_norm_train(x, gamma, beta, running_mean, running_var,
     momentum) * running + momentum * batch. An f32 or f64 input takes the
     two-pass variance; a bf16 one the one-pass ``E[x^2] - mean^2``,
     clamped at 0, as in the JAX package (the one-pass form cancels when
-    |mean| >> std, which f32 parity cannot afford)."""
-    n = x.shape[0] * x.shape[2] * x.shape[3]
+    |mean| >> std, which f32 parity cannot afford).
+
+    ``group``: the data group of a data-parallel step
+    (``parallel.Mesh.data_group``); the statistics, and ``n`` of the
+    unbiased running variance, are then the global batch's, through
+    differentiable all-reduces (two for the two-pass form, one for the
+    one-pass form), and the running statistics come out equal on every
+    rank."""
     axes = (0, 2, 3)
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
-    mean = xf.mean(axes)
     c = lambda t: t[:, None, None]
-    if x.dtype == xf.dtype:
-        var = (xf - c(mean)).square().mean(axes)
+    if group is not None:
+        mean, var, n = batch_moments(xf, axes, group,
+                                     one_pass=x.dtype != xf.dtype)
     else:
-        var = torch.clamp_min(xf.square().mean(axes) - mean.square(), 0.0)
+        n = x.shape[0] * x.shape[2] * x.shape[3]
+        mean = xf.mean(axes)
+        if x.dtype == xf.dtype:
+            var = (xf - c(mean)).square().mean(axes)
+        else:
+            var = torch.clamp_min(xf.square().mean(axes) - mean.square(),
+                                  0.0)
     y = ((xf - c(mean)) * c(torch.rsqrt(var + eps)) * c(gamma)
          + c(beta)).to(x.dtype)
     with torch.no_grad():

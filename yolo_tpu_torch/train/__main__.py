@@ -10,6 +10,9 @@
     python -m yolo_tpu_torch.train --t_cfg teacher.cfg \
         --t_weights teacher.npz --KDstr 5 ...   # knowledge distillation
     python -m yolo_tpu_torch.train --evolve ...   # one evolve generation
+    python -m yolo_tpu_torch.train --coordinator HOST:PORT --num-hosts N \
+        --host-id I ...                             # rank I of N processes
+    torchrun --nproc-per-node N -m yolo_tpu_torch.train --coordinator auto ...
 
 The flags and their defaults are the JAX CLI's; ``--device`` (default
 ``cuda``; ``cpu`` when asked) picks the device, and the convs compute in
@@ -26,15 +29,25 @@ epoch and without checkpoints, its results appended to ``evolve.txt``.
 ``--device-aug`` runs mosaic, affine, HSV and flip on the device.
 ``--bucket B`` copies ``results<name>.txt`` (with ``--name``) to
 ``gs://B`` after each epoch and the checkpoints at the end, and with
-``--evolve`` shares ``evolve.txt`` there (``gsutil cp``). Flags of slices
-not ported yet raise ``NotImplementedError`` (see ROADMAP.md): ``--tp`` >
-1, ``--remat`` other than ``none`` and the multi-host ones
-(``--coordinator``, ``--num-hosts``, ``--host-id``).
+``--evolve`` shares ``evolve.txt`` there (``gsutil cp``).
+
+``--coordinator HOST:PORT`` with ``--num-hosts N`` and ``--host-id I``
+(or ``auto``: torchrun's ``env://`` variables) joins a data-parallel job
+of N processes, one rank each, through ``parallel.init_multihost`` (NCCL
+when every rank of a host has a card of its own, gloo otherwise); rank r
+of a host with c cards trains on ``cuda:{r % c}``. ``--batch-size`` is the
+global batch. Without ``--coordinator`` the process trains alone, as with
+``--no-mesh``.
+
+Flags of slices not ported yet raise ``NotImplementedError`` (see
+ROADMAP.md), before the process joins a job: ``--tp`` > 1 and ``--remat``
+other than ``none``.
 """
 
 from __future__ import annotations
 
 from ..compress.quant import unported
+from ..parallel.multihost import process_index
 from ..utils.cli import FlexParser
 
 
@@ -83,8 +96,7 @@ def parse_args(argv=None):
                    help="torch device ('cuda', 'cuda:1', 'cpu')")
     p.add_argument('--tp', type=int, default=1)
     p.add_argument('--no-mesh', action='store_true',
-                   help='accepted for CLI compat; the port trains on one '
-                        'device')
+                   help='train alone, without the data-parallel mesh')
     p.add_argument('--remat', default='none',
                    choices=['none', 'blocks', 'full'])
     p.add_argument('--mixedprecision', '-mpt', dest='mpt',
@@ -94,11 +106,13 @@ def parse_args(argv=None):
     p.add_argument('--rank', default=0, help='accepted for CLI compat')
     p.add_argument('--local_rank', type=int, default=-1,
                    help='accepted for CLI compat')
-    p.add_argument('--coordinator', type=str, default='')
+    p.add_argument('--coordinator', type=str, default='',
+                   help="HOST:PORT of rank 0's store, or 'auto' (torchrun's "
+                        "env:// variables): join a data-parallel job")
     p.add_argument('--num-hosts', '--num_hosts', dest='num_hosts', type=int,
-                   default=0)
+                   default=0, help='the processes of the job (WORLD_SIZE)')
     p.add_argument('--host-id', '--host_id', dest='host_id', type=int,
-                   default=-1)
+                   default=-1, help='this process of the job (RANK)')
     p.add_argument('--t_cfg', type=str, default='', help='teacher cfg (KD)')
     p.add_argument('--t_weights', type=str, default='')
     p.add_argument('--KDstr', type=int, default=1, help='KD strategy 1-6')
@@ -121,8 +135,21 @@ def parse_args(argv=None):
 
 def main(argv=None):
     opt = parse_args(argv)
-    if opt.coordinator or opt.num_hosts or opt.host_id >= 0:
-        raise unported('multi-host training (--coordinator)')
+    # what is not ported raises before the process joins a job
+    if opt.tp > 1:
+        raise unported(f'tensor parallelism (--tp {opt.tp})')
+    if opt.remat not in ('none', ''):
+        raise unported(f'--remat {opt.remat}')
+    if opt.coordinator:
+        from ..parallel import init_multihost
+        if opt.coordinator == 'auto':
+            dev = init_multihost(device=opt.device)
+        else:
+            dev = init_multihost(
+                opt.coordinator, num_processes=opt.num_hosts or None,
+                process_id=opt.host_id if opt.host_id >= 0 else None,
+                device=opt.device)
+        opt.device = str(dev)
     from .loop import TrainOptions, run_training
     img_size = opt.img_size
     img_size.extend([img_size[-1]] * (3 - len(img_size)))
@@ -155,14 +182,21 @@ def main(argv=None):
         kd5_mask=opt.kd5_mask, notest=opt.notest, nosave=opt.nosave,
         seed=opt.seed, device_aug=opt.device_aug, cutout=opt.cutout,
         ud_flip=opt.ud_flip, resume=opt.resume, hyp_override=hyp_override,
-        max_targets=opt.max_targets, tp=opt.tp, remat=opt.remat,
+        max_targets=opt.max_targets, tp=opt.tp,
+        device_mesh=False if opt.no_mesh else None, remat=opt.remat,
         bucket=opt.bucket, name=opt.name,
         results_file=f'results{opt.name}.txt' if opt.name else 'results.txt',
         device=opt.device)
-    results = run_training(topt)
-    if opt.evolve:
-        from .evolve import print_mutation
-        print_mutation(hyp_override, results, bucket=opt.bucket)
+    try:
+        results = run_training(topt)
+        if opt.evolve and process_index() == 0:
+            from .evolve import print_mutation
+            print_mutation(hyp_override, results, bucket=opt.bucket)
+    finally:
+        if opt.coordinator:
+            # the job this call joined ends with it
+            import torch.distributed as dist
+            dist.destroy_process_group()
     return results
 
 

@@ -14,6 +14,12 @@ foreground mask and KD6's output mask), the port writes those rows to a
 dump batch row past the end and slices it off. KD5's mask is built once
 per distinct map size in a step, every offset of every target in one
 ``index_put_`` (the writes all set 1.0, so their order does not matter).
+
+In a data-parallel step (``group``, the mesh's data group) each rank holds
+its block of the global batch: the teacher's BN takes the global batch's
+statistics, the batch-size divisors are the global batch size, and the
+counts and sums over the batch are all-reduced, so that each rank's term
+is its share of the global batch's and the shares sum to it.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+from ..parallel.collectives import all_reduce, all_reduce_nograd, world
 from .loss import build_targets_layer
 
 T_KD = 3.0  # distillation temperature (all strategies)
@@ -83,9 +90,10 @@ def _per_layer_targets(output_s, targets, valid, anchor_vecs, iou_t=0.2,
     return lts
 
 
-def _box_and_cls_terms(output_s, output_t, lts, nc, layout):
+def _box_and_cls_terms(output_s, output_t, lts, nc, layout, group=None):
     """KD3-5's shared terms: the L2 of student to teacher boxes at the
-    assigned cells, and the KL of the obj/cls logits over every map."""
+    assigned cells, and the KL of the obj/cls logits over every map
+    (divided by the global batch size under ``group``)."""
     lcls = output_s[0].new_zeros((), dtype=torch.float32)
     lbox = lcls
     for ps_raw, pt_raw, lt in zip(output_s, output_t, lts):
@@ -96,15 +104,15 @@ def _box_and_cls_terms(output_s, output_t, lts, nc, layout):
                                 * mask)
         s_oc = ps_raw[..., 4:].reshape(-1, nc + 1)
         t_oc = pt_raw[..., 4:].reshape(-1, nc + 1)
-        lcls = lcls + _soft_kl(s_oc, t_oc) / ps_raw.shape[0]
+        lcls = lcls + _soft_kl(s_oc, t_oc) / (ps_raw.shape[0] * world(group))
     return lcls, lbox
 
 
 def kd2(output_s, output_t, targets, valid, anchor_vecs, nc: int,
-        iou_t: float = 0.2, layout: str = 'anchor_major'):
+        iou_t: float = 0.2, layout: str = 'anchor_major', group=None):
     """L2 to the ground truth where the student is farther from it than
     the teacher (+ a margin), and the KL of obj/cls. Returns (loss,
-    reg_ratio)."""
+    reg_ratio), the ratio of the global batch's counts under ``group``."""
     reg_m = 0.0
     Lambda_cls, Lambda_box = 0.0001, 0.001
     lcls = output_s[0].new_zeros((), dtype=torch.float32)
@@ -124,19 +132,23 @@ def kd2(output_s, output_t, targets, valid, anchor_vecs, nc: int,
         reg_nb = reg_nb + torch.sum(mask)
         s_oc = ps_raw[..., 4:].reshape(-1, nc + 1)
         t_oc = pt_raw[..., 4:].reshape(-1, nc + 1)
-        lcls = lcls + _soft_kl(s_oc, t_oc) / ps_raw.shape[0]
+        lcls = lcls + _soft_kl(s_oc, t_oc) / (ps_raw.shape[0] * world(group))
+    if group is not None:
+        reg_num, reg_nb = all_reduce_nograd(torch.stack([reg_num, reg_nb]),
+                                            group)
     reg_ratio = reg_num / torch.clamp_min(reg_nb, 1)
     return lcls * Lambda_cls + lbox * Lambda_box, reg_ratio
 
 
 def kd3(output_s, output_t, targets, valid, anchor_vecs, nc: int,
-        iou_t: float = 0.2, layout: str = 'anchor_major'):
+        iou_t: float = 0.2, layout: str = 'anchor_major', group=None):
     """L2 of student to teacher boxes at the assigned cells + KL of
     obj/cls."""
     Lambda_cls, Lambda_box = 0.0001, 0.001
     lts = _per_layer_targets(output_s, targets, valid, anchor_vecs, iou_t,
                              layout)
-    lcls, lbox = _box_and_cls_terms(output_s, output_t, lts, nc, layout)
+    lcls, lbox = _box_and_cls_terms(output_s, output_t, lts, nc, layout,
+                                    group)
     return lcls * Lambda_cls + lbox * Lambda_box
 
 
@@ -147,14 +159,16 @@ def _feature_saliency(f):
 
 def kd4(output_s, output_t, feature_s, feature_t, targets, valid,
         anchor_vecs, nc: int, batch_size: int, iou_t: float = 0.2,
-        layout: str = 'anchor_major'):
+        layout: str = 'anchor_major', group=None):
     """KD3 + the KL of the feature maps' |sum| saliency. The maps pair by
-    ``zip``: a student with fewer maps distils only its first ones."""
+    ``zip``: a student with fewer maps distils only its first ones.
+    ``batch_size`` is the global batch's under ``group``."""
     # KD4 and KD5 weight cls at 0.001, KD2 and KD3 at 0.0001
     Lambda_cls, Lambda_box, Lambda_feature = 0.001, 0.001, 0.001
     lts = _per_layer_targets(output_s, targets, valid, anchor_vecs, iou_t,
                              layout)
-    lcls, lbox = _box_and_cls_terms(output_s, output_t, lts, nc, layout)
+    lcls, lbox = _box_and_cls_terms(output_s, output_t, lts, nc, layout,
+                                    group)
     lfeat = lcls.new_zeros(())
     for fs, ft_ in zip(feature_s, feature_t):
         lfeat = lfeat + _soft_kl(_feature_saliency(fs),
@@ -204,13 +218,14 @@ def _foreground_mask(h, w, lts, strides, img_size, mode: str = 'rect'):
 def kd5(output_s, output_t, feature_s, feature_t, targets, valid,
         anchor_vecs, nc: int, batch_size: int, img_size: int,
         strides: Sequence[int], iou_t: float = 0.2, mask_mode: str = 'rect',
-        layout: str = 'anchor_major'):
+        layout: str = 'anchor_major', group=None):
     """KD4 with the feature saliency masked to the targets' foreground
     (``_foreground_mask``, ``mask_mode`` 'rect' or 'diag')."""
     Lambda_cls, Lambda_box, Lambda_feature = 0.001, 0.001, 0.001
     lts = _per_layer_targets(output_s, targets, valid, anchor_vecs, iou_t,
                              layout)
-    lcls, lbox = _box_and_cls_terms(output_s, output_t, lts, nc, layout)
+    lcls, lbox = _box_and_cls_terms(output_s, output_t, lts, nc, layout,
+                                    group)
     lfeat = lcls.new_zeros(())
     masks: dict = {}
     for fs, ft_ in zip(feature_s, feature_t):
@@ -248,12 +263,14 @@ def kd6(output_s, output_t, targets, valid, anchor_vecs, nc: int,
             / batch_size * Lambda_feature)
 
 
-def failure_case_loss_fm(masks, imgs, targets, valid):
+def failure_case_loss_fm(masks, imgs, targets, valid, group=None):
     """FenceMask's auxiliary loss (nothing calls it, as upstream): the
     masked-pixel share inside against outside the GT boxes, plus the KL
     between the masked and the original images.
 
-    masks/imgs: (bs, h, w, c); targets: padded (T, 6) + valid mask."""
+    masks/imgs: (bs, h, w, c); targets: padded (T, 6) + valid mask.
+    ``group``: this rank's share of the global batch's loss (the shares
+    inside and outside the boxes summed over the ranks)."""
     if masks is None:
         return torch.zeros(())
     bs, h, w, _ = imgs.shape
@@ -272,7 +289,10 @@ def failure_case_loss_fm(masks, imgs, targets, valid):
     m_t = m_per_img[b.clamp(0, bs - 1)]                          # (T, h, w)
     area = torch.clamp_min(torch.sum(inside, dim=(1, 2)), 1)
     pbo = torch.sum(torch.sum(m_t * inside, dim=(1, 2)) / area * valid)
-    f_loss = torch.abs(pbi - pbo) / bs
+    n = world(group)
+    if group is not None:
+        pbi, pbo = all_reduce(torch.stack([pbi, pbo]), group)
+    f_loss = torch.abs(pbi - pbo) / (bs * n) / n
     fm = F.log_softmax((masks * imgs).reshape(bs, -1), dim=-1)
     om = F.softmax(imgs.reshape(bs, -1), dim=-1)
     return f_loss + _kl_div_sum(fm, om)
@@ -292,37 +312,40 @@ def make_kd_loss_fn(strategy: int, teacher, nc: int, anchor_vecs,
     as they were loaded. ``layout`` is the head layout of both the student
     step and the teacher ('nhwc' or 'anchor_major', exposed as
     ``.layout``): strategies 1-5 take the same rows from either, KD6 needs
-    'anchor_major'. ``anchor_vecs``: per-head (na, 2) anchors / stride."""
+    'anchor_major'. ``anchor_vecs``: per-head (na, 2) anchors / stride.
+    In a data-parallel step the trainer passes ``group`` (the mesh's data
+    group): the term is then this rank's share of the global batch's."""
     assert not (strategy == 6 and layout == 'nhwc'), \
         "KD6's row grouping requires head_layout='anchor_major'"
     if strategy not in range(1, 7):
         raise ValueError(f'unknown KD strategy {strategy}')
     anchors: dict = {}
 
-    def kd_loss_fn(yolo_p, feats, targets, valid, imgs):
+    def kd_loss_fn(yolo_p, feats, targets, valid, imgs, group=None):
         with torch.no_grad():
-            (t_yolo, t_feats), _ = teacher.forward_train(imgs,
-                                                         head_layout=layout)
+            (t_yolo, t_feats), _ = teacher.forward_train(
+                imgs, head_layout=layout, group=group)
         dev = targets.device
         if dev not in anchors:
             anchors[dev] = [torch.as_tensor(a, dtype=torch.float32,
                                             device=dev) for a in anchor_vecs]
         av = anchors[dev]
-        bs = imgs.shape[0]
+        bs = imgs.shape[0] * world(group)       # the global batch's
         if strategy == 1:
             return kd1(yolo_p, t_yolo, nc, bs)
         if strategy == 2:
             return kd2(yolo_p, t_yolo, targets, valid, av, nc,
-                       layout=layout)[0]
+                       layout=layout, group=group)[0]
         if strategy == 3:
-            return kd3(yolo_p, t_yolo, targets, valid, av, nc, layout=layout)
+            return kd3(yolo_p, t_yolo, targets, valid, av, nc, layout=layout,
+                       group=group)
         if strategy == 4:
             return kd4(yolo_p, t_yolo, feats, t_feats, targets, valid, av,
-                       nc, bs, layout=layout)
+                       nc, bs, layout=layout, group=group)
         if strategy == 5:
             return kd5(yolo_p, t_yolo, feats, t_feats, targets, valid, av,
                        nc, bs, img_size, strides, mask_mode=kd5_mask,
-                       layout=layout)
+                       layout=layout, group=group)
         return kd6(yolo_p, t_yolo, targets, valid, av, nc, bs)
 
     kd_loss_fn.layout = layout

@@ -37,8 +37,23 @@ each batch ``ni``.
 ``bucket``: ``results.txt`` is copied to the gsutil bucket after each
 epoch (with ``name``) and the checkpoints at the end (``utils/gsutil.py``).
 
-Not ported (see ROADMAP.md): tensor parallelism and multi-host training;
-they raise ``NotImplementedError``.
+Across processes (a ``torch.distributed`` job of several ranks, one rank a
+process, ``parallel.init_multihost``): the mesh is built unless
+``device_mesh`` is False, which a job of several ranks refuses. Each rank
+loads its ``process_shard`` of the train set at the local batch
+``batch_size // ranks`` (``max_targets // ranks`` targets), starts from
+rank 0's state (``parallel.replicate``), and steps through the
+data-parallel ``grad_fn``/``update_fn`` (``trainer.py``): every rank holds
+the same weights, and its log lines show the global batch's losses. With
+``device_aug`` the ranks all-gather their uint8 blocks and targets, each
+augments the global batch with the same draws and keeps its own rows, as
+the JAX package augments its global batch. Every rank evaluates its shard
+(``evaluate(mesh=...)``, the eval batch rounded up to the ranks); rank 0
+alone writes ``results.txt``, the checkpoints, the plots, TensorBoard and
+the bucket's copies. ``rect`` and ``image_weights`` need one process.
+
+Not ported (see ROADMAP.md): tensor parallelism; it raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -61,9 +76,12 @@ from ..config import load_hyp, parse_data_cfg
 from ..convert import (from_jax, opt_state_from_jax, opt_state_to_jax,
                        qstate_to_jax, to_jax)
 from ..data.datasets import BatchLoader, DetectionDataset
-from ..data.device_aug import make_device_augment
+from ..data.device_aug import make_device_augment, rows_of
 from ..eval.evaluator import evaluate
 from ..eval.metrics import fitness
+from ..parallel import allgather_host_values, make_mesh, replicate
+from ..parallel.collectives import all_reduce_nograd
+from ..parallel.multihost import process_count, process_index
 from ..runtime import load_model, preprocess
 from ..utils import gsutil
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
@@ -75,8 +93,8 @@ from .trainer import init_train_state, make_train_functions
 
 @dataclass
 class TrainOptions:
-    """The training flags (the JAX package's ``TrainOptions``, less its
-    mesh, plus ``device``)."""
+    """The training flags (the JAX package's ``TrainOptions``, plus
+    ``device``)."""
     cfg: str = 'cfg/yolov3/yolov3.cfg'
     data: str = 'data_cfg/coco2014.data'
     weights: str = ''
@@ -111,6 +129,9 @@ class TrainOptions:
     name: str = ''                           # results upload needs both
     tb_logdir: str = ''                      # TensorBoard logdir ('' = off)
     tp: int = 1
+    device_mesh: Any = None                  # None: a mesh over a job of
+                                             # several ranks; False: none
+                                             # (one process); or a Mesh
     max_targets: int = 0
     image_weights: bool = False
     hyp_path: str | None = None
@@ -184,6 +205,25 @@ def run_training(opt: TrainOptions):
     device = torch.device(opt.device)
     cuda = device.type == 'cuda'
     log = opt.log_fn
+    # a job of several processes: each rank feeds its shard of the global
+    # batch through the data-parallel step
+    pc, pi = process_count(), process_index()
+    multihost = pc > 1
+    if multihost:
+        if opt.batch_size % pc:
+            raise ValueError(f'--batch-size {opt.batch_size} does not split '
+                             f'over {pc} processes')
+        if opt.rect or opt.image_weights:
+            raise ValueError('training across processes uses the plain '
+                             'shuffled sampler: no --rect, no image weights')
+        if opt.device_mesh is False:
+            raise ValueError('training across processes needs the mesh (no '
+                             '--no-mesh)')
+    mesh = opt.device_mesh or None
+    if mesh is None and multihost:
+        mesh = make_mesh(device)
+    local_bs = opt.batch_size // pc
+    is_chief = pi == 0
     hyp = load_hyp(opt.hyp_path)
     if opt.hyp_override:
         hyp.update(opt.hyp_override)
@@ -269,7 +309,8 @@ def run_training(opt: TrainOptions):
             head_layout=train_layout)
     use_adam = opt.adam or quant
     fn_kw = dict(sparsity_s=opt.sparsity if opt.prune != -1 else 0.0,
-                 sparse_gamma_layers=sparse_layers, kd_loss_fn=kd_fn)
+                 sparse_gamma_layers=sparse_layers, kd_loss_fn=kd_fn,
+                 mesh=mesh)
     grad_fn, update_fn = make_train_functions(
         net, anchor_vecs, nc, loss_hyp, quant_apply=quant_apply, **fn_kw)
     # after bn_freeze_step the step without the BN statistics conv
@@ -299,23 +340,27 @@ def run_training(opt: TrainOptions):
             resume_best = float(ck.get('best_fitness', 0.0))
             resume_results = ck.get('training_results', '')
         _restore(ts, ck, net, log)
+    if mesh is not None:
+        replicate(mesh, ts)         # every rank starts from rank 0's state
 
     dataset = DetectionDataset(
-        train_path, img_size, opt.batch_size,
+        train_path, img_size, local_bs,
         augment=opt.augment and not opt.device_aug, hyp=hyp, rect=opt.rect,
         cache_images=opt.cache_images, is_gray_scale=opt.gray_scale,
         image_weights=opt.image_weights, seed=opt.seed, cutout=opt.cutout,
-        ud_flip=opt.ud_flip)
+        ud_flip=opt.ud_flip, process_shard=(pi, pc) if multihost else None)
     dev_aug = None
     if opt.augment and opt.device_aug:
         dev_aug = make_device_augment(img_size, hyp, mosaic=True)
         aug_gen = torch.Generator(device=device)
-    loader = BatchLoader(dataset, opt.batch_size,
-                         max_targets=opt.max_targets or 30 * opt.batch_size,
+    # each rank holds its block's share of the target capacity
+    local_max_t = (opt.max_targets // pc if opt.max_targets
+                   else 30 * local_bs)
+    loader = BatchLoader(dataset, local_bs, max_targets=local_max_t,
                          shuffle=True, drop_last=True, seed=opt.seed)
 
     tb = None
-    if opt.tb_logdir:
+    if opt.tb_logdir and is_chief:
         try:
             from tensorboardX import SummaryWriter
             tb = SummaryWriter(opt.tb_logdir)
@@ -334,7 +379,7 @@ def run_training(opt: TrainOptions):
     best = os.path.join(opt.weights_dir, 'best.npz')
     results = (0, 0, 0, 0, 0, 0, 0)
     best_fitness = resume_best
-    if resume_results and start_epoch > 0:
+    if resume_results and start_epoch > 0 and is_chief:
         Path(opt.results_file).write_text(resume_results)
     maps = np.zeros(nc)
     t0 = time.time()
@@ -362,7 +407,7 @@ def run_training(opt: TrainOptions):
             if opt.accumulate_override is not None:
                 accumulate = opt.accumulate_override
 
-            if ni == 0 and not opt.nosave:
+            if ni == 0 and not opt.nosave and is_chief:
                 try:
                     from ..utils.plots import plot_images
                     plot_images(imgs, np.asarray(tgt)[np.asarray(valid)],
@@ -370,12 +415,28 @@ def run_training(opt: TrainOptions):
                 except Exception as e:     # a plot must never stop training
                     log(f'first-batch plot failed: {e}')
 
-            x = preprocess(upload(imgs), opt.maxabsscaler, device=device)
-            tgt_in = upload(np.asarray(tgt, np.float32))
-            valid_in = upload(np.asarray(valid, bool))
-            if dev_aug is not None:
+            if dev_aug is not None and multihost:
+                # the global batch (rank-major, image indices shifted), one
+                # augmentation of it on every rank, then this rank's rows
+                g = np.array(tgt, np.float32)
+                g[:, 0] += pi * local_bs
+                x = preprocess(upload(allgather_host_values(imgs).reshape(
+                    -1, *imgs.shape[1:])), opt.maxabsscaler, device=device)
                 aug_gen.manual_seed(opt.seed * 100003 + ni)
-                x, tgt_in, valid_in = dev_aug(x, tgt_in, valid_in, aug_gen)
+                x, tgt_in, valid_in = dev_aug(
+                    x, upload(allgather_host_values(g).reshape(-1, 6)),
+                    upload(allgather_host_values(np.asarray(valid, bool))
+                           .reshape(-1)), aug_gen)
+                x, tgt_in, valid_in = rows_of(x, tgt_in, valid_in,
+                                              pi * local_bs, local_bs)
+            else:
+                x = preprocess(upload(imgs), opt.maxabsscaler, device=device)
+                tgt_in = upload(np.asarray(tgt, np.float32))
+                valid_in = upload(np.asarray(valid, bool))
+                if dev_aug is not None:
+                    aug_gen.manual_seed(opt.seed * 100003 + ni)
+                    x, tgt_in, valid_in = dev_aug(x, tgt_in, valid_in,
+                                                  aug_gen)
             if multi_scale:
                 # a new size every ``accumulate`` batches
                 if (ni / max(accumulate, 1)) % 1 == 0:
@@ -393,7 +454,10 @@ def run_training(opt: TrainOptions):
                 ts = update_fn(ts, scalars)
             mloss_dev = (mloss_dev * i + items) / (i + 1)
             if i % log_every == 0 or i + 1 == nb:
-                mloss = mloss_dev.cpu().numpy()
+                # the ranks' shares sum to the global batch's losses
+                mloss = all_reduce_nograd(
+                    mloss_dev, None if mesh is None else mesh.data_group
+                ).cpu().numpy()
                 if not np.isfinite(mloss).all():
                     log(f'WARNING: non-finite loss, ending training {mloss}')
                     return results
@@ -408,14 +472,16 @@ def run_training(opt: TrainOptions):
         eval_params = ts.ema.params if use_ema else ts.params
         eval_state = ts.ema.state if use_ema else ts.bn_state
         if not opt.notest or final_epoch:
+            # every rank evaluates its shard; the batch splits over them
+            eval_bs = -(-max(opt.batch_size // 4, 1) // pc) * pc
             results, maps, _ = evaluate(
                 net, eval_params, eval_state, opt.data,
-                batch_size=max(opt.batch_size // 4, 1), img_size=imgsz_test,
+                batch_size=eval_bs, img_size=imgsz_test,
                 is_gray_scale=opt.gray_scale, multi_label=ni > n_burn,
                 maxabsscaler=opt.maxabsscaler, single_cls=opt.single_cls,
                 quant_apply=quant_apply, qstate=ts.qstate,
                 loss_hyp=loss_hyp, anchor_vecs=anchor_vecs,
-                plot=not opt.nosave, device=device)
+                plot=not opt.nosave, device=device, mesh=mesh)
 
         if tb is not None:
             tags = ['train/giou_loss', 'train/obj_loss', 'train/cls_loss',
@@ -431,14 +497,15 @@ def run_training(opt: TrainOptions):
                 tb.add_histogram('bn_weights/hist', gammas, epoch,
                                  bins='doane')
 
+        fi = float(fitness(np.array(results).reshape(1, -1))[0])
+        if fi > best_fitness:
+            best_fitness = fi
+        if not is_chief:
+            continue
         with open(opt.results_file, 'a') as f:
             f.write(('%10.4g' * 12 + '\n') % (epoch, *mloss, *results))
         if opt.bucket and opt.name:
             gsutil.sync_results(opt.bucket, opt.name, opt.results_file)
-
-        fi = float(fitness(np.array(results).reshape(1, -1))[0])
-        if fi > best_fitness:
-            best_fitness = fi
         if not opt.nosave:
             save_train_checkpoint(
                 last, ts, net, epoch=epoch, best_fitness=best_fitness,
@@ -448,7 +515,7 @@ def run_training(opt: TrainOptions):
                     best, ts, net, epoch=epoch, best_fitness=best_fitness,
                     results_file=opt.results_file, with_opt=False)
 
-    if opt.bucket and not opt.nosave:
+    if opt.bucket and not opt.nosave and is_chief:
         for ck in (last, best):
             if os.path.exists(ck):
                 gsutil.upload_weights(opt.bucket, ck)

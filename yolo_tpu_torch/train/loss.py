@@ -23,6 +23,12 @@ the giou inside the objectness target and the returned loss items. The
 objectness target carries no gradient, as in JAX: its winner is an
 integer index (``scatter_reduce_``, then a gather of the detached
 values).
+
+In a data-parallel step (``group``, the mesh's data group) each rank
+scores its block of the global batch, and the normalisers (the selected
+pairs, the weighted pairs, the objectness cells) are the global batch's,
+summed in one all-reduce without a gradient: rank r's loss is its share of
+the global loss, and the shares sum to it.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.boxes import bbox_iou, wh_iou
+from ..parallel.collectives import all_reduce_nograd, world
 
 
 class LossHyp(NamedTuple):
@@ -123,7 +130,7 @@ def build_targets_layer(targets, valid, anchor_vec, ny: int, nx: int,
 
 def compute_loss(p: Sequence[torch.Tensor], targets, valid, anchor_vecs,
                  nc: int, hyp: LossHyp, gr: float = 1.0,
-                 layout: str = 'anchor_major', img_weight=None):
+                 layout: str = 'anchor_major', img_weight=None, group=None):
     """Total detection loss.
 
     p: per-layer raw predictions (bs, na, ny, nx, no), or (bs, ny, nx, na,
@@ -133,7 +140,9 @@ def compute_loss(p: Sequence[torch.Tensor], targets, valid, anchor_vecs,
     (na, 2) anchors / stride, tensors on the heads' device. gr: the giou
     ratio of the objectness target. img_weight: optional (bs,) 0/1 mask
     that drops the batch's pad slots from every loss mean (the evaluator's
-    ragged tail).
+    ragged tail). group: the data group of a data-parallel step; the
+    loss is then this rank's share of the global batch's (see the module
+    docstring).
     Returns (loss, loss_items (4,) = [lbox, lobj, lcls, total], detached)."""
     cp, cn = smooth_bce(hyp.smooth_eps)
     dev = targets.device
@@ -142,15 +151,30 @@ def compute_loss(p: Sequence[torch.Tensor], targets, valid, anchor_vecs,
     lcls = torch.zeros((), device=dev)
 
     nhwc = layout == 'nhwc'
+    lts = []
+    for i, pi in enumerate(p):
+        ny, nx = (pi.shape[1:3] if nhwc else pi.shape[2:4])
+        lts.append(build_targets_layer(targets, valid, anchor_vecs[i], ny, nx,
+                                       hyp.iou_t))
+    norms = None
+    if group is not None:
+        # every layer's pair count (or weighted pair count), then the
+        # weighted image count: the global batch's, in one all-reduce
+        bs = p[0].shape[0]
+        iw = None if img_weight is None else img_weight.to(torch.float32)
+        vals = [lt.mask.reshape(-1).to(torch.float32) if iw is None else
+                lt.mask.reshape(-1) * iw[lt.b.reshape(-1).clamp(0, bs - 1)]
+                for lt in lts]
+        vals = [v.sum() for v in vals] + ([] if iw is None else [iw.sum()])
+        norms = all_reduce_nograd(torch.stack(vals), group)
     for i, pi in enumerate(p):
         if nhwc:
             bs, ny, nx, na, no = pi.shape
         else:
             bs, na, ny, nx, no = pi.shape
-        lt = build_targets_layer(targets, valid, anchor_vecs[i], ny, nx,
-                                 hyp.iou_t)
+        lt = lts[i]
         mask = lt.mask.reshape(-1)                                 # (na*T,)
-        n_sel = mask.sum()
+        n_sel = mask.sum() if norms is None else norms[i]
         b = lt.b.reshape(-1).clamp(0, bs - 1)       # JAX's gather clamps
         a = lt.a.reshape(-1)
         gj = lt.gj.reshape(-1).clamp(0, ny - 1)
@@ -169,7 +193,8 @@ def compute_loss(p: Sequence[torch.Tensor], targets, valid, anchor_vecs,
             denom = n_sel.clamp(min=1)
         else:
             w_t = mask * img_weight.to(torch.float32)[b]
-            denom = w_t.sum().clamp(min=1.0)
+            denom = (w_t.sum() if norms is None
+                     else norms[i]).clamp(min=1.0)
         lbox = lbox + ((1.0 - giou) * w_t).sum() / denom
 
         # objectness targets: the last-written pair wins at a shared cell
@@ -190,11 +215,13 @@ def compute_loss(p: Sequence[torch.Tensor], targets, valid, anchor_vecs,
         if hyp.fl_gamma > 0:
             obj_bce = obj_bce * focal_scale(obj_logit, tobj, hyp.fl_gamma)
         if img_weight is None:
-            lobj = lobj + obj_bce.mean()
+            lobj = lobj + (obj_bce.mean() if norms is None else
+                           obj_bce.sum() / (world(group) * obj_bce.numel()))
         else:
             iw = img_weight.to(torch.float32).reshape(bs, 1, 1, 1)
             lobj = lobj + (obj_bce * iw).sum() / (
-                iw.sum().clamp(min=1.0) * (na * ny * nx))
+                (iw.sum() if norms is None else norms[-1]).clamp(min=1.0)
+                * (na * ny * nx))
 
         if nc > 1:
             # one-hot by comparison: a class index out of range sets

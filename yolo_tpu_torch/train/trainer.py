@@ -22,6 +22,17 @@ KD: given a ``kd_loss_fn`` (``train/kd.make_kd_loss_fn``), the loss adds
 inside it); the heads take the quant apply's layout if there is one, else
 the KD function's.
 
+Data parallelism: given a ``mesh`` (``parallel.make_mesh``), each rank's
+``grad_fn`` runs its block of the global batch, and every batch-wide
+quantity is the global batch's: the train-mode BN statistics (of the
+student, the KD teacher and the QAT BN fold), the loss's normalisers, the
+QAT range trackers and the KD terms' counts, through the collectives of
+``parallel/collectives.py``. ``update_fn`` sums the accumulated gradients
+over the data group in one flattened bucket, then every rank runs the same
+optimizer and EMA update on the same gradient, so the replicas stay equal.
+This is not ``DistributedDataParallel``, which averages per-rank
+gradients of per-rank statistics and hooks ``forward`` only.
+
 Not ported (see ROADMAP.md): the remat policies; they raise
 ``NotImplementedError``.
 """
@@ -37,6 +48,7 @@ from ..ir import NetworkIR
 from ..models.network import Darknet
 from .ema import EMAState, ema_init, ema_update
 from .loss import LossHyp, compute_loss
+from ..parallel.collectives import sum_gradients
 from .optim import PerGroupScalars, make_optimizer
 
 
@@ -109,7 +121,8 @@ def _tree_detach(tree):
 def make_train_functions(net: NetworkIR, anchor_vecs, nc: int, hyp: LossHyp,
                          *, sparsity_s: float = 0.0,
                          sparse_gamma_layers: tuple[int, ...] = (),
-                         kd_loss_fn=None, remat=False, quant_apply=None):
+                         kd_loss_fn=None, remat=False, quant_apply=None,
+                         mesh=None):
     """(grad_fn, update_fn) for a ``TrainState``.
 
     grad_fn(state, imgs, targets, valid, gr, loss_scale) -> (state, items)
@@ -117,10 +130,13 @@ def make_train_functions(net: NetworkIR, anchor_vecs, nc: int, hyp: LossHyp,
         valid (T,) there too; ``gr`` and ``loss_scale`` host floats. Adds
         the gradients of ``loss * loss_scale`` into ``.grad`` and updates
         the BN running statistics; items (4,) = [lbox, lobj, lcls, total],
-        detached, on the device.
+        detached, on the device. Under a ``mesh`` the arguments are this
+        rank's block of the global batch (image indices local), and items
+        are this rank's share: their sum over the data group is the global
+        batch's.
     update_fn(state, scalars: PerGroupScalars) -> state
-        the optimizer step on the accumulated gradients, the EMA update,
-        gradients cleared.
+        the gradients summed over the mesh's data group, the optimizer step
+        on them, the EMA update, gradients cleared.
 
     ``sparse_gamma_layers`` with ``sparsity_s`` > 0 add ``s*sign(gamma)``
     to those layers' BN-gamma gradients at every ``grad_fn`` call (sparse
@@ -128,12 +144,17 @@ def make_train_functions(net: NetworkIR, anchor_vecs, nc: int, hyp: LossHyp,
 
     ``quant_apply``: QAT; the forward is that apply in train mode (see the
     module docstring), the loss in its ``head_layout``. ``kd_loss_fn``:
-    its term is added to the loss; with QAT both must use one layout."""
+    its term is added to the loss; with QAT both must use one layout.
+
+    ``mesh``: data parallelism over its data group (module docstring); the
+    sparsity term is added on data rank 0 alone, so that the sum over the
+    ranks holds it once."""
     if remat not in (False, None, 'none', ''):
         raise unported(f'remat={remat!r} (the remat policies)')
     anchors: dict = {}
+    group = None if mesh is None else mesh.data_group
     sparse_keys = tuple(str(i) for i in sparse_gamma_layers) \
-        if sparsity_s > 0 else ()
+        if sparsity_s > 0 and (mesh is None or mesh.data_index == 0) else ()
     if quant_apply is not None:
         layout = getattr(quant_apply, 'head_layout', 'anchor_major')
     elif kd_loss_fn is not None:
@@ -152,16 +173,18 @@ def make_train_functions(net: NetworkIR, anchor_vecs, nc: int, hyp: LossHyp,
             anchors[dev] = [torch.as_tensor(a, dtype=torch.float32,
                                             device=dev) for a in anchor_vecs]
         if quant_apply is None:
-            (yolo_p, feats), new_bn = model.forward_train(imgs,
-                                                          head_layout=layout)
+            (yolo_p, feats), new_bn = model.forward_train(
+                imgs, head_layout=layout, group=group)
         else:
             (yolo_p, feats), new_bn, new_q = quant_apply(
-                state.params, state.bn_state, state.qstate, imgs, True)
+                state.params, state.bn_state, state.qstate, imgs, True,
+                group=group)
             state.qstate = _tree_detach(new_q)
         loss, items = compute_loss(yolo_p, targets, valid, anchors[dev], nc,
-                                   hyp, gr, layout=layout)
+                                   hyp, gr, layout=layout, group=group)
         if kd_loss_fn is not None:
-            loss = loss + kd_loss_fn(yolo_p, feats, targets, valid, imgs)
+            loss = loss + kd_loss_fn(yolo_p, feats, targets, valid, imgs,
+                                     group=group)
         (loss * loss_scale).backward()
         if sparse_keys:
             gammas = [model.layer[k].gamma for k in sparse_keys
@@ -183,6 +206,8 @@ def make_train_functions(net: NetworkIR, anchor_vecs, nc: int, hyp: LossHyp,
         return state, items
 
     def update_fn(state: TrainState, scalars: PerGroupScalars):
+        sum_gradients([p for g in state.optimizer.param_groups
+                       for p in g['params']], group)
         state.optimizer.set_scalars(scalars)
         state.optimizer.step()
         if state.ema is not None:
