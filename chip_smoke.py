@@ -288,6 +288,32 @@ Phases; any failure exits non-zero, and nothing runs on the CPU instead
    evaluate, and a ``grad_fn`` whose every collective runs through NCCL
    against the step without a mesh.
 
+15. remat, tensor parallelism and spatial partitioning, in a child process
+   (``chip_smoke.py --phase15 DIR``) that starts the ranks
+   (``--phase15-rank``, ``--phase15-cli``), yolov3 from seed 0 and 64
+   seeded JPEG files labelled by it: (a) the remat policies none, blocks
+   and full: an f32 step @320 of each (loss items and BN statistics
+   bit-equal, the gradients within ``REMAT_GRAD_TOL``), bf16 SGD steps
+   @608 bs 8 of each (``grad_fn`` ms, kernels, peak memory); (b) two ranks
+   sharing ``cuda:0`` over gloo on a (data 1, model 2) mesh: the f32
+   gradient @320 gathered whole against one process (phase 10 a's
+   card-against-CPU tolerances: a different f32 summation order) and
+   against an f64 ``grad_fn`` on the card (no farther than
+   ``GRAD_F64_RATIO`` times one process's f32), bf16 SGD steps @608 bs 8 (ms beside one process's, the
+   collectives and their bytes a step, with remat=blocks too, peak memory
+   a rank, the replicated params bit-equal on both ranks), the TP
+   checkpoint reloaded in one process against the split model's heads,
+   ``evaluate(mesh=...)`` in f32 over the files (the same on both ranks,
+   K1 once a batch, against one process within ``DP_EVAL_TOL``); (c) the
+   same ranks on a (2, 1) mesh: ``make_infer(mesh=...)`` dense and sparse
+   on ``shard_spatial``'s rows of a 640² image, f32 within 1e-4 of one
+   process, bf16 printed, K1 once a call on each rank, ms beside one
+   process's, the all-reduces' bytes; (d) ``python -m
+   yolo_tpu_torch.train --coordinator ... --tp 2`` (its ``main``), 1 epoch
+   of bs 8 on the files: the same loss lines on both ranks,
+   ``results.txt`` and the checkpoint on rank 0 alone, images/s beside
+   phase 10 (c)'s.
+
 A kernel's time is taken twice, on the same inputs: ``cuda_ms``, what its
 caller waits for (median CUDA-event time, the host's work to queue the
 call included), and ``device_ms``, the device alone (a sleep kernel keeps
@@ -295,8 +321,8 @@ the card busy while the host queues the call). A pipeline's time is
 ``cuda_ms``.
 
 The line before the last is a JSON object with each kernel's launches on
-the main paths (phases 4, 6, 7, 8, 9, 10, 11, 12, 13 and 14;
-``launches_phase9`` to ``launches_phase14`` those of the later phases
+the main paths (phases 4, 6, 7, 8, 9, 10, 11, 12, 13, 14 and 15;
+``launches_phase9`` to ``launches_phase15`` those of the later phases
 alone), error, times
 and bound (``ms``, ``plain_ms`` and
 ``library_ms`` by ``cuda_ms``, ``device_ms`` beside them; for nms_suppress
@@ -308,7 +334,7 @@ ptq_cos engine's K2 calls summed and the TPSQ engine's count, phase 11);
 the line before it the card's name and power limit; the last line is the JSON device record. At the end the
 run checks that neither jax nor OpenCV nor any module of the JAX package
 ``yolo_tpu`` was imported into this process (the children of phases 9
-to 14 load OpenCV).
+to 15 load OpenCV).
 """
 
 from __future__ import annotations
@@ -466,7 +492,7 @@ def device_setup():
 
 
 def phase_device():
-    print('[1/14] device')
+    print('[1/15] device')
     card = device_setup()
     print(f'  {torch.cuda.get_device_name(0)}; torch {torch.__version__}, '
           f'CUDA {torch.version.cuda}; TF32 off for matmul and cuDNN')
@@ -497,7 +523,7 @@ def conv_sass(lib_path):
 
 
 def phase_build():
-    print('[2/14] build')
+    print('[2/15] build')
     import re
     from yolo_tpu_torch import _build
     lib = _build.library_path()
@@ -588,7 +614,7 @@ def k1_compare(got, ref, what):
 
 
 def phase_kernel(dev):
-    print('[3/14] K1 nms_suppress vs plain version')
+    print('[3/15] K1 nms_suppress vs plain version')
     from yolo_tpu_torch.ops import nms_suppress as K1
     suppress, suppress_reference = K1.suppress, K1.suppress_reference
     rng = np.random.default_rng(0)
@@ -667,7 +693,7 @@ def phase_kernel(dev):
 
 
 def phase_pipeline(dev, card):
-    print('[4/14] yolov3 @608 float pipeline')
+    print('[4/15] yolov3 @608 float pipeline')
     from yolo_tpu_torch import runtime
     from yolo_tpu_torch.ops import nms
     from yolo_tpu_torch.ops.nms_suppress import suppress
@@ -884,7 +910,7 @@ def int_mm_ms(x8, w8, **timing):
 
 
 def phase_conv_kernel(dev):
-    print('[5/14] K2 conv_int8 vs plain version')
+    print('[5/15] K2 conv_int8 vs plain version')
     from yolo_tpu_torch.ops.conv_int8 import (fused_conv_int8,
                                               fused_conv_int8_reference)
     max_err = 0.0
@@ -1200,7 +1226,7 @@ def in_range(label, fn):
 
 
 def phase_int8(dev, card):
-    print('[6/14] yolov3 @608 int8 serving')
+    print('[6/15] yolov3 @608 int8 serving')
     from yolo_tpu_torch import runtime
     b, x = int8_bundle(dev, BS, SIZE)
     launches, plan, infer = int8_checks(b, x)
@@ -1397,7 +1423,7 @@ def phase_eval(dev, card, qb, cfg=CFG, n_images=EVAL_IMAGES):
     """The evaluation path: ``evaluate`` on float yolov3 (device and host
     matching), the f32 QAT sim and the int8 engine of phase 6's calibrated
     bundle ``qb``, each against pseudo-labels made by the model itself."""
-    print(f'[7/14] mAP evaluation: yolov3 @{SIZE}, {n_images} images, bs={BS}')
+    print(f'[7/15] mAP evaluation: yolov3 @{SIZE}, {n_images} images, bs={BS}')
     from yolo_tpu_torch import runtime
     from yolo_tpu_torch.compress.quant import make_quant_apply
     from yolo_tpu_torch.eval.evaluator import evaluate, int8_engine_apply
@@ -1763,7 +1789,7 @@ def phase_new_cfgs(dev, card):
     from yolo_tpu_torch import runtime
     from yolo_tpu_torch.models.torch_import import save_torch_checkpoint
     t0 = time.perf_counter()
-    print(f'[8/14] more cfgs: (a) yolov3-mobilenet @{MOBILE_SIZE}, (b) '
+    print(f'[8/15] more cfgs: (a) yolov3-mobilenet @{MOBILE_SIZE}, (b) '
           f'yolov3-asff @{SIZE}, (c) TTA yolov3 @{SIZE}, (d) mobilenet int8, '
           '(e) .pt')
     k1 = 0
@@ -2145,7 +2171,7 @@ def prune_child(root, dev):
 
 def phase_prune():
     """Phase 9 in a child process; returns its numbers."""
-    print(f'[9/14] pruning: yolov3 @{SIZE}, {PRUNE_IMAGES} JPEG files, '
+    print(f'[9/15] pruning: yolov3 @{SIZE}, {PRUNE_IMAGES} JPEG files, '
           f'bs={BS} (a child process)')
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as root:
@@ -2204,7 +2230,7 @@ def train_batch(seed, bs, size, dev, n=6, nc=80):
             torch.from_numpy(tgt).to(dev), torch.from_numpy(valid).to(dev))
 
 
-def train_functions(net, mesh=None):
+def train_functions(net, mesh=None, remat=None):
     from yolo_tpu_torch.config import DEFAULT_HYP
     from yolo_tpu_torch.train.loss import LossHyp
     from yolo_tpu_torch.train.trainer import make_train_functions
@@ -2212,7 +2238,7 @@ def train_functions(net, mesh=None):
              for l in net.layers if l.kind == 'yolo']
     return make_train_functions(net, avecs, net.nc,
                                 LossHyp.from_dict(DEFAULT_HYP, nc=net.nc),
-                                mesh=mesh)
+                                mesh=mesh, remat=remat)
 
 
 def rel_l2(got, want):
@@ -2535,7 +2561,7 @@ def train_child(root, dev):
 def phase_train(dev, card, qb):
     """Phase 10: the train step on the card against the CPU, the step at
     full size, the loop from files in a child process, the eval snap."""
-    print(f'[10/14] float training: yolov3 @{SIZE}, bs={BS}')
+    print(f'[10/15] float training: yolov3 @{SIZE}, bs={BS}')
     from yolo_tpu_torch.ir import build_ir
     from yolo_tpu_torch.models.network import init_params
     t0 = time.perf_counter()
@@ -3298,7 +3324,7 @@ def quant_child(root, dev):
 
 def phase_quant():
     """Phase 11 in a child process; returns its numbers."""
-    print(f'[11/14] quantization: yolov4 @{SIZE} PTQ and its engine, QAT and '
+    print(f'[11/15] quantization: yolov4 @{SIZE} PTQ and its engine, QAT and '
           f'TPSQ on yolov3 @{SIZE}, the QAT loop')
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as root:
@@ -3872,7 +3898,7 @@ def kd_child(root, dev):
 
 def phase_kd():
     """Phase 12 in a child process; returns its numbers."""
-    print(f'[12/14] distillation, evolve, the FPGA export and anchors: '
+    print(f'[12/15] distillation, evolve, the FPGA export and anchors: '
           f'yolov3 @{SIZE} and its pruned student (a child process)')
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as root:
@@ -4233,7 +4259,7 @@ def phase_data(train):
     """Phase 13 in a child process; returns its numbers. ``train``: phase
     10's numbers, whose host-augment loop (c) is printed beside the
     ``--device-aug`` one."""
-    print(f'[13/14] the data path: the native letterbox, the device '
+    print(f'[13/15] the data path: the native letterbox, the device '
           f'augmentation, train --device-aug, detect on streams (a child '
           f'process)')
     t0 = time.perf_counter()
@@ -4291,15 +4317,16 @@ def dp_block(x, tgt, valid, rank, n_ranks=DP_RANKS):
     return x[rank * lb:(rank + 1) * lb], t, mine
 
 
-def dp_steps(grad_fn, update_fn, ts, x, tgt, valid, bs, counted=None):
-    """``DP_STEPS`` bf16 SGD steps on one batch, the last ones timed by
-    CUDA events: (ms a step, grad_fn ms, update_fn ms, losses)."""
+def dp_steps(grad_fn, update_fn, ts, x, tgt, valid, bs, steps=DP_STEPS,
+             warmup=DP_WARMUP):
+    """``steps`` bf16 SGD steps on one batch, those after ``warmup`` timed
+    by CUDA events: (ms a step, grad_fn ms, update_fn ms, losses)."""
     from yolo_tpu_torch.train.optim import PerGroupScalars
     sc = PerGroupScalars(lr=(TRAIN_LR,) * 4,
                          weight_decay=(0.000484, 0.0, 0.0, 0.0),
                          momentum=0.937)
     evs, losses = [], []
-    for _ in range(DP_STEPS):
+    for _ in range(steps):
         e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         e[0].record()
         ts, items = grad_fn(ts, x, tgt, valid, 1.0, bs / 64)
@@ -4310,7 +4337,7 @@ def dp_steps(grad_fn, update_fn, ts, x, tgt, valid, bs, counted=None):
         losses.append(items)
     torch.cuda.synchronize()
     med = lambda i, j: statistics.median(e[i].elapsed_time(e[j])
-                                         for e in evs[DP_WARMUP:])
+                                         for e in evs[warmup:])
     return med(0, 2), med(0, 1), med(1, 2), torch.stack(losses)
 
 
@@ -4326,10 +4353,10 @@ def param_digest(ts):
 
 class DpCounts:
     """Within the block, counts the calls of ``torch.distributed``'s
-    ``all_reduce`` and ``broadcast``."""
+    ``all_reduce`` and ``broadcast`` and the bytes of their tensors."""
 
     def __init__(self):
-        self.n = 0
+        self.n = self.bytes = 0
 
     def __enter__(self):
         import torch.distributed as dist
@@ -4338,6 +4365,7 @@ class DpCounts:
         def wrap(fn):
             def call(*a, **k):
                 self.n += 1
+                self.bytes += a[0].numel() * a[0].element_size()
                 return fn(*a, **k)
             return call
         dist.all_reduce, dist.broadcast = map(wrap, self.saved)
@@ -4456,25 +4484,26 @@ def dp_cli_argv(data, init, per_image, epochs=1):
             str(SIZE), str(SIZE), '--max-targets', str(4 * per_image * BS)]
 
 
-def dp_cli_rank(rank, port, root):
+def dp_cli_rank(rank, port, root, name='cli', extra=()):
     """(b) rank ``rank`` of ``python -m yolo_tpu_torch.train --coordinator``
-    (its ``main``), in ``root/cli{rank}``; writes ``root/cli{rank}.json``."""
+    (its ``main``) with ``root/cli.json``'s argv and ``extra``, in
+    ``root/{name}{rank}``; writes ``root/{name}{rank}.json``."""
     from yolo_tpu_torch.ops.nms_suppress import suppress
     from yolo_tpu_torch.train.__main__ import main
     with open(os.path.join(root, 'cli.json')) as f:
         cfg = json.load(f)
-    os.chdir(os.path.join(root, f'cli{rank}'))
+    os.chdir(os.path.join(root, f'{name}{rank}'))
     suppress.launches = 0
     t0 = time.perf_counter()
     with TimedLines() as tl:
-        main(cfg['argv'] + ['--coordinator', f'localhost:{port}',
-                            '--num-hosts', str(DP_RANKS), '--host-id',
-                            str(rank)])
+        main(cfg['argv'] + list(extra) + [
+            '--coordinator', f'localhost:{port}', '--num-hosts',
+            str(DP_RANKS), '--host-id', str(rank)])
     torch.cuda.synchronize()
     lines = [(t, m) for t, m in tl.lines
              if m.lstrip().startswith('epoch ') and ' batch ' in m]
     nb = len(lines)
-    with open(os.path.join(root, f'cli{rank}.json'), 'w') as f:
+    with open(os.path.join(root, f'{name}{rank}.json'), 'w') as f:
         json.dump({'s': time.perf_counter() - t0, 'k1': suppress.launches,
                    'totals': [m.split(' total ')[1].split()[0]
                               for _, m in lines],
@@ -4589,7 +4618,7 @@ def dp_spawn(argv_of_rank, n, env=None, timeout=600):
                 p.kill()
                 p.wait()
     if any(codes):
-        raise SmokeFailure(f'phase 14 ranks exited {codes}')
+        raise SmokeFailure(f'the ranks exited {codes}')
 
 
 def dp_child(root, dev):
@@ -4848,7 +4877,7 @@ def phase_parallel(train):
     """Phase 14 in a child process, which starts the ranks; returns its
     numbers. ``train``: phase 10's, whose one-process loop is printed
     beside the two ranks'."""
-    print(f'[14/14] data parallelism: {DP_RANKS} ranks on the card (gloo), '
+    print(f'[14/15] data parallelism: {DP_RANKS} ranks on the card (gloo), '
           f'the train CLI across them, evaluate over them, NCCL (a child '
           f'process)')
     t0 = time.perf_counter()
@@ -4869,6 +4898,630 @@ def phase_parallel(train):
     return out
 
 
+# ------------------------------------ phase 15: remat, tensor parallelism,
+# spatial partitioning
+
+TP_RANKS = 2                  # (b)-(d): two ranks share the one card, over
+                              # gloo: data 1 x model 2, or data 2 for (c)
+REMAT_POLICIES = ('none', 'blocks', 'full')
+REMAT_STEPS, REMAT_WARMUP = 3, 1          # (a): bf16 SGD steps @608, bs 8
+REMAT_GRAD_SIZE, REMAT_GRAD_BS = 320, 2   # (a): the f32 step of each policy
+# (a): the f32 gradients of 'blocks' and 'full' against no remat. The
+# recompute runs the same forward (loss items and BN statistics bit-equal),
+# but cuDNN's backward sums some weight gradients in another order from run
+# to run, which the BN backward amplifies as on phase 10 (a): every tensor
+# within 2.3e-2 of its norm, the head convs (no BN behind them) within 5e-5
+REMAT_GRAD_TOL, REMAT_HEAD_TOL = 2.3e-2, 5e-5
+# (b): bf16 SGD steps @608, bs 8: the first counts the collectives and is
+# not timed, the second is
+TP_STEPS, TP_WARMUP = 2, 1
+# (b): then bf16 SGD steps @320, bs 4, on the same state, after which the
+# leaves every rank holds whole (the head convs), their momentum and their
+# EMA must be bit-equal on both ranks
+TP_EQUAL_STEPS, TP_EQUAL_SIZE, TP_EQUAL_BS = 10, 320, 4
+# (b): the f32 gradient over the model axis against one process's. Each
+# split conv's input gradient is the sum of the two ranks' halves, another
+# f32 summation order than one conv's, which the BN backward amplifies as
+# it does the card's against the CPU's (phase 10 a): so it is held to
+# GRAD_BN_TOL, and to an f64 grad_fn by GRAD_F64_RATIO, where a fault
+# would show and rounding does not (phase 14's 2.3e-2 was exceeded on an
+# H100: 0.beta at 2.80e-2, all 1.80e-2, the head convs 3.87e-5). The same
+# gradient with the split convs' input all-reduce left out (each rank's
+# input gradient only its half's share) must fall outside GRAD_BN_TOL by
+# TP_FAULT_MARGIN at least: the tolerance tells that fault from rounding
+TP_FAULT_MARGIN = 4.0
+# (b): the heads of the TP checkpoint reloaded in one process against the
+# split model's, f32, of each map's norm: the same weights; cuDNN may pick
+# another algorithm for half the filters
+TP_HEADS_TOL = 1e-4
+SP_SIZE = 640                 # (c): H splits over 2 ranks x stride 32
+SP_ITERS = 3                  # (c): timed calls of each path
+SP_INFER = dict(conf_thres=0.01, iou_thres=0.6, top_k=128, max_det=32)
+SP_TOL = dict(rtol=1e-4, atol=1e-4)   # (c): tests/test_parallel.py's
+TP_IMAGES = 32                # (b) evaluate, (d): the first 4 batches
+                              # of the files
+
+
+def host_ms(fn, n):
+    """Median host time of ``n`` calls of ``fn``, each ended by a
+    synchronise (the ranks of a job call it in step)."""
+    ts = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def remat_checks(dev, card):
+    """(a) The remat policies on yolov3 in this process: an f32 step @320
+    of each (loss items and BN statistics bit-equal to no remat, the
+    gradients within ``REMAT_GRAD_TOL``), then bf16 SGD steps @608 bs 8 of
+    each: ``grad_fn`` ms by CUDA events, kernels a step, peak memory."""
+    from yolo_tpu_torch.ir import build_ir
+    from yolo_tpu_torch.models.network import init_params
+    from yolo_tpu_torch.train.trainer import init_train_state
+    net = build_ir(CFG)
+    params, state = init_params(net, torch.Generator().manual_seed(0),
+                                conv_scale=CONV_SCALE)
+    heads = {str(l.index) for l in net.layers if l.kind == 'conv'
+             and not l.bn}
+    t0 = time.perf_counter()
+    f32 = {}
+    for pol in REMAT_POLICIES:
+        grad_fn, _ = train_functions(net, remat=pol)
+        ts = init_train_state(net, params, state, compute_dtype=None,
+                              device=dev)
+        x, tgt, valid = train_batch(70, REMAT_GRAD_BS, REMAT_GRAD_SIZE, dev)
+        ts, items = grad_fn(ts, x, tgt, valid, 1.0, REMAT_GRAD_BS / 64)
+        f32[pol] = (items.cpu(),
+                    {f'{k}.{f}': p.grad.cpu() for k, g in ts.params.items()
+                     for f, p in g.items()},
+                    {f'{k}.{f}': t.cpu() for k, g in ts.bn_state.items()
+                     for f, t in g.items()})
+        del ts
+    out = {}
+    it0, g0, bn0 = f32['none']
+    for pol in REMAT_POLICIES[1:]:
+        it, g, bn = f32[pol]
+        err, err_all = rel_l2(g, g0)
+        head = max(e for k, e in err.items() if k.split('.')[0] in heads)
+        k_w = max(err, key=err.get)
+        check(torch.equal(it, it0)
+              and all(torch.equal(bn[k], bn0[k]) for k in bn0)
+              and err[k_w] <= REMAT_GRAD_TOL and head <= REMAT_HEAD_TOL,
+              f'(a) f32 grad_fn @{REMAT_GRAD_SIZE} bs={REMAT_GRAD_BS}, '
+              f'remat={pol} against none: loss items and {len(bn0)} BN '
+              f'statistics bit-equal (applied once); gradients: the worst '
+              f'{k_w} {err[k_w]:.2e} of its norm (<= {REMAT_GRAD_TOL:g}), '
+              f'all {err_all:.2e}, the head convs {head:.2e} (<= '
+              f'{REMAT_HEAD_TOL:g})')
+        out[f'f32_{pol}'] = {'grad_err_worst': err[k_w],
+                             'grad_err_all': err_all, 'head_grad_err': head}
+    x, tgt, valid = train_batch(71, BS, SIZE, dev)
+    sec = {'f32': time.perf_counter() - t0, 'profile': 0.0}
+    t0 = time.perf_counter()
+    for pol in REMAT_POLICIES:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        grad_fn, update_fn = train_functions(net, remat=pol)
+        ts = init_train_state(net, params, state,
+                              compute_dtype=torch.bfloat16, device=dev)
+        step, g_ms, u_ms, losses = dp_steps(
+            grad_fn, update_fn, ts, x, tgt, valid, BS, steps=REMAT_STEPS,
+            warmup=REMAT_WARMUP)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        t_prof = time.perf_counter()
+        prof = profile_device(lambda: grad_fn(ts, x, tgt, valid, 1.0,
+                                              BS / 64), n=1) or {}
+        sec['profile'] += time.perf_counter() - t_prof
+        loss = losses[:, 3].cpu()
+        check(bool(torch.isfinite(loss).all()),
+              f'(a) bf16 remat={pol}: finite losses {loss.tolist()}')
+        out[pol] = {'step_ms': step, 'grad_ms': g_ms, 'update_ms': u_ms,
+                    'peak_gib': peak, 'kernels': prof.get('kernels')}
+        print(f'  (a) remat={pol}: bf16 SGD step @{SIZE} bs={BS} '
+              f'{step:.3f} ms (grad_fn {g_ms:.3f}, update_fn {u_ms:.3f}; '
+              f'CUDA events, median of {REMAT_STEPS - REMAT_WARMUP}), '
+              f'{prof.get("kernels")} kernels a grad_fn, peak {peak:.2f} '
+              f'GiB ({card})')
+        del ts
+    sec['bf16'] = time.perf_counter() - t0
+    out['seconds'] = sec
+    print(f'  (a) {", ".join(f"{k} {v:.1f} s" for k, v in sec.items())}')
+    return out
+
+
+def tp_rank(rank, port, root):
+    """(b) and (c) on rank ``rank`` of a job of ``TP_RANKS`` on the card
+    (gloo: the ranks share it). (b) on a (1, 2) mesh: the f32 gradient, the
+    bf16 steps, the TP checkpoint and the split model's heads, evaluate
+    over the files; (c) on a (2, 1) mesh: ``make_infer`` on this rank's rows
+    of the image. Writes ``root/tp{rank}.json`` and, on rank 0, the gathered
+    f32 gradient (``tp_grad.pt``), the heads (``tp_heads.pt``) and the
+    checkpoint (``tp.npz``)."""
+    import torch.distributed as dist
+    from yolo_tpu_torch import runtime
+    from yolo_tpu_torch.config import DEFAULT_HYP, parse_data_cfg
+    from yolo_tpu_torch.data.datasets import DetectionDataset
+    from yolo_tpu_torch.eval.evaluator import evaluate
+    from yolo_tpu_torch.ir import build_ir
+    from yolo_tpu_torch.models.network import Darknet, init_params
+    from yolo_tpu_torch.ops.nms_suppress import suppress
+    from yolo_tpu_torch.parallel import (MODEL_AXIS, allgather_host_values,
+                                         gather_state, init_multihost,
+                                         make_mesh, shard_spatial,
+                                         shard_state, state_shardings)
+    from yolo_tpu_torch.runtime import preprocess
+    from yolo_tpu_torch.train.loop import save_train_checkpoint
+    from yolo_tpu_torch.train.loss import LossHyp
+    from yolo_tpu_torch.train.trainer import init_train_state
+    dev = init_multihost(f'localhost:{port}', TP_RANKS, rank)
+    device_setup()
+    suppress.launches = 0
+    mesh = make_mesh(dev, model_parallel=TP_RANKS)
+    out = {'backend': dist.get_backend(), 'device': str(dev),
+           'mesh': [mesh.data_index, mesh.model_index]}
+    net = build_ir(CFG)
+    params, state = init_params(net, torch.Generator().manual_seed(0),
+                                conv_scale=CONV_SCALE)
+    split = state_shardings(mesh, net, params)
+    out['split_leaves'] = sum(MODEL_AXIS in sh.spec for d in split.values()
+                              for sh in d.values())
+    sec, t_part = {}, [time.perf_counter()]
+
+    def part(name):
+        t = time.perf_counter()
+        sec[name] = t - t_part[0]
+        t_part[0] = t
+    # (b) the f32 gradient @320, gathered whole; then the same gradient
+    # with the split convs' input all-reduce left out (copy_to_model made
+    # the identity here), the fault the tolerance must tell from rounding
+    import yolo_tpu_torch.models.network as network
+    grad_fn, update_fn = train_functions(net, mesh)
+    x, tgt, valid = train_batch(70, DP_GRAD_BS, DP_GRAD_SIZE, dev)
+    ts = init_train_state(net, params, state, compute_dtype=None, device=dev)
+    shard_state(mesh, net, ts)
+    for name, copy in (('tp_grad', network.copy_to_model),
+                       ('tp_grad_fault', lambda t, group: t)):
+        keep, network.copy_to_model = network.copy_to_model, copy
+        try:
+            ts, items = grad_fn(ts, x, tgt, valid, 1.0, DP_GRAD_BS / 64)
+        finally:
+            network.copy_to_model = keep
+        grads = gather_state(mesh, net, {k: {f: p.grad for f, p in
+                                             d.items()}
+                                         for k, d in ts.params.items()})
+        ts.optimizer.zero_grad(set_to_none=True)
+        if rank == 0:
+            torch.save({'items': items.cpu(),
+                        'grads': {f'{k}.{f}': g.cpu() for k, d in
+                                  grads.items() for f, g in d.items()}},
+                       os.path.join(root, f'{name}.pt'))
+        del grads
+    del ts
+    part('f32_grads')
+    # (b) bf16 SGD steps @608 bs 8 (the warm-up's grad_fn counts the
+    # collectives), memory; then TP_EQUAL_STEPS more @320
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ts = init_train_state(net, params, state, compute_dtype=torch.bfloat16,
+                          device=dev)
+    shard_state(mesh, net, ts)
+    cnt = DpCounts()
+
+    def counted(*args):
+        if cnt.n:
+            return grad_fn(*args)
+        with cnt:
+            return grad_fn(*args)
+    step, g_ms, u_ms, losses = dp_steps(counted, update_fn, ts,
+                                        *train_batch(71, BS, SIZE, dev), BS,
+                                        steps=TP_STEPS, warmup=TP_WARMUP)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    part('bf16_steps')
+    losses = torch.cat([losses, dp_steps(
+        grad_fn, update_fn, ts,
+        *train_batch(74, TP_EQUAL_BS, TP_EQUAL_SIZE, dev), TP_EQUAL_BS,
+        steps=TP_EQUAL_STEPS, warmup=0)[3]])
+    h = __import__('hashlib').sha256()
+    whole = 0
+    for k, d in sorted(ts.params.items()):
+        for f, p in sorted(d.items()):
+            if MODEL_AXIS not in split[k][f].spec:
+                whole += 1
+                for t in (p, ts.optimizer.state[p]['momentum_buffer'],
+                          ts.ema.params[k][f]):
+                    h.update(t.detach().cpu().numpy().tobytes())
+    digests = allgather_host_values(np.frombuffer(h.digest(), np.uint8))
+    part('equal_steps')
+    loss = losses[:, 3].float().cpu()
+    out.update(step_ms=step, grad_ms=g_ms, update_ms=u_ms, peak_gib=peak,
+               collectives=cnt.n, bytes=cnt.bytes, losses=loss.tolist(), whole_leaves=whole,
+               replicated_equal=bool((digests == digests[0]).all()))
+    # (b) the checkpoint (whole tensors, rank 0) and the split model's heads
+    save_train_checkpoint(os.path.join(root, 'tp.npz'), ts, net, epoch=0,
+                          best_fitness=0.0, results_file='', with_opt=True,
+                          mesh=mesh)
+    model = Darknet(net, ts.params, ts.bn_state, dtype=torch.float32,
+                    model_group=mesh.model_group).to(
+        dev, memory_format=torch.channels_last).eval()
+    with torch.inference_mode():
+        heads = model.heads(preprocess(images(72, 2, DP_GRAD_SIZE),
+                                       device=dev))
+    if rank == 0:
+        torch.save([t.cpu() for t in heads],
+                   os.path.join(root, 'tp_heads.pt'))
+    del ts, model, heads
+    torch.cuda.empty_cache()
+    part('checkpoint')
+    # (b) evaluate over the files on split weights, f32
+    b = runtime.load_model(CFG, os.path.join(root, 'init.npz'), device=dev,
+                           dtype=torch.float32)
+    shard_state(mesh, b.net, b.params)
+    shard_state(mesh, b.net, b.state)
+    os.chdir(os.path.join(root, f'tp{rank}'))
+    k1 = suppress.launches
+    t0 = time.perf_counter()
+    data = os.path.join(root, 'set', 'half.data')
+    res, maps, _ = evaluate(
+        b.net, b.params, b.state, data, batch_size=BS, img_size=SIZE,
+        mesh=mesh, device=dev, dataset=DetectionDataset(
+            parse_data_cfg(data)['valid'], SIZE, BS, rect=False),
+        compute_dtype=torch.float32,
+        loss_hyp=LossHyp.from_dict(DEFAULT_HYP, nc=b.net.nc),
+        anchor_vecs=[np.asarray(l.anchors) / l.yolo_stride
+                     for l in b.net.layers if l.kind == 'yolo'], plot=True)
+    torch.cuda.synchronize()
+    out['eval'] = {'s': time.perf_counter() - t0,
+                   'k1': suppress.launches - k1,
+                   'res': [float(v) for v in res],
+                   'maps': [float(v) for v in maps]}
+    del b
+    torch.cuda.empty_cache()
+    part('evaluate')
+    # (c) spatial partitioning: the image's rows over both ranks
+    sp = make_mesh(dev)
+    x = preprocess(images(73, 1, SP_SIZE), device=dev)
+    xs = shard_spatial(sp, x)
+    for tag, dtype in (('f32', torch.float32), ('bf16', torch.bfloat16)):
+        bundle = runtime.load_model(CFG, os.path.join(root, 'init.npz'),
+                                    device=dev, dtype=dtype)
+        for mode in ('dense', 'sparse'):
+            infer = bundle.make_infer(sparse=mode == 'sparse', mesh=sp,
+                                      **SP_INFER)
+            k1 = suppress.launches
+            with DpCounts() as cnt:
+                dets = infer(xs)
+                torch.cuda.synchronize()
+            k1 = suppress.launches - k1
+            ms = host_ms(lambda: infer(xs), SP_ITERS)
+            # of those bytes, the head maps' gathers (whole buffers; the
+            # sparse path's objectness maps too); the rest are halo rows
+            yolos = [l for l in net.layers if l.kind == 'yolo']
+            gathered = sum((SP_SIZE // l.yolo_stride) ** 2
+                           * (l.na * l.no + l.na * (mode == 'sparse'))
+                           for l in yolos) * torch.finfo(dtype).bits // 8
+            out[f'sp_{tag}_{mode}'] = {
+                'dets': dets.cpu().tolist(), 'k1': k1, 'ms': ms,
+                'collectives': cnt.n, 'bytes': cnt.bytes,
+                'halo_bytes': cnt.bytes - gathered}
+    part('spatial')
+    out['k1'] = suppress.launches
+    out['seconds'] = sec
+    dist.destroy_process_group()
+    with open(os.path.join(root, f'tp{rank}.json'), 'w') as f:
+        json.dump(out, f)
+
+
+def tp_child(root, dev):
+    """Phase 15 in a process of its own (the JPEG files need OpenCV): (a)
+    here, then the ranks of (b)-(c) and of (d). Writes
+    ``root/phase15.json``."""
+    import socket
+    from yolo_tpu_torch import runtime
+    from yolo_tpu_torch.config import DEFAULT_HYP, parse_data_cfg
+    from yolo_tpu_torch.convert import to_jax
+    from yolo_tpu_torch.data.datasets import DetectionDataset
+    from yolo_tpu_torch.eval.evaluator import evaluate
+    from yolo_tpu_torch.ir import build_ir
+    from yolo_tpu_torch.models.network import init_params
+    from yolo_tpu_torch.ops.nms_suppress import suppress
+    from yolo_tpu_torch.runtime import preprocess
+    from yolo_tpu_torch.train.loss import LossHyp
+    from yolo_tpu_torch.train.trainer import init_train_state
+    from yolo_tpu_torch.utils.checkpoint import save_checkpoint
+    card = device_setup()
+    t_phase = time.perf_counter()
+    out = {'seconds': {}, 'card': card}
+    suppress.launches = 0
+
+    def port():
+        with socket.socket() as s:
+            s.bind(('localhost', 0))
+            return s.getsockname()[1]
+    me = os.path.abspath(__file__)
+
+    t0 = time.perf_counter()
+    out['a'] = remat_checks(dev, card)
+    out['seconds']['a'] = time.perf_counter() - t0
+
+    # the files, the weights and one process's references
+    t0 = time.perf_counter()
+    raw = runtime.load_model(CFG, device=dev, conv_scale=CONV_SCALE,
+                             generator=torch.Generator().manual_seed(0))
+    kw = dict(conf_thres=CONF_THRES, iou_thres=0.6, top_k=512, max_det=300)
+    data, _, labels = write_jpeg_set(os.path.join(root, 'set'),
+                                     raw.fuse().make_infer(**kw), dev,
+                                     TRAIN_IMAGES)
+    per_image = max(len(lab) for per in labels for lab in per)
+    lst = parse_data_cfg(data)['valid']
+    with open(data, 'a') as f:
+        f.write(f'train={lst}\n')
+    init = os.path.join(root, 'init.npz')
+    p, s = to_jax(raw.net, raw.params, raw.state)
+    save_checkpoint(init, params=p, state=s)
+    del raw
+    # (b)'s evaluate and (d) take the first TP_IMAGES files
+    with open(lst) as f:
+        files = f.read().split()[:TP_IMAGES]
+    half = os.path.join(root, 'set', 'half.txt')
+    with open(half, 'w') as f:
+        f.write('\n'.join(files) + '\n')
+    with open(data) as f:
+        cfg_lines = [ln for ln in f.read().splitlines()
+                     if not ln.startswith(('valid=', 'train='))]
+    half_data = os.path.join(root, 'set', 'half.data')
+    with open(half_data, 'w') as f:
+        f.write('\n'.join(cfg_lines + [f'valid={half}', f'train={half}'])
+                + '\n')
+    with open(os.path.join(root, 'cli.json'), 'w') as f:
+        json.dump({'argv': dp_cli_argv(half_data, init, per_image)}, f)
+    for d in ('tp0', 'tp1', 'tpcli0', 'tpcli1'):
+        os.makedirs(os.path.join(root, d))
+    net = build_ir(CFG)
+    params, state = init_params(net, torch.Generator().manual_seed(0),
+                                conv_scale=CONV_SCALE)
+    g_one, _, it_one = grad_run(net, params, state, dev, size=DP_GRAD_SIZE,
+                                bs=DP_GRAD_BS)
+    g64 = grad_run(net, params, state, dev, torch.float64,
+                   size=DP_GRAD_SIZE, bs=DP_GRAD_BS)[0]
+    grad_fn, update_fn = train_functions(net)
+    ts = init_train_state(net, params, state, compute_dtype=torch.bfloat16,
+                          device=dev)
+    step1, g1, u1, _ = dp_steps(grad_fn, update_fn, ts,
+                                *train_batch(71, BS, SIZE, dev), BS,
+                                steps=TP_STEPS, warmup=TP_WARMUP)
+    del ts
+    torch.cuda.empty_cache()
+    b = runtime.load_model(CFG, init, device=dev, dtype=torch.float32)
+    os.chdir(root)
+    res1, maps1, _ = evaluate(
+        b.net, b.params, b.state, half_data, batch_size=BS, img_size=SIZE,
+        device=dev, dataset=DetectionDataset(half, SIZE, BS, rect=False),
+        compute_dtype=torch.float32,
+        loss_hyp=LossHyp.from_dict(DEFAULT_HYP, nc=b.net.nc),
+        anchor_vecs=[np.asarray(l.anchors) / l.yolo_stride
+                     for l in b.net.layers if l.kind == 'yolo'])
+    res1, maps1 = np.asarray(res1), np.asarray(maps1)
+    del b
+    x = preprocess(images(73, 1, SP_SIZE), device=dev)
+    sp_one = {}
+    for tag, dtype in (('f32', torch.float32), ('bf16', torch.bfloat16)):
+        bundle = runtime.load_model(CFG, init, device=dev, dtype=dtype)
+        for mode in ('dense', 'sparse'):
+            infer = bundle.make_infer(sparse=mode == 'sparse', **SP_INFER)
+            sp_one[f'{tag}_{mode}'] = (infer(x).cpu(),
+                                       host_ms(lambda: infer(x), SP_ITERS))
+    out['seconds']['set_up'] = time.perf_counter() - t0
+
+    # (b) and (c): two ranks on the card
+    t0 = time.perf_counter()
+    pt = port()
+    dp_spawn(lambda r: [sys.executable, me, '--phase15-rank', str(r),
+                        str(pt), root], TP_RANKS)
+    ranks = []
+    for r in range(TP_RANKS):
+        with open(os.path.join(root, f'tp{r}.json')) as f:
+            ranks.append(json.load(f))
+    out['seconds']['b_c'] = time.perf_counter() - t0
+    a = ranks[0]
+    out['seconds']['b_c_rank0'] = a['seconds']
+    check(all(q['backend'] == 'gloo' and q['device'] == 'cuda:0'
+              for q in ranks)
+          and [q['mesh'] for q in ranks] == [[0, 0], [0, 1]],
+          f'(b) {TP_RANKS} ranks over gloo on cuda:0 at (data, model) '
+          f'{[q["mesh"] for q in ranks]}, {a["split_leaves"]} leaves split '
+          f'over the model axis')
+    tp = torch.load(os.path.join(root, 'tp_grad.pt'))
+    check(torch.allclose(tp['items'], it_one, rtol=DP_LOSS_TOL),
+          f'(b) f32 grad_fn @{DP_GRAD_SIZE} bs={DP_GRAD_BS} over the model '
+          f'axis: loss items {tp["items"].tolist()} against one process\'s '
+          f'{it_one.tolist()} (rtol {DP_LOSS_TOL:g})')
+    err, err_all = rel_l2(tp['grads'], g_one)
+    heads = {str(l.index) for l in net.layers if l.kind == 'conv'
+             and not l.bn}
+    head_err = max(e for k, e in err.items() if k.split('.')[0] in heads)
+    k_w = max(err, key=err.get)
+    check(err[k_w] <= GRAD_BN_TOL and err_all <= GRAD_BN_TOL / 2
+          and head_err <= GRAD_TOL,
+          f'(b) the gathered gradient against one process\'s: {len(err)} '
+          f'tensors, the worst {k_w} at {err[k_w]:.2e} of its norm, all '
+          f'{err_all:.2e} (<= {GRAD_BN_TOL:g}, {GRAD_BN_TOL / 2:g}), the '
+          f'head convs {head_err:.2e} (<= {GRAD_TOL:g})')
+    fault = torch.load(os.path.join(root, 'tp_grad_fault.pt'))
+    e_f, e_f_all = rel_l2(fault['grads'], g_one)
+    k_f = max(e_f, key=e_f.get)
+    check(e_f[k_f] >= TP_FAULT_MARGIN * GRAD_BN_TOL
+          and e_f_all >= TP_FAULT_MARGIN * GRAD_BN_TOL / 2,
+          f'(b) the witness: with the split convs\' input all-reduce left '
+          f'out, the gathered gradient is {e_f_all:.2e} from one '
+          f'process\'s in all, the worst {k_f} at {e_f[k_f]:.2e} (>= '
+          f'{TP_FAULT_MARGIN:g}x the tolerances {GRAD_BN_TOL:g}, '
+          f'{GRAD_BN_TOL / 2:g})')
+    e_tp, e_tp_all = rel_l2(tp['grads'], g64)
+    e_one, e_one_all = rel_l2(g_one, g64)
+    k_t, k_o = max(e_tp, key=e_tp.get), max(e_one, key=e_one.get)
+    check(e_tp_all <= GRAD_F64_RATIO * e_one_all
+          and e_tp[k_t] <= GRAD_F64_RATIO * e_one[k_o],
+          f'(b) against an f64 grad_fn on the card: the TP gradient '
+          f'{e_tp_all:.2e} in all, the worst {k_t} at {e_tp[k_t]:.2e}; one '
+          f'process\'s f32 {e_one_all:.2e}, the worst {k_o} at '
+          f'{e_one[k_o]:.2e} (TP <= {GRAD_F64_RATIO:g}x one process)')
+    check(all(q['replicated_equal'] for q in ranks)
+          and np.isfinite(a['losses']).all(),
+          f'(b) {TP_STEPS - TP_WARMUP} bf16 SGD step @{SIZE} bs={BS}, then '
+          f'{TP_EQUAL_STEPS} @{TP_EQUAL_SIZE} bs={TP_EQUAL_BS}: the '
+          f'{a["whole_leaves"]} leaves held whole on each rank, their '
+          f'momentum and their EMA bit-equal on both ranks (sha256); '
+          f'losses {np.round(a["losses"], 4).tolist()}')
+    print(f'  (b) a TP step over {TP_RANKS} ranks on one card: '
+          f'{a["step_ms"]:.3f} ms (grad_fn {a["grad_ms"]:.3f}, update_fn '
+          f'{a["update_ms"]:.3f}; one process {step1:.3f}, CUDA events, '
+          f'median of {TP_STEPS - TP_WARMUP}); {a["collectives"]} '
+          f'collectives a grad_fn, {a["bytes"] / 2**30:.3f} GiB through '
+          f'them; peak {a["peak_gib"]:.2f} GiB a rank ({card})')
+    ck = runtime.load_model(CFG, os.path.join(root, 'tp.npz'), device=dev,
+                            dtype=torch.float32, prefer_ema=False)
+    with torch.inference_mode():
+        h1 = ck.model().heads(preprocess(images(72, 2, DP_GRAD_SIZE),
+                                         device=dev))
+    h_tp = torch.load(os.path.join(root, 'tp_heads.pt'))
+    h_err, _ = rel_l2({str(i): t.cpu() for i, t in enumerate(h1)},
+                      {str(i): t for i, t in enumerate(h_tp)})
+    check(max(h_err.values()) <= TP_HEADS_TOL,
+          f'(b) the TP checkpoint (whole tensors, rank 0) reloaded in one '
+          f'process: its heads against the split model\'s, '
+          f'{max(h_err.values()):.2e} of the norm (<= {TP_HEADS_TOL:g})')
+    ev = [q['eval'] for q in ranks]
+    rs = [np.asarray(e['res']) for e in ev]
+    ms = [np.asarray(e['maps']) for e in ev]
+    n_local = TP_IMAGES // BS
+    check(all(np.array_equal(rs[0], q) for q in rs)
+          and all(np.array_equal(ms[0], q) for q in ms)
+          and all(e['k1'] == n_local for e in ev),
+          f'(b) f32 evaluate over the model axis: the same results and maps '
+          f'on both ranks, K1 {[e["k1"] for e in ev]} times (once per '
+          f'batch of {BS}, {n_local} each)')
+    d_met = float(np.abs(rs[0][:4] - res1[:4]).max())
+    d_maps = float(np.abs(ms[0] - maps1).max())
+    d_loss = float(np.abs(rs[0][4:] / res1[4:] - 1).max())
+    tol, ltol = DP_EVAL_TOL['f32']
+    check(d_met <= tol and d_maps <= tol and d_loss <= ltol
+          and res1[2] > 0.9,
+          f'(b) against one process: P R mAP F1 '
+          f'{np.round(rs[0][:4], 6).tolist()} against '
+          f'{np.round(res1[:4], 6).tolist()} (|d| {d_met:.2e} <= {tol:g}), '
+          f'class APs |d| {d_maps:.2e}, val losses {d_loss:.2e} relative '
+          f'(<= {ltol:g}); {ev[0]["s"]:.1f} s')
+    out['b'] = {k: a[k] for k in ('step_ms', 'grad_ms', 'update_ms',
+                                  'collectives', 'bytes', 'peak_gib',
+                                  'split_leaves')}
+    out['b'].update(fault_err_all=e_f_all, fault_err_worst=e_f[k_f],
+                    step_ms_one=step1, grad_ms_one=g1, grad_err_worst=err[k_w],
+                    grad_err_all=err_all, head_grad_err=head_err,
+                    f64_err_tp=e_tp_all, f64_err_one=e_one_all,
+                    f64_worst_tp=e_tp[k_t], f64_worst_one=e_one[k_o],
+                    ckpt_heads_err=max(h_err.values()), eval_s=ev[0]['s'],
+                    metric_diff=d_met, maps_diff=d_maps, loss_rdiff=d_loss)
+    out['c'] = {}
+    for tag in ('f32', 'bf16'):
+        for mode in ('dense', 'sparse'):
+            q = [r[f'sp_{tag}_{mode}'] for r in ranks]
+            got = [torch.tensor(v['dets']) for v in q]
+            ref, one_ms = sp_one[f'{tag}_{mode}']
+            diff = float((got[0] - ref).abs().max())
+            n_det = int((ref[..., 4] > 0).sum())
+            same = torch.equal(got[0], got[1])
+            close = torch.allclose(got[0], ref, **SP_TOL)
+            check(same and all(v['k1'] == 1 for v in q) and n_det > 0
+                  and (close or tag == 'bf16'),
+                  f'(c) {tag} {mode} make_infer on the rows of a {SP_SIZE}² '
+                  f'image over {TP_RANKS} ranks: the same {n_det} detections '
+                  f'on both, K1 once a call on each, |d| {diff:.2e} from one '
+                  f'process'
+                  + ('' if tag == 'bf16' else
+                     f' (rtol {SP_TOL["rtol"]:g}, atol {SP_TOL["atol"]:g})'))
+            print(f'  (c) {tag} {mode}: {q[0]["ms"]:.3f} ms an image over '
+                  f'{TP_RANKS} ranks against {one_ms:.3f} ms in one process '
+                  f'(host clock, median of {SP_ITERS}); {q[0]["collectives"]} '
+                  f'all-reduces, {q[0]["bytes"] / 2**20:.2f} MiB through them '
+                  f'a forward, {q[0]["halo_bytes"] / 2**20:.2f} MiB of them '
+                  f'halo rows ({card})')
+            out['c'][f'{tag}_{mode}'] = {
+                'ms': q[0]['ms'], 'ms_one': one_ms, 'diff': diff,
+                'collectives': q[0]['collectives'],
+                'bytes': q[0]['bytes'], 'halo_bytes': q[0]['halo_bytes']}
+
+    # (d) the train CLI with --tp 2 over the two ranks
+    t0 = time.perf_counter()
+    pt = port()
+    dp_spawn(lambda r: [sys.executable, me, '--phase15-cli', str(r),
+                        str(pt), root], TP_RANKS)
+    clis = []
+    for r in range(TP_RANKS):
+        with open(os.path.join(root, f'tpcli{r}.json')) as f:
+            clis.append(json.load(f))
+    out['seconds']['d'] = time.perf_counter() - t0
+    rows = np.loadtxt(os.path.join(root, 'tpcli0', 'results.txt'),
+                      ndmin=2)
+    n_eval = TP_IMAGES // max(BS // 4, 1)
+    check(clis[0]['totals'] == clis[1]['totals'] and rows.shape == (1, 12)
+          and np.isfinite(rows).all()
+          and os.path.exists(os.path.join(root, 'tpcli0', 'weights',
+                                          'last.npz'))
+          and not any(os.path.exists(os.path.join(root, 'tpcli1', f))
+                      for f in ('results.txt', 'weights/last.npz'))
+          and all(c['k1'] == n_eval for c in clis),
+          f'(d) train --coordinator --tp {TP_RANKS}, 1 epoch of bs {BS} on '
+          f'{TP_IMAGES} files: the same {len(clis[0]["totals"])} loss lines on both ranks, '
+          f'results.txt and weights/last.npz on rank 0 alone, K1 '
+          f'{[c["k1"] for c in clis]} times ({n_eval} eval batches each)')
+    out['d'] = {'images_per_s': clis[0]['images_per_s'], 's': clis[0]['s'],
+                'k1': [c['k1'] for c in clis],
+                'loss': rows[0, 1:5].tolist()}
+    print(f'  (d) the loop with --tp {TP_RANKS} on one card: '
+          f'{clis[0]["images_per_s"]:.1f} images/s (batches 0 to '
+          f'{clis[0]["batches"] - 1}), {clis[0]["s"]:.1f} s with set-up and '
+          f'evaluate ({card})')
+    out['nms_suppress'] = (suppress.launches + sum(q['k1'] for q in ranks)
+                           + sum(c['k1'] for c in clis))
+    out['seconds']['all'] = time.perf_counter() - t_phase
+    print(f'  phase 15 (child): {out["seconds"]["all"]:.1f} s '
+          f'({", ".join(f"{k} {v:.1f}" for k, v in out["seconds"].items() if k not in ("all", "b_c_rank0"))}; '
+          f'rank 0 of b_c: {", ".join(f"{k} {v:.1f}" for k, v in a["seconds"].items())})')
+    with open(os.path.join(root, 'phase15.json'), 'w') as f:
+        json.dump(out, f)
+
+
+def phase_tp(train):
+    """Phase 15 in a child process, which starts the ranks; returns its
+    numbers. ``train``: phase 10's, whose one-process loop is printed
+    beside the TP loop's."""
+    print(f'[15/15] remat, tensor parallelism ({TP_RANKS} ranks on the card, '
+          f'gloo), spatial partitioning, the train CLI with --tp (a child '
+          f'process)')
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        sys.stdout.flush()
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            '--phase15', root], timeout=900)
+        if r.returncode != 0:
+            raise SmokeFailure(f'phase 15 (child) exited {r.returncode}')
+        with open(os.path.join(root, 'phase15.json')) as f:
+            out = json.load(f)
+    if train is not None:
+        one = train['loop']['loop_images_per_s']
+        print(f'  the training loop: --tp {TP_RANKS} on one card '
+              f'{out["d"]["images_per_s"]:.1f} images/s (phase 15 d) against '
+              f'one process\'s {", ".join(f"{r:.1f}" for r in one)} (phase '
+              f'10 c, by epoch)')
+    print(f'  phase 15: {time.perf_counter() - t0:.1f} s')
+    return out
+
+
 # imported into this process at the end as well: the data path's and the
 # host utilities' modules (the phases' children run them; their imports
 # must load neither jax, nor OpenCV, nor the JAX package)
@@ -4876,7 +5529,9 @@ IMPORT_CHECKED = ('native', 'data.datasets', 'data.device_aug',
                   'data.augment_extra', 'detect', 'train.__main__',
                   'utils.profiler', 'utils.gsutil', 'utils.downloads',
                   'utils.dev', 'parallel', 'parallel.mesh',
-                  'parallel.multihost', 'parallel.collectives')
+                  'parallel.multihost', 'parallel.collectives',
+                  'models.network', 'ops.conv', 'runtime', 'train.trainer',
+                  'train.loop', 'eval.evaluator')
 
 
 def check_imports():
@@ -4911,6 +5566,7 @@ def main():
     kd = phase_kd()
     data = phase_data(train)
     par = phase_parallel(train)
+    tp = phase_tp(train)
     check_imports()
     print(f'build {build_s:.2f} s; whole run {time.perf_counter() - t0:.1f} s')
     print(card)
@@ -4925,7 +5581,8 @@ def main():
                       + train['loop']['nms_suppress']
                       + train['snap']['nms_suppress']
                       + quant['nms_suppress'] + kd['nms_suppress']
-                      + data['nms_suppress'] + par['nms_suppress']), **k1,
+                      + data['nms_suppress'] + par['nms_suppress']
+                      + tp['nms_suppress']), **k1,
          'launches_phase9': prune['nms_suppress'],
          'launches_phase10': (train['loop']['nms_suppress']
                               + train['snap']['nms_suppress']),
@@ -4933,6 +5590,7 @@ def main():
          'launches_phase12': kd['nms_suppress'],
          'launches_phase13': data['nms_suppress'],
          'launches_phase14': par['nms_suppress'],
+         'launches_phase15': tp['nms_suppress'],
          'main_path_ms': k1_main['ms'],
          'main_path_device_ms': k1_main['device_ms']},
         {'name': 'conv_int8', 'route': 'cuda',
@@ -4965,8 +5623,8 @@ def main():
 
 
 def main_child(child, root):
-    """The child process of phase 9, 10, 11, 12, 13 or 14 (``chip_smoke.py
-    --phase9 DIR`` and so on)."""
+    """The child process of phase 9, 10, 11, 12, 13, 14 or 15
+    (``chip_smoke.py --phase9 DIR`` and so on)."""
     dev = torch.device('cuda', 0)
     torch.cuda.set_device(dev)
     sys.path.insert(0, ROOT)
@@ -4995,6 +5653,15 @@ if __name__ == '__main__':
         elif sys.argv[1:2] == ['--phase14-nccl']:
             sys.path.insert(0, ROOT)
             dp_nccl(sys.argv[2])
+        elif sys.argv[1:2] == ['--phase15']:
+            main_child(tp_child, sys.argv[2])
+        elif sys.argv[1:2] == ['--phase15-rank']:
+            sys.path.insert(0, ROOT)
+            tp_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        elif sys.argv[1:2] == ['--phase15-cli']:
+            sys.path.insert(0, ROOT)
+            dp_cli_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4],
+                        name='tpcli', extra=['--tp', str(TP_RANKS)])
         else:
             main()
     except SmokeFailure as e:

@@ -8,8 +8,12 @@ heads.
 """
 
 import math
+import os
+import time
 
 import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 TOY_CFG = """[net]
 width=64
@@ -212,3 +216,28 @@ def candidates(rng, bs, k):
     boxes = np.concatenate([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
     scores = np.sort(rng.uniform(0.05, 1.0, (bs, k)))[:, ::-1].copy()
     return boxes.astype(np.float32), scores.astype(np.float32), scores > 0.1
+
+
+def jax_native(timeout=30.0):
+    """The JAX package's host library module (``yolo_tpu.native``), loaded
+    whichever test process built it.
+
+    On a fresh tree that module builds ``native/libfastpre.so`` in place,
+    without a lock, the first time a process asks for it; under several
+    pytest workers each one builds it at once, and a worker whose load meets
+    a half-written file keeps "unavailable" for its life. So when it says
+    unavailable, wait (at most ``timeout`` seconds) until the file loads,
+    then clear the module's memory of the failure and ask again. Writes
+    nothing under ``yolo_tpu/`` or ``native/``."""
+    import ctypes
+    from yolo_tpu import native
+    so = os.path.join(ROOT, 'native', 'libfastpre.so')
+    deadline = time.monotonic() + timeout
+    while not native.available() and time.monotonic() < deadline:
+        try:
+            ctypes.CDLL(so)
+        except OSError:
+            time.sleep(0.2)
+            continue
+        native._TRIED, native._LIB = False, None
+    return native

@@ -14,8 +14,18 @@ import sys
 import numpy as np
 import pytest
 
+from _torch_port import jax_native
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+
+
+@pytest.fixture(scope='module', autouse=True)
+def _jax_native_loaded():
+    """JAX's ``BatchLoader`` takes its native path where ``yolo_tpu.native``
+    loads: load it whichever test process built it
+    (``_torch_port.jax_native``)."""
+    jax_native()
 
 HYP = dict(hsv_h=0.0138, hsv_s=0.678, hsv_v=0.36, degrees=5.0,
            translate=0.1, scale=0.1, shear=2.0)

@@ -467,9 +467,9 @@ def test_evaluate_augment_matches_jax(eval_sets, capsys):
 
 
 def test_unported_eval_paths_raise(eval_sets):
-    """A tensor-parallel mesh, which mesh evaluation would need beyond
-    data parallelism (``test_torch_parallel.py``), raises
-    NotImplementedError naming ROADMAP.md;
+    """A tensor-parallel mesh needs ranks (``test_torch_tp.py`` evaluates
+    over one): ``make_mesh(model_parallel=2)`` in one process raises
+    ValueError, as JAX's assertion;
     ``--quantized 2`` (refused until the quantization slice) evaluates the
     TPSQ sim, and ``--int8-engine`` on a float model exits; test-time
     augmentation, which the first evaluation slice refused, runs, by
@@ -481,7 +481,7 @@ def test_unported_eval_paths_raise(eval_sets):
     from yolo_tpu_torch.eval.evaluator import evaluate
     cfg, npz, data = eval_sets['float']
     from yolo_tpu_torch.parallel import make_mesh
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    with pytest.raises(ValueError, match='model_parallel=2'):
         make_mesh('cpu', model_parallel=2)
     base = ['--cfg', cfg, '--data', data, '--weights', npz, '--device', 'cpu']
     r = cli.main(base + ['--quantized', '2', '--no-plot', '--img-size',

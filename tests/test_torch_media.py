@@ -18,10 +18,18 @@ import threading
 import numpy as np
 import pytest
 
-from _torch_port import random_jax_weights
+from _torch_port import jax_native, random_jax_weights
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+
+
+@pytest.fixture(scope='module', autouse=True)
+def _jax_native_loaded():
+    """JAX's ``BatchLoader`` takes its native path where ``yolo_tpu.native``
+    loads: load it whichever test process built it
+    (``_torch_port.jax_native``)."""
+    jax_native()
 
 W, H, N_FRAMES = 96, 72, 6
 

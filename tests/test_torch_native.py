@@ -13,14 +13,19 @@ import sys
 import numpy as np
 import pytest
 
+from _torch_port import jax_native
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 
 @pytest.fixture(scope='module')
 def libs():
-    from yolo_tpu import native as J
+    """Both host libraries, JAX's loaded whichever test process built it
+    (``_torch_port.jax_native``: its in-place build races under several
+    workers)."""
     from yolo_tpu_torch import native as N
+    J = jax_native()
     assert N.available(), N.build_log()
     assert J.available()
     return N, J

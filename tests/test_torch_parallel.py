@@ -45,10 +45,18 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import TOY_CFG, images, random_jax_weights
+from _torch_port import TOY_CFG, images, jax_native, random_jax_weights
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+
+
+@pytest.fixture(scope='module', autouse=True)
+def _jax_native_loaded():
+    """JAX's ``BatchLoader`` takes its native path where ``yolo_tpu.native``
+    loads: load it whichever test process built it
+    (``_torch_port.jax_native``)."""
+    jax_native()
 
 # TOY_CFG with leaky in place of mish and no weighted shortcut
 # (test_torch_quant_schemes.PLAIN_CFG, whose QAT train forward is JAX's)
@@ -69,15 +77,15 @@ def free_port():
         return s.getsockname()[1]
 
 
-def spawn(argv_of_rank, cwd_of_rank):
-    """Start the ranks of one job; returns the Popen objects."""
+def spawn(argv_of_rank, cwd_of_rank, n=RANKS):
+    """Start the ``n`` ranks of one job; returns the Popen objects."""
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
     env.update(GLOO_SOCKET_IFNAME='lo', OMP_NUM_THREADS='1',
                PYTHONPATH=ROOT)
     return [subprocess.Popen(argv_of_rank(r), cwd=cwd_of_rank(r), env=env,
                              stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT, text=True)
-            for r in range(RANKS)]
+            for r in range(n)]
 
 
 def wait(procs):
@@ -176,11 +184,12 @@ def port_step(kind, cfgs, x, tgt, valid, mesh=None):
     """One f32 ``grad_fn`` + ``update_fn`` of ``kind`` ('float', 'qat'
     google, 'qat_cos' cos-PTQ, 'kd') on this rank's block (the whole batch without ``mesh``): the
     global batch's loss items, and the params, BN state, EMA and quantizer
-    state, flat."""
+    state, flat (whole tensors under a model axis)."""
     from yolo_tpu_torch.compress import quant as TQ
     from yolo_tpu_torch.convert import from_jax, qstate_to_jax
     from yolo_tpu_torch.ir import build_ir
     from yolo_tpu_torch.models.network import Darknet
+    from yolo_tpu_torch.parallel import gather_state, shard_state
     from yolo_tpu_torch.parallel.collectives import all_reduce_nograd
     from yolo_tpu_torch.train.kd import make_kd_loss_fn
     from yolo_tpu_torch.train.loss import LossHyp
@@ -207,6 +216,8 @@ def port_step(kind, cfgs, x, tgt, valid, mesh=None):
         net, avecs, NC, LossHyp.from_dict(hyp(), nc=NC), mesh=mesh, **kw)
     ts = init_train_state(net, *from_jax(net, pj, sj), compute_dtype=None,
                           device='cpu', qstate=qstate)
+    if mesh is not None:
+        shard_state(mesh, net, ts)
     sc, gr, _ = burn_in_scalars(1000, 500, 0, lr0=0.01, momentum=0.937,
                                 weight_decay=5e-4, epochs=10, batch_size=BS)
     ts, items = grad_fn(ts, torch.from_numpy(x), torch.from_numpy(tgt),
@@ -214,8 +225,10 @@ def port_step(kind, cfgs, x, tgt, valid, mesh=None):
     ts = update_fn(ts, sc)
     out = {'items': all_reduce_nograd(
         items, None if mesh is None else mesh.data_group).numpy()}
-    for tag, tree in (('p', ts.params), ('s', ts.bn_state),
-                      ('ep', ts.ema.params), ('es', ts.ema.state)):
+    whole = lambda tree: gather_state(mesh, net, tree)
+    for tag, tree in (('p', whole(ts.params)), ('s', whole(ts.bn_state)),
+                      ('ep', whole(ts.ema.params)),
+                      ('es', whole(ts.ema.state))):
         for k, d in tree.items():
             for f, t in d.items():
                 out[f'{tag}/{k}/{f}'] = t.detach().numpy().copy()
@@ -260,15 +273,20 @@ def bn_inputs():
 
 def port_eval(cfgs, datas, mesh=None):
     """evaluate of the 9-file set in f32 with val losses, bs 2: over the
-    mesh, or in one process on square letterboxes."""
+    mesh (its weights laid out by ``shard_state``), or in one process on
+    square letterboxes."""
     from yolo_tpu_torch import runtime as trt
     from yolo_tpu_torch.config import parse_data_cfg
     from yolo_tpu_torch.data.datasets import DetectionDataset
     from yolo_tpu_torch.eval.evaluator import evaluate
+    from yolo_tpu_torch.parallel import shard_state
     from yolo_tpu_torch.train.loss import LossHyp
     b = trt.load_model(cfgs['toy'], os.path.join(
         os.path.dirname(cfgs['toy']), 'init.npz'), device='cpu',
         dtype=torch.float32)
+    if mesh is not None:
+        shard_state(mesh, b.net, b.params)
+        shard_state(mesh, b.net, b.state)
     ds = None
     if mesh is None:
         ds = DetectionDataset(parse_data_cfg(datas['eval'])['valid'], SIZE,
@@ -467,31 +485,56 @@ def test_host_shard_matches_jax():
 
 def test_mesh_outside_a_job():
     """One process: a mesh of one rank that communicates nothing;
-    ``shard_batch`` takes every row, ``replicate`` leaves values alone,
-    and the unported layouts raise."""
+    ``shard_batch`` takes every row, ``replicate`` and ``shard_state``
+    leave values alone, ``shard_spatial`` returns its input (the whole
+    image is this rank's rows), and a model axis, which needs ranks,
+    raises ValueError as JAX's assertion does."""
     from yolo_tpu_torch.parallel import (DATA_AXIS, make_mesh, replicate,
                                          shard_batch, shard_spatial,
                                          shard_state, state_shardings)
     mesh = make_mesh('cpu')
     assert mesh.shape[DATA_AXIS] == 1 and mesh.data_group is None
+    assert mesh.model_group is None and mesh.model_index == 0
     a = np.arange(8)
     assert np.array_equal(shard_batch(mesh, a), a)
     t = {'0': {'w': torch.ones(3)}}
     assert replicate(mesh, t) is t and shard_state(mesh, None, t) is t
     assert state_shardings(mesh, None, t)['0']['w'].spec == ()
-    for fn in (lambda: shard_spatial(mesh, a),
-               lambda: make_mesh('cpu', model_parallel=2)):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            fn()
+    x = torch.rand(1, 8, 8, 3)
+    assert shard_spatial(mesh, x) is x
+    with pytest.raises(ValueError, match='model_parallel=2'):
+        make_mesh('cpu', model_parallel=2)
 
 
-@pytest.mark.parametrize('argv', [['--tp', '2'], ['--remat', 'blocks']],
+@pytest.mark.parametrize('argv', [['--tp', '2', '--quantized', '1'],
+                                  ['--remat', 'blocks']],
                          ids=['tp', 'remat'])
-def test_cli_unported_parallel_flags_raise(argv):
+def test_cli_unported_parallel_flags_raise(argv, monkeypatch):
+    """Beside ``--coordinator``: ``--tp`` with ``--quantized`` (QAT under
+    tensor parallelism, not ported) still raises before the process joins
+    the job; ``--remat``, which once raised, joins it (the join stubbed
+    here) and reaches ``run_training``."""
+    from yolo_tpu_torch import parallel
+    from yolo_tpu_torch.train import loop
     from yolo_tpu_torch.train.__main__ import main
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        main(argv + ['--coordinator', 'localhost:1', '--num-hosts', '2',
-                     '--host-id', '0', '--device', 'cpu'])
+    joined, opts = [], []
+    monkeypatch.setattr(parallel, 'init_multihost', lambda *a, **k:
+                        joined.append((a, k)) or torch.device('cpu'))
+    monkeypatch.setattr(torch.distributed, 'destroy_process_group',
+                        lambda: None)
+    monkeypatch.setattr(loop, 'run_training', lambda o: opts.append(o)
+                        or (0.0,) * 7)
+    argv = argv + ['--coordinator', 'localhost:1', '--num-hosts', '2',
+                   '--host-id', '0', '--device', 'cpu']
+    if '--quantized' in argv:
+        with pytest.raises(NotImplementedError, match='ROADMAP'):
+            main(argv)
+        assert not joined and not opts
+        return
+    main(argv)
+    assert joined[0][0] == ('localhost:1',)
+    assert joined[0][1]['num_processes'] == 2
+    assert opts[0].remat == 'blocks' and opts[0].device == 'cpu'
 
 
 # ------------------------------------------------------------ the job's ranks

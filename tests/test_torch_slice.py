@@ -202,7 +202,8 @@ def test_port_never_imports_jax_or_cv2():
     quantization paths' included: ``compress/quant_legacy`` and ``ptq``;
     KD, evolve, the FPGA export and its CLI, and the anchors; the host
     library, the device augmentation, the extra masks and the host
-    utilities; data parallelism) loads neither jax, nor OpenCV, PIL or matplotlib (imported
+    utilities; data and tensor parallelism, spatial partitioning and the
+    remat policies) loads neither jax, nor OpenCV, PIL or matplotlib (imported
     inside functions only), nor any module of the JAX package."""
     code = ('import pkgutil, importlib, sys, yolo_tpu_torch; '
             'mods = [m.name for m in pkgutil.walk_packages('
@@ -221,7 +222,8 @@ def test_port_never_imports_jax_or_cv2():
             "'native', 'data.device_aug', 'data.augment_extra', "
             "'utils.profiler', 'utils.gsutil', 'utils.downloads', "
             "'utils.dev', 'parallel', 'parallel.mesh', "
-            "'parallel.multihost', 'parallel.collectives')}; "
+            "'parallel.multihost', 'parallel.collectives', "
+            "'models.network', 'ops.conv', 'runtime')}; "
             "assert need <= set(mods), need - set(mods); "
             "assert 'PIL' not in sys.modules; "
             "assert 'matplotlib' not in sys.modules; "

@@ -210,17 +210,43 @@ def test_cli_runs_on_cpu(train_set, tmp_path):
 
 @pytest.mark.parametrize('argv', [
     ['--tp', '2'], ['--remat', 'blocks'],
-    ['--coordinator', 'localhost:1234', '--tp', '2'],
+    ['--coordinator', 'localhost:1234', '--tp', '2', '--quantized', '1'],
     ['--num-hosts', '2', '--tp', '2'], ['--host-id', '1', '--remat', 'full'],
-    ['--num_hosts', '4', '--tp', '4']],
+    ['--num_hosts', '4', '--tp', '4', '--quantized', '1']],
     ids=lambda a: a[0].lstrip('-'))
-def test_cli_unported_flags_raise(argv):
-    """--tp > 1 and --remat still raise, beside the multi-host flags too
-    (which are ported: ``test_torch_parallel.py``), before the process
-    would join a job."""
+def test_cli_unported_flags_raise(argv, train_set, tmp_path, monkeypatch):
+    """--tp and --remat, which once raised, now run: one process with
+    ``--tp K`` trains without a mesh (JAX's rule: the model axis needs
+    ranks), and ``--remat`` reaches ``make_train_functions``; beside the
+    multi-host flags alone (which join no job without ``--coordinator``)
+    the same. ``--tp`` with ``--quantized`` still raises, before the process
+    would join a job (QAT under tensor parallelism is not ported)."""
+    from yolo_tpu_torch.train import loop
     from yolo_tpu_torch.train.__main__ import main
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        main(argv + ['--device', 'cpu'])
+    _, cfg, data, init = train_set
+    seen = []
+    make = loop.make_train_functions
+
+    def record(*a, **k):
+        seen.append(k)
+        return make(*a, **k)
+    monkeypatch.setattr(loop, 'make_train_functions', record)
+    monkeypatch.chdir(tmp_path)
+    argv = argv + ['--device', 'cpu']
+    if '--quantized' in argv:
+        with pytest.raises(NotImplementedError, match='ROADMAP.md'):
+            main(argv)
+        assert not seen
+        return
+    r = main(argv + ['--cfg', cfg, '--data', data, '--weights', init,
+                     '--epochs', '1', '--batch-size', '4', '--img-size',
+                     '64', '--notest', '--nosave'])
+    assert len(r) == 7 and np.isfinite(r).all()
+    remat = argv[argv.index('--remat') + 1] if '--remat' in argv else 'none'
+    assert seen and all(k['mesh'] is None and k['remat'] == remat
+                        for k in seen)
+    rows = np.loadtxt(tmp_path / 'results.txt', ndmin=2)
+    assert rows.shape == (1, 12) and np.isfinite(rows).all()
 
 
 @pytest.mark.parametrize('argv', [

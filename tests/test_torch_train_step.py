@@ -460,15 +460,27 @@ def test_ema_matches_jax():
 
 
 def test_trainer_raises_on_unported_paths(toy_cfg):
-    """The remat policies raise; the KD term, which the first training
-    slice refused, builds (tests/test_torch_kd.py holds it to JAX)."""
+    """The remat policies, which once raised, build ('none', 'blocks',
+    'full' and JAX's True; ``test_torch_remat.py`` holds them to JAX), and
+    an unknown one raises ValueError; QAT under a mesh with a model axis
+    raises NotImplementedError naming ROADMAP.md; the KD term, which the
+    first training slice refused, builds (tests/test_torch_kd.py holds it
+    to JAX)."""
+    from yolo_tpu_torch.compress import quant as TQ
     from yolo_tpu_torch.ir import build_ir
+    from yolo_tpu_torch.parallel import Mesh
     from yolo_tpu_torch.train.loss import LossHyp
     from yolo_tpu_torch.train.trainer import make_train_functions
     net = build_ir(toy_cfg)
-    for remat in ('blocks', 'full', True):
-        with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-            make_train_functions(net, [], 2, LossHyp(), remat=remat)
+    for remat in ('none', 'blocks', 'full', True, False, None):
+        make_train_functions(net, [], 2, LossHyp(), remat=remat)
+    with pytest.raises(ValueError, match='remat'):
+        make_train_functions(net, [], 2, LossHyp(), remat='layers')
+    tp = Mesh(shape={'data': 1, 'model': 2}, data_index=0, data_group=None,
+              device=torch.device('cpu'), model_group=object())
+    qa = TQ.make_quant_apply(net, TQ.QuantConfig(scheme='google'))
+    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
+        make_train_functions(net, [], 2, LossHyp(), quant_apply=qa, mesh=tp)
     make_train_functions(net, [], 2, LossHyp(), kd_loss_fn=lambda *a: 0)
 
 

@@ -31,6 +31,12 @@ mask and the shard's pad mask, then the detections and the ``correct``
 matrix, are all-gathered over the gloo host group into the global batch
 (rank-major), the val losses' normalisers are summed over the ranks, and
 every rank computes the same statistics. Rank 0 prints and plots.
+
+A mesh with a model axis (tensor parallelism): ``params``/``state`` hold
+this rank's blocks of the split convs (``parallel.shard_state``), the
+model gathers each split conv's output over the model group, and the
+ranks of one data index evaluate the same rows; the gathers take the
+first rank of each model axis.
 """
 
 from __future__ import annotations
@@ -42,10 +48,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..compress.quant import prepare_eval_params
+from ..compress.quant import prepare_eval_params, unported
 from ..config import load_classes, parse_data_cfg
 from ..data.datasets import BatchLoader, DetectionDataset
-from ..parallel.mesh import DATA_AXIS
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
 from ..parallel.multihost import allgather_host_values
 from ..models.network import Darknet
 from ..models.yolo_head import reshape_pred
@@ -88,15 +94,16 @@ def _cached(key, refs, build):
 
 
 def eval_model(net, params, state, *, fused, compute_dtype, maxabsscaler,
-               device) -> Darknet:
-    """The eval-mode ``Darknet`` of these weights on ``device`` (cached)."""
+               device, model_group=None) -> Darknet:
+    """The eval-mode ``Darknet`` of these weights on ``device`` (cached);
+    ``model_group``: that of split weights (``Darknet``)."""
     device = torch.device(device)
     key = ('model', id(net), _fingerprint(params), _fingerprint(state), fused,
-           compute_dtype, maxabsscaler, str(device))
-    return _cached(key, (net, params, state), lambda: Darknet(
+           compute_dtype, maxabsscaler, str(device), id(model_group))
+    return _cached(key, (net, params, state, model_group), lambda: Darknet(
         net, params, state, fused=fused, maxabsscaler=maxabsscaler,
-        dtype=compute_dtype).to(device, memory_format=torch.channels_last)
-        .eval())
+        dtype=compute_dtype, model_group=model_group).to(
+            device, memory_format=torch.channels_last).eval())
 
 
 def int8_engine_apply(net, params, state, qstate, qcfg, device):
@@ -118,7 +125,8 @@ def int8_engine_apply(net, params, state, qstate, qcfg, device):
 def _build_infer(net, params, state, qstate, *, quant_apply, anchor_vecs,
                  loss_hyp, want_loss, augment, sparse, fused, compute_dtype,
                  maxabsscaler, conf_thres, iou_thres, top_k, max_det,
-                 multi_label, iouv, device_match, nc, device, group=None):
+                 multi_label, iouv, device_match, nc, device, group=None,
+                 model_group=None):
     """The per-batch eval step: infer(x, targets, valid, img_w) ->
     (dets, val loss items (3,) or None, correct or None), all queued on
     ``device`` without a host synchronise (under ``group`` the loss items
@@ -151,7 +159,8 @@ def _build_infer(net, params, state, qstate, *, quant_apply, anchor_vecs,
     else:
         model = eval_model(net, params, state, fused=fused,
                            compute_dtype=compute_dtype,
-                           maxabsscaler=maxabsscaler, device=device)
+                           maxabsscaler=maxabsscaler, device=device,
+                           model_group=model_group)
         to_pred = lambda heads: [reshape_pred(h, l.na, l.no)
                                  for h, l in zip(heads, yolos)]
         if augment:
@@ -263,11 +272,17 @@ def evaluate(net, params, state, data, *, batch_size=16, img_size=416,
     module docstring); ``batch_size`` is the global batch and divides by
     the data axis. It needs ``device_match`` and takes no ``save_json``,
     as in the JAX package. A mesh of one rank is the single-process path.
+    With a model axis the float model's params are split (module
+    docstring); a quantized apply raises ``NotImplementedError``.
 
     ``t_inf`` is the host's time to queue the batches and to wait for their
     results; ``t_nms`` is 0 (NMS runs inside the timed step), as in the JAX
     package."""
     pc = 1 if mesh is None else mesh.shape[DATA_AXIS]
+    tp = 1 if mesh is None else mesh.shape[MODEL_AXIS]
+    model_group = None if mesh is None else mesh.model_group
+    if model_group is not None and quant_apply is not None:
+        raise unported('a quantized evaluate under tensor parallelism')
     multiproc = pc > 1
     if multiproc:
         if save_json:
@@ -280,9 +295,14 @@ def evaluate(net, params, state, data, *, batch_size=16, img_size=416,
                              f'{pc} ranks')
         device = mesh.device
     pi = 0 if mesh is None else mesh.data_index
+    chief = pi == 0 and (mesh is None or mesh.model_index == 0)
     group = mesh.data_group if multiproc else None
     local_bs = batch_size // pc
-    plot = plot and pi == 0
+    plot = plot and chief
+
+    def gather(a):
+        """Every data index's ``a`` (each model axis's first rank)."""
+        return allgather_host_values(a)[::tp]
     device = torch.device(device)
     cuda = device.type == 'cuda'
     data_dict = parse_data_cfg(data)
@@ -318,7 +338,7 @@ def evaluate(net, params, state, data, *, batch_size=16, img_size=416,
         conf_thres=conf_thres,
         iou_thres=iou_thres, top_k=top_k, max_det=max_det,
         multi_label=multi_label, iouv=iouv_t, device_match=device_match,
-        nc=nc, device=device, group=group)
+        nc=nc, device=device, group=group, model_group=model_group)
 
     if loader is None:
         if dataset is None:
@@ -347,7 +367,7 @@ def evaluate(net, params, state, data, *, batch_size=16, img_size=416,
     t_inf = t_nms = 0.0
     plot_stash: dict = {}
 
-    if pi == 0:
+    if chief:
         print(('%20s' + '%10s' * 6) % ('Class', 'Images', 'Targets', 'P',
                                        'R', 'mAP@0.5', 'F1'))
     val_loss = np.zeros(3)
@@ -374,9 +394,9 @@ def evaluate(net, params, state, data, *, batch_size=16, img_size=416,
             # the global batch's labels, image indices shifted to its rows
             tgt = np.array(tgt, np.float32)
             tgt[:, 0] += pi * local_bs
-            tgt = allgather_host_values(tgt).reshape(-1, tgt.shape[-1])
-            valid = allgather_host_values(np.asarray(valid, bool)).reshape(-1)
-            paths = ['host' if r else '' for r in allgather_host_values(
+            tgt = gather(tgt).reshape(-1, tgt.shape[-1])
+            valid = gather(np.asarray(valid, bool)).reshape(-1)
+            paths = ['host' if r else '' for r in gather(
                 real_w.astype(bool)).reshape(-1)]
             shapes = [None] * len(paths)
         return outs, event, tgt, valid, paths, shapes, imgs.shape[1:3]
@@ -406,10 +426,9 @@ def evaluate(net, params, state, data, *, batch_size=16, img_size=416,
         correct_np = None if correct_dev is None else correct_dev.numpy()
         if multiproc:
             # every rank's detections, rank-major: the global batch
-            dets_np = allgather_host_values(dets_np).reshape(
-                -1, *dets_np.shape[1:])
-            correct_np = allgather_host_values(correct_np).reshape(
-                -1, *correct_np.shape[1:])
+            dets_np = gather(dets_np).reshape(-1, *dets_np.shape[1:])
+            correct_np = gather(correct_np).reshape(-1,
+                                                    *correct_np.shape[1:])
         det_list = to_host_detections(dets_np)
         t_inf += time.perf_counter() - t0
         if loss_items is not None:
@@ -487,9 +506,9 @@ def evaluate(net, params, state, data, *, batch_size=16, img_size=416,
 
     nt = int(sum(len(s[3]) for s in stats))
     pf = '%20s' + '%10.3g' * 6
-    if pi == 0:
+    if chief:
         print(pf % ('all', seen, nt, mp, mr, map50, mf1))
-    if verbose and nc > 1 and len(ap_class) and pi == 0:
+    if verbose and nc > 1 and len(ap_class) and chief:
         for i, c in enumerate(ap_class):
             n_c = int(sum(1 for s in stats for t in s[3] if t == c))
             print(pf % (names[c], seen, n_c, p[i], r[i], ap[i], f1[i]))
@@ -512,7 +531,7 @@ def evaluate(net, params, state, data, *, batch_size=16, img_size=416,
 
     if multiproc:
         # each rank's shares of every batch's val losses, summed
-        val_loss = allgather_host_values(val_loss).sum(0)
+        val_loss = gather(val_loss).sum(0)
     vl = val_loss / max(n_batches, 1)
     return (mp, mr, map50, mf1, float(vl[0]), float(vl[1]),
             float(vl[2])), maps, (t_inf, t_nms)

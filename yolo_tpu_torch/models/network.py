@@ -24,12 +24,15 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import ir as ir_mod
 
 from ..ops import activations as act_mod
 from ..ops import conv as conv_ops
 from ..ops.conv import CONV_BN_EPS, CONV_BN_MOM, LONE_BN_EPS, LONE_BN_MOM
+from ..parallel.collectives import (all_gather_dim, copy_to_model,
+                                    gather_channels)
 from .yolo_head import decode_yolo_nhwc, reshape_pred
 
 SUPPORTED_KINDS = ('conv', 'depthwise', 'batchnorm', 'maxpool', 'se',
@@ -48,6 +51,36 @@ def _asff_yolo(net: ir_mod.NetworkIR) -> set[int]:
             and all(0 <= j < l.index
                     and layers[j].filters == l.na * l.no + len(l.layers)
                     for j in l.layers)}
+
+
+def _reads(lyr, asff) -> tuple[int, ...]:
+    """The routed outputs a layer reads."""
+    if lyr.kind in ('route', 'shortcut') or (lyr.kind == 'yolo'
+                                              and lyr.index in asff):
+        return tuple(lyr.layers)
+    if lyr.kind == 'scale_channels':
+        return (lyr.layers[0],)
+    return ()
+
+
+class _Pass:
+    """What one forward pass gathers: the BN layers' new statistics, the
+    head maps, the slim objectness maps (and the head convs that make them),
+    the KD feature maps. ``spatial``: the group over whose ranks the
+    image's rows are split; ``whole`` says that the current tensor is
+    the same on every rank (after a global pool), ``rep`` which routed
+    outputs are."""
+
+    def __init__(self, train, group, head_convs, spatial):
+        self.train, self.group = train, group
+        self.head_convs, self.spatial = head_convs, spatial
+        self.pending, self.heads, self.objs, self.feats = {}, [], [], []
+        self.new_state = {}
+        self.whole, self.rep = False, set()
+
+    def fork(self):
+        """A pass with the same settings and empty collections."""
+        return _Pass(self.train, self.group, self.head_convs, self.spatial)
 
 
 def check_supported(net: ir_mod.NetworkIR):
@@ -174,14 +207,21 @@ class Darknet(nn.Module):
     key names (``layer[k].w``, ``gamma``, ``beta``, ``b``, ``fc1``/``fc2``,
     the weighted shortcut's ``w``) and every use casts them to ``dtype``
     (``None``: f32, no cast), so that the compute-dtype gradient flows back
-    into the f32 master weight; ``forward_train`` runs the train mode."""
+    into the f32 master weight; ``forward_train`` runs the train mode.
+
+    ``model_group`` (tensor parallelism, ``parallel.Mesh.model_group``):
+    the params of the convs split over it hold this rank's block of the
+    output channels (``parallel.shard_state``); each such conv's output is
+    gathered whole after its activation, so every other layer runs as in
+    one process. A split head conv has no slim objectness conv."""
 
     def __init__(self, net: ir_mod.NetworkIR, params, state=None, *,
                  fused: bool = False, maxabsscaler: bool = False,
                  dtype: torch.dtype | None = torch.float32,
-                 trainable: bool = False):
+                 trainable: bool = False, model_group=None):
         super().__init__()
         check_supported(net)
+        self.model_group = model_group
         state = state or {}
         for lyr in net.layers:
             if lyr.kind in CONV_KINDS:
@@ -225,103 +265,186 @@ class Darknet(nn.Module):
         """A parameter in the compute dtype (a no-op for a frozen model)."""
         return t if t.dtype == self.dtype else t.to(self.dtype)
 
-    def _bn(self, lyr, t, y, eps, momentum, train, new_state, group=None):
-        if not train:
+    def _bn(self, lyr, t, y, eps, momentum, pas):
+        if not pas.train:
             return conv_ops.batch_norm_infer(y, t.gamma, t.beta, t.mean,
                                              t.var, eps)
         y, m, v = conv_ops.batch_norm_train(y, t.gamma, t.beta, t.mean, t.var,
-                                            eps, momentum, group=group)
-        new_state[str(lyr.index)] = {'mean': m, 'var': v}
+                                            eps, momentum, group=pas.group)
+        pas.new_state[str(lyr.index)] = {'mean': m, 'var': v}
         return y
 
     def _run(self, x, want_obj: bool, train: bool = False,
-             head_layout: str = 'anchor_major', group=None):
+             head_layout: str = 'anchor_major', group=None, remat=None,
+             spatial=None):
+        pas = _Pass(train, group, self._head_conv if want_obj else {},
+                    spatial)
         prev = x.permute(0, 3, 1, 2).to(self.dtype)
-        outs, pending = {}, {}
-        heads, objs = [], []
-        feats, new_state = [], {}
-        head_convs = self._head_conv if want_obj else {}
-        for lyr in self.net.layers:
-            kind = lyr.kind
-            if kind in CONV_KINDS:
-                t = self.layer[str(lyr.index)]
-                stride = lyr.stride_xy or lyr.stride
-                w = self._c(t.w)
-                if lyr.index in head_convs:
-                    y = head_convs[lyr.index]
-                    sl = slice(4, y.na * y.no, y.no)
-                    pending[lyr.index] = conv_ops.conv2d(
-                        prev, w[sl], stride=stride, padding=lyr.pad,
-                        bias=self._c(t.b)[sl])
-                if lyr.bn and not self.fused:
-                    y = conv_ops.conv2d(prev, w, stride=stride,
-                                        padding=lyr.pad, groups=lyr.groups)
-                    y = self._bn(lyr, t, y, CONV_BN_EPS, CONV_BN_MOM, train,
-                                 new_state, group)
-                elif train:
-                    # the JAX train forward adds the bias after the conv
-                    y = conv_ops.conv2d(prev, w, stride=stride,
-                                        padding=lyr.pad, groups=lyr.groups)
-                    y = y + self._c(t.b)[:, None, None]
-                else:
-                    y = conv_ops.conv2d(prev, w, stride=stride,
-                                        padding=lyr.pad, groups=lyr.groups,
-                                        bias=self._c(t.b))
-                prev = self._act[lyr.index](y)
-            elif kind == 'batchnorm':
-                t = self.layer[str(lyr.index)]
-                prev = self._bn(lyr, t, prev, LONE_BN_EPS, LONE_BN_MOM, train,
-                                new_state, group)
-            elif kind == 'maxpool':
-                prev = conv_ops.max_pool(prev, lyr.size, lyr.stride)
-            elif kind == 'se':
-                t = self.layer[str(lyr.index)]
-                prev = conv_ops.se_block(prev, t.fc1, t.fc2)
-            elif kind == 'avgpool':
-                prev = conv_ops.global_avg_pool(prev)
-            elif kind == 'scale_channels':
-                prev = outs[lyr.layers[0]] * prev
-            elif kind == 'reorg3d':
-                prev = conv_ops.space_to_depth(prev, lyr.stride)
-            elif kind == 'upsample':
-                prev = conv_ops.upsample_nearest(prev, lyr.stride)
-            elif kind == 'route':
-                if len(lyr.layers) > 1:
-                    prev = torch.cat([outs[j] for j in lyr.layers], 1)
-                elif lyr.route_groups:
-                    prev = prev[:, prev.shape[1] // 2:]
-                else:
-                    prev = outs[lyr.layers[0]]
-            elif kind == 'shortcut':
-                prev = self._shortcut(lyr, prev, outs)
-            elif kind == 'yolo':
-                heads.append(self._asff_fuse(lyr, outs)
-                             if lyr.index in self._asff
-                             else prev.permute(0, 2, 3, 1))
-                o = pending.get(lyr.index - 1)
-                objs.append(None if o is None else o.permute(0, 2, 3, 1))
-            # dropout: the identity, in train mode too (as in the JAX
-            # package, which never drops)
-            if lyr.is_routed:
-                outs[lyr.index] = prev
-            if train and lyr.feature_out:
-                feats.append(prev.permute(0, 2, 3, 1))
+        outs = {}
+        if remat == 'blocks':
+            for seg in self._segments():
+                prev = self._run_segment(seg, prev, outs, pas)
+        else:
+            for lyr in self.net.layers:
+                prev = self._layer(lyr, prev, outs, pas)
         if not train:
-            return heads, objs
+            return pas.heads, pas.objs
         yolo_p = []
-        for h, l in zip(heads, self._yolos):
+        for h, l in zip(pas.heads, self._yolos):
             bs, ny, nx, _ = h.shape
             yolo_p.append(h.reshape(bs, ny, nx, l.na, l.no)
                           if head_layout == 'nhwc'
                           else reshape_pred(h, l.na, l.no))
-        return (yolo_p, feats), new_state
+        return (yolo_p, pas.feats), pas.new_state
+
+    def _segments(self):
+        """The layers in runs that end at a block boundary (a shortcut or a
+        multi-route concat: JAX's ``checkpoint_name('block_out')`` sites),
+        each with the routed outputs of earlier runs it reads and the
+        routed outputs it makes."""
+        segs, cur = [], []
+        for lyr in self.net.layers:
+            cur.append(lyr)
+            if lyr.kind == 'shortcut' or (lyr.kind == 'route'
+                                          and len(lyr.layers) > 1):
+                segs.append(cur)
+                cur = []
+        if cur:
+            segs.append(cur)
+        out = []
+        for seg in segs:
+            mine = {l.index for l in seg}
+            reads = sorted({j for l in seg for j in _reads(l, self._asff)}
+                           - mine)
+            out.append((seg, reads, [l.index for l in seg if l.is_routed]))
+        return out
+
+    def _run_segment(self, segment, prev, outs, pas):
+        """One run of layers under ``torch.utils.checkpoint`` (non-reentrant):
+        its input and the routed outputs it reads are explicit inputs and
+        are kept; everything inside is recomputed in the backward. The BN
+        statistics are those of the first forward (the recompute's come
+        back in its discarded outputs), so the update is applied once."""
+        seg, reads, makes = segment
+
+        def fn(prev, *ins):
+            o = dict(zip(reads, ins))
+            q = pas.fork()
+            for lyr in seg:
+                prev = self._layer(lyr, prev, o, q)
+            return prev, [o[j] for j in makes], q.heads, q.feats, q.new_state
+        prev, made, heads, feats, new_state = checkpoint(
+            fn, prev, *[outs[j] for j in reads], use_reentrant=False)
+        outs.update(zip(makes, made))
+        pas.heads += heads
+        pas.objs += [None] * len(heads)
+        pas.feats += feats
+        pas.new_state.update(new_state)
+        return prev
+
+    def _layer(self, lyr, prev, outs, pas):
+        """Run one layer on ``prev``; returns its output. Under a model
+        group, a conv whose output channels are split over it (its weight
+        holds fewer than ``filters``) runs its block between
+        ``copy_to_model`` and ``gather_channels``. Under ``pas.spatial``
+        (the rows of the image split over a group) each layer takes its
+        halo rows from its neighbours, the global pools sum over the group,
+        and the head maps are gathered whole."""
+        kind = lyr.kind
+        sp = None if pas.whole else pas.spatial
+        if kind in CONV_KINDS:
+            t = self.layer[str(lyr.index)]
+            stride = lyr.stride_xy or lyr.stride
+            w = self._c(t.w)
+            split = self.model_group is not None and w.shape[0] != lyr.filters
+            pad = lyr.pad
+            if sp is not None:
+                sy = stride[0] if isinstance(stride, tuple) else stride
+                prev = conv_ops.rows_with_halo(prev, lyr.size, sy, pad, sp)
+                pad = (0, pad)
+            if split:
+                prev = copy_to_model(prev, self.model_group)
+            elif lyr.index in pas.head_convs:
+                y = pas.head_convs[lyr.index]
+                sl = slice(4, y.na * y.no, y.no)
+                pas.pending[lyr.index] = conv_ops.conv2d(
+                    prev, w[sl], stride=stride, padding=pad,
+                    bias=self._c(t.b)[sl])
+            if lyr.bn and not self.fused:
+                y = conv_ops.conv2d(prev, w, stride=stride,
+                                    padding=pad, groups=lyr.groups)
+                y = self._bn(lyr, t, y, CONV_BN_EPS, CONV_BN_MOM, pas)
+            elif pas.train:
+                # the JAX train forward adds the bias after the conv
+                y = conv_ops.conv2d(prev, w, stride=stride,
+                                    padding=pad, groups=lyr.groups)
+                y = y + self._c(t.b)[:, None, None]
+            else:
+                y = conv_ops.conv2d(prev, w, stride=stride,
+                                    padding=pad, groups=lyr.groups,
+                                    bias=self._c(t.b))
+            prev = self._act[lyr.index](y)
+            if split:
+                prev = gather_channels(prev, self.model_group)
+        elif kind == 'batchnorm':
+            t = self.layer[str(lyr.index)]
+            prev = self._bn(lyr, t, prev, LONE_BN_EPS, LONE_BN_MOM, pas)
+        elif kind == 'maxpool':
+            prev = (conv_ops.max_pool(prev, lyr.size, lyr.stride)
+                    if sp is None else
+                    conv_ops.max_pool_rows(prev, lyr.size, lyr.stride, sp))
+        elif kind == 'se':
+            t = self.layer[str(lyr.index)]
+            prev = conv_ops.se_block(prev, t.fc1, t.fc2, group=sp)
+        elif kind == 'avgpool':
+            prev = conv_ops.global_avg_pool(prev, group=sp)
+            pas.whole = pas.spatial is not None
+        elif kind == 'scale_channels':
+            prev = outs[lyr.layers[0]] * prev
+            pas.whole = pas.whole and lyr.layers[0] in pas.rep
+        elif kind == 'reorg3d':
+            prev = conv_ops.space_to_depth(prev, lyr.stride)
+        elif kind == 'upsample':
+            prev = conv_ops.upsample_nearest(prev, lyr.stride)
+        elif kind == 'route':
+            if len(lyr.layers) > 1:
+                prev = torch.cat([outs[j] for j in lyr.layers], 1)
+                pas.whole = all(j in pas.rep for j in lyr.layers)
+            elif lyr.route_groups:
+                prev = prev[:, prev.shape[1] // 2:]
+            else:
+                prev = outs[lyr.layers[0]]
+                pas.whole = lyr.layers[0] in pas.rep
+        elif kind == 'shortcut':
+            prev = self._shortcut(lyr, prev, outs)
+            pas.whole = pas.whole and all(j in pas.rep for j in lyr.layers)
+        elif kind == 'yolo':
+            h = (self._asff_fuse(lyr, outs, sp) if lyr.index in self._asff
+                 else prev.permute(0, 2, 3, 1))
+            o = pas.pending.get(lyr.index - 1)
+            o = None if o is None else o.permute(0, 2, 3, 1)
+            if sp is not None:
+                h = all_gather_dim(h, 1, sp)
+                o = None if o is None else all_gather_dim(o, 1, sp)
+            pas.heads.append(h)
+            pas.objs.append(o)
+        # dropout: the identity, in train mode too (as in the JAX
+        # package, which never drops)
+        if lyr.is_routed:
+            outs[lyr.index] = prev
+            if pas.whole and pas.spatial is not None:
+                pas.rep.add(lyr.index)
+        if pas.train and lyr.feature_out:
+            pas.feats.append(prev.permute(0, 2, 3, 1))
+        return prev
 
     @staticmethod
-    def _asff_fuse(lyr, outs):
+    def _asff_fuse(lyr, outs, spatial=None):
         """The ASFF head map (NHWC, f32): this scale's map weighted by
         ``sigmoid(p[:, -n:]) * 2 / n``, plus the other scales' maps, each
         resized bilinearly (half-pixel centres, no antialias) to this grid
-        and weighted likewise."""
+        and weighted likewise. ``spatial``: the maps hold this rank's rows
+        of the image (``conv_ops.resize_rows``)."""
         srcs = [outs[j].to(torch.float32) for j in lyr.layers]
         n, i = len(srcs), lyr.yolo_index
         p = srcs[i]
@@ -330,8 +453,9 @@ class Darknet(nn.Module):
         size = tuple(p.shape[2:])
         for j, s in enumerate(srcs):
             if j != i:
-                r = F.interpolate(s[:, :-n], size=size, mode='bilinear',
-                                  align_corners=False)
+                r = (F.interpolate(s[:, :-n], size=size, mode='bilinear',
+                                   align_corners=False) if spatial is None
+                     else conv_ops.resize_rows(s[:, :-n], size, spatial))
                 fused = fused + w[:, j:j + 1] * r
         return fused.permute(0, 2, 3, 1).contiguous()
 
@@ -354,9 +478,12 @@ class Darknet(nn.Module):
                 x = x + a[:, :nx]
         return x
 
-    def heads(self, x):
-        """The raw NHWC head maps (bs, ny, nx, na*no) alone."""
-        return self._run(x, want_obj=False)[0]
+    def heads(self, x, spatial=None):
+        """The raw NHWC head maps (bs, ny, nx, na*no) alone. ``spatial``:
+        the process group over which the image's rows are split (``x``
+        holds this rank's, ``parallel.shard_spatial``); the maps come back
+        whole on every rank."""
+        return self._run(x, want_obj=False, spatial=spatial)[0]
 
     def decode(self, heads):
         """Head maps -> decoded io (bs, N, 5+nc), f32."""
@@ -367,10 +494,11 @@ class Darknet(nn.Module):
     def forward(self, x):
         return self.decode(self.heads(x))
 
-    def forward_heads(self, x):
-        return self._run(x, want_obj=True)
+    def forward_heads(self, x, spatial=None):
+        return self._run(x, want_obj=True, spatial=spatial)
 
-    def forward_train(self, x, head_layout: str = 'anchor_major', group=None):
+    def forward_train(self, x, head_layout: str = 'anchor_major', group=None,
+                      remat=None):
         """The train forward (JAX ``apply(params, state, x, train=True)``):
         BN on batch statistics, no slim objectness conv. Returns
         ((yolo_p, feature_out), new_state): yolo_p per scale (bs, na, ny,
@@ -378,9 +506,19 @@ class Darknet(nn.Module):
         feature_out the NHWC maps of the ``feature_out`` layers; new_state
         the BN layers' new running mean and var (detached; the buffers are
         left as they are). ``group``: the data group of a data-parallel
-        step, over whose global batch BN takes its statistics."""
+        step, over whose global batch BN takes its statistics.
+
+        ``remat``: 'blocks' recomputes in the backward every run of layers
+        between two block boundaries (shortcuts and multi-route concats),
+        keeping only the runs' inputs (JAX's ``remat='blocks'``); 'full'
+        keeps only the input (``remat=True``); None keeps every
+        activation. The BN statistics, and their update, are those of the
+        first forward."""
+        if remat == 'full':
+            return checkpoint(self._run, x, False, True, head_layout, group,
+                              use_reentrant=False)
         return self._run(x, want_obj=False, train=True,
-                         head_layout=head_layout, group=group)
+                         head_layout=head_layout, group=group, remat=remat)
 
     def forward_augment(self, x):
         """Test-time augmentation (the JAX package's

@@ -11,7 +11,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..parallel.collectives import batch_moments
+from ..parallel.collectives import all_reduce_nograd, batch_moments, halo_rows
 
 
 def conv2d(x, w, *, stride=1, padding: int = 0, groups: int = 1, bias=None):
@@ -109,22 +109,87 @@ def upsample_nearest(x, scale: int):
     return y.permute(0, 3, 1, 2)
 
 
-def se_block(x, fc1_w, fc2_w):
+def _mean_hw(x, group):
+    """The f32 mean over H, W; under ``group`` (the rows split over its
+    ranks) the sum over the group's rows, over their count."""
+    xf = x.to(torch.float32)
+    if group is None:
+        return xf.mean((2, 3))
+    n = x.shape[2] * x.shape[3] * torch.distributed.get_world_size(group)
+    return all_reduce_nograd(xf.sum((2, 3)), group) / n
+
+
+def se_block(x, fc1_w, fc2_w, group=None):
     """Squeeze-and-excitation with a hard-sigmoid gate: the mean over H, W,
     ``relu(y @ fc1.T) @ fc2.T``, then ``clip(y + 3, 0, 6) / 6`` scales the
     channels. The fc weights are in ``Linear`` layout (out, in). The gate is
-    computed in f32 and cast to x's dtype."""
-    y = x.to(torch.float32).mean((2, 3))                          # (n, c)
+    computed in f32 and cast to x's dtype. ``group``: x holds this rank's
+    rows of the image, the mean is the whole image's."""
+    y = _mean_hw(x, group)                                        # (n, c)
     y = torch.relu(y @ fc1_w.to(torch.float32).T)
     y = y @ fc2_w.to(torch.float32).T
     y = torch.clamp(y + 3.0, 0.0, 6.0) / 6.0
     return x * y.to(x.dtype)[:, :, None, None]
 
 
-def global_avg_pool(x):
+def global_avg_pool(x, group=None):
     """The [avgpool] layer: the mean over H, W to 1x1, taken in f32 and cast
-    back to x's dtype."""
-    return x.to(torch.float32).mean((2, 3), keepdim=True).to(x.dtype)
+    back to x's dtype (of the whole image under ``group``, as
+    ``se_block``)."""
+    return _mean_hw(x, group)[:, :, None, None].to(x.dtype)
+
+
+# spatial partitioning: an NCHW tensor holds one rank's rows of the image,
+# the ranks of ``group`` in order (parallel.shard_spatial)
+
+def rows_with_halo(x, size: int, stride: int, pad: int, group,
+                   fill: float = 0.0):
+    """This rank's rows with the halo rows that a window of ``size`` rows at
+    ``stride`` with ``pad`` rows of padding reads from its neighbours:
+    ``pad`` rows over and ``max(size - stride - pad, 0)`` under (a 3x3
+    conv: one each side; 3x3 stride 2: one over; SPP's 5/9/13 maxpools:
+    2/4/6 each side). The image's own top and bottom take ``fill`` (the
+    padding). Run the window with no padding over H after this."""
+    above, below = pad, max(size - stride - pad, 0)
+    if not (above or below):
+        return x
+    over, under = halo_rows(x, above, below, group, fill)
+    return torch.cat([over.to(x.dtype), x, under.to(x.dtype)], 2)
+
+
+def max_pool_rows(x, size: int, stride: int, group):
+    """``max_pool`` of this rank's rows: the halo of the window with -inf
+    padding; tiny's k=2/s=1 pool takes one row from under, and the last
+    rank the zero row of its padding."""
+    if size == 2 and stride == 1:
+        _, under = halo_rows(x, 0, 1, group, 0.0)
+        return F.max_pool2d(F.pad(torch.cat([x, under.to(x.dtype)], 2),
+                                  (0, 1, 0, 0)), 2, 1)
+    pad = (size - 1) // 2
+    x = rows_with_halo(x, size, stride, pad, group, float('-inf'))
+    return F.max_pool2d(x, size, stride, padding=(0, pad))
+
+
+def resize_rows(x, size, group):
+    """Bilinear resize (half-pixel centres, no antialias) of this rank's
+    rows to its rows of an (H, W) grid ``size`` of the whole image. An
+    upsample reads one source row over and under (the edge row itself at
+    the image's top and bottom, where the resize clamps), then keeps the
+    rows of this rank; a downsample by an integer factor reads none."""
+    h, w = size
+    if h <= x.shape[2]:
+        return F.interpolate(x, size=(h, w), mode='bilinear',
+                             align_corners=False)
+    f = h // x.shape[2]
+    n, r = torch.distributed.get_world_size(group), \
+        torch.distributed.get_rank(group)
+    over, under = halo_rows(x, 1, 1, group)
+    over = x[:, :, :1] if r == 0 else over.to(x.dtype)
+    under = x[:, :, -1:] if r == n - 1 else under.to(x.dtype)
+    ext = torch.cat([over, x, under], 2)
+    y = F.interpolate(ext, size=(ext.shape[2] * f, w), mode='bilinear',
+                      align_corners=False)
+    return y[:, :, f:f + h]
 
 
 def mixconv2d(x, weights, *, stride: int = 1):

@@ -1,5 +1,6 @@
-"""The collectives of the data-parallel step (counterpart of the all-reduces
-that XLA puts into every reduction over the JAX mesh's ``data`` axis).
+"""The collectives of the parallel step and of spatially partitioned
+inference (counterpart of the collectives that XLA puts into the programs
+of the JAX mesh).
 
 A rank holds its block of the global batch, so every batch-wide quantity
 of a step is a sum over ranks: the train-mode BN statistics, the loss's
@@ -12,9 +13,26 @@ operations as before.
 ``all_reduce`` is differentiable: its backward is an all-reduce of the
 gradient (rank r's loss depends on the other ranks' activations through
 the shared statistic, so the gradient of that statistic is the sum of
-every rank's). The others run without a gradient. Gloo reduces CUDA
-tensors for ``all_reduce`` and ``broadcast`` only; nothing here uses
-another collective on a device tensor.
+every rank's). The others run without a gradient, but for the two of
+tensor parallelism over the model group (``Mesh.model_group``), which a
+sharded conv runs around itself (``models/network.py``):
+``copy_to_model`` (the identity; its backward sums the input's gradient
+over the group, since each rank's conv sees only its slice of the output
+channels) and ``gather_channels`` (the all-gather of the ranks' channel
+blocks; its backward keeps this rank's block).
+
+Spatially partitioned inference splits the image's rows over the data
+group: ``halo_rows`` hands each rank its neighbours' edge rows, and
+``all_gather_dim`` joins the head maps.
+
+Gloo reduces CUDA tensors for ``all_reduce`` and ``broadcast`` only. So a
+gather (and a halo exchange) is an all-reduce of a zero-filled buffer of
+the whole into which each rank wrote its block: the sum of one block and
+zeros is that block, bit for bit, but the whole buffer crosses the wire in
+both directions of the all-reduce, twice the bytes of an all-gather. NCCL
+runs the same form; a dedicated ``all_gather_into_tensor`` and
+point-to-point halo path waits for a run over several cards that can both
+test it and measure its gain (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -104,20 +122,133 @@ def sum_gradients(params, group):
                                  zip(flat.split(sizes), grads)])
 
 
-def broadcast_tensors(tensors, group, src: int = 0):
-    """Overwrite ``tensors`` with rank ``src``'s values, one flattened
-    bucket per (device, dtype)."""
-    if group is None:
-        return
+def _bucketed(tensors, op):
+    """Run ``op`` in place on one flattened copy of ``tensors`` per (device,
+    dtype), then copy the result back into them."""
     buckets: dict = {}
     for t in tensors:
         buckets.setdefault((t.device, t.dtype), []).append(t)
-    src = dist.get_global_rank(group, src) \
-        if group is not dist.group.WORLD else src
     for ts in buckets.values():
         flat = torch.cat([t.detach().reshape(-1) for t in ts])
-        dist.broadcast(flat, src=src, group=group)
+        op(flat)
         with torch.no_grad():
             torch._foreach_copy_(ts, [c.view(t.shape) for c, t in
                                       zip(flat.split([t.numel() for t in ts]),
                                           ts)])
+
+
+def average_tensors(tensors, group):
+    """Overwrite ``tensors`` with their mean over ``group``. Every rank gets
+    the same bits; over two ranks, tensors that were already equal keep
+    theirs (x + x and the halving are exact)."""
+    if group is None:
+        return
+
+    def mean(flat):
+        dist.all_reduce(flat, group=group)
+        flat /= world(group)
+    _bucketed(tensors, mean)
+
+
+def broadcast_tensors(tensors, group, src: int = 0):
+    """Overwrite ``tensors`` with rank ``src``'s values."""
+    if group is None:
+        return
+    src = dist.get_global_rank(group, src) \
+        if group is not dist.group.WORLD else src
+    _bucketed(tensors, lambda flat: dist.broadcast(flat, src=src,
+                                                   group=group))
+
+
+def all_gather_dim(x, dim: int, group):
+    """Every rank's ``x`` (equal shapes) concatenated along ``dim`` in the
+    group's rank order, contiguous, without a gradient: a zero buffer of the
+    whole, summed over the group (see the module docstring)."""
+    if group is None:
+        return x
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    x = x.detach().contiguous()
+    shape = list(x.shape)
+    s = shape[dim]
+    shape[dim] = s * n
+    buf = x.new_zeros(shape)
+    buf.narrow(dim, r * s, s).copy_(x)
+    dist.all_reduce(buf, group=group)
+    return buf
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def copy_to_model(x, group):
+    """The identity, whose backward sums the gradient over the model group:
+    the input of a conv whose output channels are split over the group gets
+    every rank's share of its gradient."""
+    if group is None:
+        return x
+    return _CopyToModel.apply(x, group)
+
+
+def _nhwc(x):
+    """An NCHW tensor's NHWC view, contiguous (free in channels_last)."""
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
+class _GatherChannels(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        ctx.c = x.shape[1]
+        ctx.r = dist.get_rank(group)
+        return all_gather_dim(_nhwc(x), 3, group).permute(0, 3, 1, 2)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(1, ctx.r * ctx.c, ctx.c), None
+
+
+def gather_channels(x, group):
+    """The NCHW tensor of the whole output channels from each rank's block
+    ``x`` (channel blocks in rank order), in channels_last memory; the
+    backward keeps this rank's block of the gradient."""
+    if group is None:
+        return x
+    return _GatherChannels.apply(x, group)
+
+
+def halo_rows(x, above: int, below: int, group, fill: float = 0.0):
+    """The ``above`` rows over and the ``below`` rows under this rank's rows
+    of an NCHW tensor whose H is split over ``group`` in rank order: the
+    neighbours' edge rows, or rows of ``fill`` at the image's top (first
+    rank) and bottom (last rank). Returns (rows over, rows under), NCHW,
+    without a gradient."""
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    xh = _nhwc(x.detach())                     # (N, h, W, C)
+    if max(above, below) > xh.shape[1]:
+        raise ValueError(f'a halo of {max(above, below)} rows is more than '
+                         f'the {xh.shape[1]} rows of a rank')
+    top, bot = xh[:, :below], xh[:, xh.shape[1] - above:]
+
+    def edge(k):
+        shape = list(xh.shape)
+        shape[1] = k
+        return xh.new_full(shape, fill)
+    shape = list(xh.shape)
+    shape[1] = above + below
+    buf = xh.new_zeros([n] + shape)
+    buf[r, :, :above] = bot
+    buf[r, :, above:] = top
+    dist.all_reduce(buf, group=group)
+    over = buf[r - 1, :, :above] if r > 0 else edge(above)
+    under = buf[r + 1, :, above:] if r < n - 1 else edge(below)
+    return over.permute(0, 3, 1, 2), under.permute(0, 3, 1, 2)

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from .compress.quant import (SCHEMES, QuantConfig, init_quant_state,
-                             make_quant_apply)
+                             make_quant_apply, unported)
 from .convert import from_jax, qstate_from_jax
 from .ir import NetworkIR, build_ir
 from .models.darknet_io import load_darknet_weights
@@ -32,6 +32,7 @@ from .models.int8_engine import make_int8_apply, prepare_int8
 from .models.network import Darknet, fuse_params, init_params
 from .models.torch_import import load_torch_checkpoint
 from .ops.nms import non_max_suppression, non_max_suppression_heads
+from .parallel.mesh import DATA_AXIS
 from .utils.checkpoint import load_checkpoint
 
 
@@ -115,7 +116,8 @@ class ModelBundle:
 
     def make_infer(self, conf_thres=0.3, iou_thres=0.6, top_k=512,
                    max_det=300, multi_label=True, agnostic=False,
-                   augment=False, sparse=False, classes=None, engine=None):
+                   augment=False, sparse=False, classes=None, engine=None,
+                   mesh=None):
         """Forward + decode + batched NMS as one callable:
         ``infer(x)`` with x an NHWC float batch on ``device`` returns
         (bs, max_det, 6) detections.
@@ -134,7 +136,22 @@ class ModelBundle:
         heads into the sparse NMS (``head_scales``); ``engine=False`` runs
         the f32 fake-quant sim and the dense NMS. The plan of the engine is
         prepared here, from the current calibration; ``augment`` prints a
-        warning and runs a single pass, as in the JAX package."""
+        warning and runs a single pass, as in the JAX package.
+
+        ``mesh`` (``parallel.make_mesh``, spatial partitioning): every rank
+        of the mesh's data axis calls ``infer`` on its rows of the image
+        (``parallel.shard_spatial(mesh, x)``); each layer takes its halo
+        rows from its neighbours, the head maps are gathered whole, and
+        every rank decodes and runs the NMS on the whole image, so it
+        returns one process's detections. Float bundles, without
+        ``augment``; H must divide by the data axis times the deepest
+        stride."""
+        spatial = None
+        if mesh is not None and mesh.shape[DATA_AXIS] > 1:
+            if self.quantized or augment:
+                raise unported('spatial partitioning of a quantized model '
+                               'or of test-time augmentation')
+            spatial = mesh.data_group
         if augment and self.quantized:
             print('WARNING: --augment (TTA) is not supported with quantized '
                   'inference; running single-pass')
@@ -154,13 +171,14 @@ class ModelBundle:
 
             @torch.inference_mode()
             def infer(x):
-                heads, objs = model.forward_heads(x)
+                heads, objs = model.forward_heads(x, spatial=spatial)
                 return non_max_suppression_heads(heads, anchors, strides,
                                                  self.nc + 5, objs=objs, **kw)
         else:
             @torch.inference_mode()
             def infer(x):
-                return non_max_suppression(model(x), **kw)
+                return non_max_suppression(
+                    model.decode(model.heads(x, spatial=spatial)), **kw)
         return infer
 
     def _make_quant_infer(self, kw, engine):

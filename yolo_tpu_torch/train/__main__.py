@@ -37,11 +37,14 @@ of N processes, one rank each, through ``parallel.init_multihost`` (NCCL
 when every rank of a host has a card of its own, gloo otherwise); rank r
 of a host with c cards trains on ``cuda:{r % c}``. ``--batch-size`` is the
 global batch. Without ``--coordinator`` the process trains alone, as with
-``--no-mesh``.
+``--no-mesh``. ``--tp K`` splits the job's ranks into a (data, model) mesh
+with a model axis of K: the output channels of the convs whose filters
+divide by K are split over it (tensor parallelism); with one process it is
+ignored, as in the JAX package. ``--remat blocks|full`` recomputes
+activations in the backward (``blocks``: all but the block boundaries).
 
-Flags of slices not ported yet raise ``NotImplementedError`` (see
-ROADMAP.md), before the process joins a job: ``--tp`` > 1 and ``--remat``
-other than ``none``.
+``--tp`` with ``--quantized`` is not ported and raises
+``NotImplementedError`` (see ROADMAP.md), before the process joins a job.
 """
 
 from __future__ import annotations
@@ -136,10 +139,9 @@ def parse_args(argv=None):
 def main(argv=None):
     opt = parse_args(argv)
     # what is not ported raises before the process joins a job
-    if opt.tp > 1:
-        raise unported(f'tensor parallelism (--tp {opt.tp})')
-    if opt.remat not in ('none', ''):
-        raise unported(f'--remat {opt.remat}')
+    if opt.tp > 1 and opt.quantized != -1:
+        raise unported(f'QAT under tensor parallelism (--tp {opt.tp} with '
+                       f'--quantized {opt.quantized})')
     if opt.coordinator:
         from ..parallel import init_multihost
         if opt.coordinator == 'auto':

@@ -42,7 +42,7 @@ process, ``parallel.init_multihost``): the mesh is built unless
 ``device_mesh`` is False, which a job of several ranks refuses. Each rank
 loads its ``process_shard`` of the train set at the local batch
 ``batch_size // ranks`` (``max_targets // ranks`` targets), starts from
-rank 0's state (``parallel.replicate``), and steps through the
+rank 0's state (``parallel.shard_state``), and steps through the
 data-parallel ``grad_fn``/``update_fn`` (``trainer.py``): every rank holds
 the same weights, and its log lines show the global batch's losses. With
 ``device_aug`` the ranks all-gather their uint8 blocks and targets, each
@@ -52,8 +52,17 @@ the JAX package augments its global batch. Every rank evaluates its shard
 alone writes ``results.txt``, the checkpoints, the plots, TensorBoard and
 the bucket's copies. ``rect`` and ``image_weights`` need one process.
 
-Not ported (see ROADMAP.md): tensor parallelism; it raises
-``NotImplementedError``.
+Tensor parallelism (``tp`` > 1, as JAX's rule: with one rank there is no
+mesh and no error): the job's mesh has a model axis of ``tp``, the state is
+split over it (``parallel.shard_state``), and the ranks of one data index
+load the same rows (``process_shard`` over the data axis). Each epoch's
+``evaluate`` runs on the split EMA pair; the checkpoints hold whole
+tensors, gathered over the model group on every rank and written by rank
+0, so that JAX's loader and one process read them, and ``resume`` splits
+them again. ``tp`` with ``quantized`` raises ``NotImplementedError`` (see
+ROADMAP.md).
+
+``remat`` ('none', 'blocks', 'full') reaches ``make_train_functions``.
 """
 
 from __future__ import annotations
@@ -79,7 +88,8 @@ from ..data.datasets import BatchLoader, DetectionDataset
 from ..data.device_aug import make_device_augment, rows_of
 from ..eval.evaluator import evaluate
 from ..eval.metrics import fitness
-from ..parallel import allgather_host_values, make_mesh, replicate
+from ..parallel import (DATA_AXIS, MODEL_AXIS, allgather_host_values,
+                        gather_state, make_mesh, shard_state)
 from ..parallel.collectives import all_reduce_nograd
 from ..parallel.multihost import process_count, process_index
 from ..runtime import load_model, preprocess
@@ -161,10 +171,9 @@ def _check_options(opt: TrainOptions):
         if opt.rect:
             raise ValueError('--device-aug needs square letterboxed '
                              'batches: no --rect')
-    if opt.tp > 1:
-        raise unported(f'tensor parallelism (--tp {opt.tp})')
-    if opt.remat not in ('none', ''):
-        raise unported(f'--remat {opt.remat}')
+    if opt.tp > 1 and opt.quantized != -1:
+        raise unported(f'QAT under tensor parallelism (--tp {opt.tp} with '
+                       f'--quantized {opt.quantized})')
 
 
 def resize_batch(x, size: int):
@@ -210,9 +219,6 @@ def run_training(opt: TrainOptions):
     pc, pi = process_count(), process_index()
     multihost = pc > 1
     if multihost:
-        if opt.batch_size % pc:
-            raise ValueError(f'--batch-size {opt.batch_size} does not split '
-                             f'over {pc} processes')
         if opt.rect or opt.image_weights:
             raise ValueError('training across processes uses the plain '
                              'shuffled sampler: no --rect, no image weights')
@@ -221,8 +227,15 @@ def run_training(opt: TrainOptions):
                              '--no-mesh)')
     mesh = opt.device_mesh or None
     if mesh is None and multihost:
-        mesh = make_mesh(device)
-    local_bs = opt.batch_size // pc
+        mesh = make_mesh(device, model_parallel=opt.tp)
+    # the data axis splits the batch; the ranks of a model axis share rows
+    dp, di = (1, 0) if mesh is None else (mesh.shape[DATA_AXIS],
+                                          mesh.data_index)
+    tp = 1 if mesh is None else mesh.shape[MODEL_AXIS]
+    if opt.batch_size % dp:
+        raise ValueError(f'--batch-size {opt.batch_size} does not split '
+                         f'over a data axis of {dp}')
+    local_bs = opt.batch_size // dp
     is_chief = pi == 0
     hyp = load_hyp(opt.hyp_path)
     if opt.hyp_override:
@@ -310,7 +323,7 @@ def run_training(opt: TrainOptions):
     use_adam = opt.adam or quant
     fn_kw = dict(sparsity_s=opt.sparsity if opt.prune != -1 else 0.0,
                  sparse_gamma_layers=sparse_layers, kd_loss_fn=kd_fn,
-                 mesh=mesh)
+                 mesh=mesh, remat=opt.remat)
     grad_fn, update_fn = make_train_functions(
         net, anchor_vecs, nc, loss_hyp, quant_apply=quant_apply, **fn_kw)
     # after bn_freeze_step the step without the BN statistics conv
@@ -341,20 +354,21 @@ def run_training(opt: TrainOptions):
             resume_results = ck.get('training_results', '')
         _restore(ts, ck, net, log)
     if mesh is not None:
-        replicate(mesh, ts)         # every rank starts from rank 0's state
+        # every rank starts from rank 0's state, split over the model axis
+        shard_state(mesh, net, ts)
 
     dataset = DetectionDataset(
         train_path, img_size, local_bs,
         augment=opt.augment and not opt.device_aug, hyp=hyp, rect=opt.rect,
         cache_images=opt.cache_images, is_gray_scale=opt.gray_scale,
         image_weights=opt.image_weights, seed=opt.seed, cutout=opt.cutout,
-        ud_flip=opt.ud_flip, process_shard=(pi, pc) if multihost else None)
+        ud_flip=opt.ud_flip, process_shard=(di, dp) if multihost else None)
     dev_aug = None
     if opt.augment and opt.device_aug:
         dev_aug = make_device_augment(img_size, hyp, mosaic=True)
         aug_gen = torch.Generator(device=device)
     # each rank holds its block's share of the target capacity
-    local_max_t = (opt.max_targets // pc if opt.max_targets
+    local_max_t = (opt.max_targets // dp if opt.max_targets
                    else 30 * local_bs)
     loader = BatchLoader(dataset, local_bs, max_targets=local_max_t,
                          shuffle=True, drop_last=True, seed=opt.seed)
@@ -370,6 +384,10 @@ def run_training(opt: TrainOptions):
     def upload(a):
         t = torch.from_numpy(np.ascontiguousarray(a))
         return t.pin_memory().to(device, non_blocking=True) if cuda else t
+
+    def gather_rows(a):
+        """Every data index's block (the first rank of each model axis)."""
+        return allgather_host_values(a)[::tp]
 
     nb = len(loader)
     n_burn = (opt.n_burn_override if opt.n_burn_override is not None
@@ -419,16 +437,16 @@ def run_training(opt: TrainOptions):
                 # the global batch (rank-major, image indices shifted), one
                 # augmentation of it on every rank, then this rank's rows
                 g = np.array(tgt, np.float32)
-                g[:, 0] += pi * local_bs
-                x = preprocess(upload(allgather_host_values(imgs).reshape(
+                g[:, 0] += di * local_bs
+                x = preprocess(upload(gather_rows(imgs).reshape(
                     -1, *imgs.shape[1:])), opt.maxabsscaler, device=device)
                 aug_gen.manual_seed(opt.seed * 100003 + ni)
                 x, tgt_in, valid_in = dev_aug(
-                    x, upload(allgather_host_values(g).reshape(-1, 6)),
-                    upload(allgather_host_values(np.asarray(valid, bool))
+                    x, upload(gather_rows(g).reshape(-1, 6)),
+                    upload(gather_rows(np.asarray(valid, bool))
                            .reshape(-1)), aug_gen)
                 x, tgt_in, valid_in = rows_of(x, tgt_in, valid_in,
-                                              pi * local_bs, local_bs)
+                                              di * local_bs, local_bs)
             else:
                 x = preprocess(upload(imgs), opt.maxabsscaler, device=device)
                 tgt_in = upload(np.asarray(tgt, np.float32))
@@ -472,8 +490,9 @@ def run_training(opt: TrainOptions):
         eval_params = ts.ema.params if use_ema else ts.params
         eval_state = ts.ema.state if use_ema else ts.bn_state
         if not opt.notest or final_epoch:
-            # every rank evaluates its shard; the batch splits over them
-            eval_bs = -(-max(opt.batch_size // 4, 1) // pc) * pc
+            # every data index evaluates its shard; the batch splits over
+            # the data axis
+            eval_bs = -(-max(opt.batch_size // 4, 1) // dp) * dp
             results, maps, _ = evaluate(
                 net, eval_params, eval_state, opt.data,
                 batch_size=eval_bs, img_size=imgsz_test,
@@ -500,20 +519,21 @@ def run_training(opt: TrainOptions):
         fi = float(fitness(np.array(results).reshape(1, -1))[0])
         if fi > best_fitness:
             best_fitness = fi
-        if not is_chief:
-            continue
-        with open(opt.results_file, 'a') as f:
-            f.write(('%10.4g' * 12 + '\n') % (epoch, *mloss, *results))
-        if opt.bucket and opt.name:
-            gsutil.sync_results(opt.bucket, opt.name, opt.results_file)
-        if not opt.nosave:
+        if is_chief:
+            with open(opt.results_file, 'a') as f:
+                f.write(('%10.4g' * 12 + '\n') % (epoch, *mloss, *results))
+            if opt.bucket and opt.name:
+                gsutil.sync_results(opt.bucket, opt.name, opt.results_file)
+        if not opt.nosave and (is_chief or tp > 1):
+            # under a model axis every rank: it gathers the split tensors
             save_train_checkpoint(
                 last, ts, net, epoch=epoch, best_fitness=best_fitness,
-                results_file=opt.results_file, with_opt=not final_epoch)
+                results_file=opt.results_file, with_opt=not final_epoch,
+                mesh=mesh)
             if best_fitness == fi and not final_epoch:
                 save_train_checkpoint(
                     best, ts, net, epoch=epoch, best_fitness=best_fitness,
-                    results_file=opt.results_file, with_opt=False)
+                    results_file=opt.results_file, with_opt=False, mesh=mesh)
 
     if opt.bucket and not opt.nosave and is_chief:
         for ck in (last, best):
@@ -525,22 +545,34 @@ def run_training(opt: TrainOptions):
 
 
 def save_train_checkpoint(path, ts, net, *, epoch: int, best_fitness: float,
-                          results_file: str, with_opt: bool):
+                          results_file: str, with_opt: bool, mesh=None):
     """``last.npz``/``best.npz`` in the JAX package's layout: the raw
     params/state pair (for a resume), the EMA pair and its update count
     (what ``load_model`` serves), the quantizer state of a QAT run, and the
-    optimizer state when ``with_opt``."""
+    optimizer state when ``with_opt``. Under a ``mesh`` with a model axis
+    every rank calls this (the split tensors are gathered whole over the
+    model group); rank 0 alone writes."""
+    whole = lambda tree: gather_state(mesh, net, tree)
+    params, state = whole(ts.params), whole(ts.bn_state)
+    ema_pair = None if ts.ema is None else (whole(ts.ema.params),
+                                            whole(ts.ema.state))
+    opt_tree = None
+    if with_opt:
+        opt_tree = {n: whole(t) if isinstance(t, dict) else t
+                    for n, t in ts.opt_state.items()}
+    if process_index() != 0:
+        return
     training_results = Path(results_file).read_text() \
         if os.path.exists(results_file) else ''
-    params, state = to_jax(net, ts.params, ts.bn_state)
+    params, state = to_jax(net, params, state)
     ema = ema_state = extra = None
-    if ts.ema is not None:
-        ema, ema_state = to_jax(net, ts.ema.params, ts.ema.state)
+    if ema_pair is not None:
+        ema, ema_state = to_jax(net, *ema_pair)
         extra = {'ema_updates': int(ts.ema.updates)}
     save_checkpoint(path, params=params, state=state, epoch=epoch,
                     best_fitness=best_fitness,
                     training_results=training_results,
-                    opt_state=(opt_state_to_jax(net, ts.opt_state)
+                    opt_state=(opt_state_to_jax(net, opt_tree)
                                if with_opt else None),
                     ema=ema, ema_state=ema_state, extra=extra,
                     qstate=(None if ts.qstate is None

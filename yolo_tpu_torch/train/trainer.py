@@ -33,8 +33,27 @@ optimizer and EMA update on the same gradient, so the replicas stay equal.
 This is not ``DistributedDataParallel``, which averages per-rank
 gradients of per-rank statistics and hooks ``forward`` only.
 
-Not ported (see ROADMAP.md): the remat policies; they raise
-``NotImplementedError``.
+Tensor parallelism: under a mesh with a model axis, the state is split by
+``parallel.shard_state`` and the model's split convs gather their outputs
+(``Darknet.model_group``), so every rank of a data index computes the same
+loss from the same rows, and the gradient of each tensor it holds, split
+or whole, is already the whole of it. ``update_fn`` sums the gradients
+over the data group, then averages over the model group what every rank
+of it holds whole (the gradients and BN statistics of the convs that are
+not split): each rank computed its own copy, and a backward that sums in
+another order on one rank would otherwise set the copies apart for good.
+QAT under a model axis raises ``NotImplementedError`` (its apply is a
+forward of its own, whose per-tensor trackers would need a maximum over
+the model group; see ROADMAP.md). A batch split by rows
+(``parallel.shard_spatial``) is for inference alone.
+
+``remat`` (JAX's policies): 'blocks' recomputes in the backward every run
+of layers between two block boundaries (shortcuts, multi-route concats)
+and keeps only the runs' inputs, 'full' (or True) keeps only the batch;
+for QAT both recompute the whole quant apply. The recompute runs the
+train-mode BN's collectives again (the same ones in the same order on
+every rank), and its BN statistics and quantizer state are dropped: the
+update is the first forward's.
 """
 
 from __future__ import annotations
@@ -43,12 +62,14 @@ from dataclasses import dataclass
 
 import torch
 
+from torch.utils.checkpoint import checkpoint
+
 from ..compress.quant import unported
 from ..ir import NetworkIR
 from ..models.network import Darknet
 from .ema import EMAState, ema_init, ema_update
 from .loss import LossHyp, compute_loss
-from ..parallel.collectives import sum_gradients
+from ..parallel.collectives import average_tensors, sum_gradients
 from .optim import PerGroupScalars, make_optimizer
 
 
@@ -146,13 +167,25 @@ def make_train_functions(net: NetworkIR, anchor_vecs, nc: int, hyp: LossHyp,
     module docstring), the loss in its ``head_layout``. ``kd_loss_fn``:
     its term is added to the loss; with QAT both must use one layout.
 
-    ``mesh``: data parallelism over its data group (module docstring); the
-    sparsity term is added on data rank 0 alone, so that the sum over the
-    ranks holds it once."""
-    if remat not in (False, None, 'none', ''):
-        raise unported(f'remat={remat!r} (the remat policies)')
+    ``mesh``: data parallelism over its data group, and tensor parallelism
+    over its model group (module docstring); the sparsity term is added on
+    data index 0 alone, so that the sum over the data group holds it once.
+
+    ``remat``: False/None/'none', 'blocks', or True/'full' (module
+    docstring)."""
+    if remat in (False, None, 'none', ''):
+        remat = None
+    elif remat in (True, 'full'):
+        remat = 'full'
+    elif remat != 'blocks':
+        raise ValueError(f'remat={remat!r}: none, blocks or full')
+    if quant_apply is not None and mesh is not None \
+            and mesh.model_group is not None:
+        raise unported('QAT under tensor parallelism (--tp with '
+                       '--quantized)')
     anchors: dict = {}
     group = None if mesh is None else mesh.data_group
+    model_group = None if mesh is None else mesh.model_group
     sparse_keys = tuple(str(i) for i in sparse_gamma_layers) \
         if sparsity_s > 0 and (mesh is None or mesh.data_index == 0) else ()
     if quant_apply is not None:
@@ -174,11 +207,13 @@ def make_train_functions(net: NetworkIR, anchor_vecs, nc: int, hyp: LossHyp,
                                             device=dev) for a in anchor_vecs]
         if quant_apply is None:
             (yolo_p, feats), new_bn = model.forward_train(
-                imgs, head_layout=layout, group=group)
+                imgs, head_layout=layout, group=group, remat=remat)
         else:
-            (yolo_p, feats), new_bn, new_q = quant_apply(
-                state.params, state.bn_state, state.qstate, imgs, True,
-                group=group)
+            args = (state.params, state.bn_state, state.qstate, imgs, True)
+            (yolo_p, feats), new_bn, new_q = (
+                quant_apply(*args, group=group) if remat is None else
+                checkpoint(quant_apply, *args, group=group,
+                           use_reentrant=False))
             state.qstate = _tree_detach(new_q)
         loss, items = compute_loss(yolo_p, targets, valid, anchors[dev], nc,
                                    hyp, gr, layout=layout, group=group)
@@ -208,6 +243,9 @@ def make_train_functions(net: NetworkIR, anchor_vecs, nc: int, hyp: LossHyp,
     def update_fn(state: TrainState, scalars: PerGroupScalars):
         sum_gradients([p for g in state.optimizer.param_groups
                        for p in g['params']], group)
+        if model_group is not None:
+            average_tensors(_whole_on_each_rank(state.model, net),
+                            model_group)
         state.optimizer.set_scalars(scalars)
         state.optimizer.step()
         if state.ema is not None:
@@ -217,3 +255,20 @@ def make_train_functions(net: NetworkIR, anchor_vecs, nc: int, hyp: LossHyp,
         return state
 
     return grad_fn, update_fn
+
+
+def _whole_on_each_rank(model: Darknet, net: NetworkIR) -> list:
+    """The gradients and buffers of the layers that tensor parallelism
+    leaves whole (every layer but the convs whose weight holds a block of
+    the filters, ``Darknet._layer``'s rule)."""
+    out = []
+    for k, m in model.layer.items():
+        w = getattr(m, 'w', None)
+        if w is not None and w.shape[0] != net.layers[int(k)].filters:
+            continue
+        for p in m.parameters(recurse=False):
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            out.append(p.grad)
+        out += list(m.buffers(recurse=False))
+    return out
