@@ -106,9 +106,16 @@ Phases; any failure exits non-zero, and nothing runs on the CPU instead
    says which image decoders (``cv2``, ``PIL``, ``torchvision.io``) import
    on the machine, each tried in a process of its own.
 
+Phases 9, 10 (c) and 11 to 15 run in that order in one child process
+(``chip_smoke.py --children DIR``: their JPEG files and file loaders
+import OpenCV, which this process must not), after phase 10's other
+parts, each in a directory of its own with both kernels' counts zeroed
+and the global generators at their first seed, as in a fresh process;
+phases 10 (c), 13, 14 and 15 share one set of 64 JPEG files labelled by
+yolov3 from seed 0 and its init.npz, made by phase 10 (c).
+
 9. pruning (``compress/prune_drivers.py``, ``python -m yolo_tpu_torch.prune``),
-   in a child process (``chip_smoke.py --phase9 DIR``: the file loader
-   imports OpenCV, which this process must not), yolov3 @608 at full width,
+   yolov3 @608 at full width,
    bs=8, random weights from seed 0 (``conv_scale`` 0.85) with half of each
    prunable layer's gammas set to U(1e-6, 1e-4) (``shrink_gammas``, the
    stand-in for a sparsity-trained model): (a) 64 seeded images written as
@@ -145,8 +152,7 @@ Phases; any failure exits non-zero, and nothing runs on the CPU instead
    batch for 30 steps: the loss must fall (the mean of the last 5 below
    that of the first 5); ``grad_fn`` and ``update_fn`` timed apart by CUDA
    events after 5 warm-up steps, images/s by the host clock, the peak
-   device memory and a profile of one step; (c) in a child process
-   (``chip_smoke.py --phase10 DIR``; the file loader imports OpenCV): 64
+   device memory and a profile of one step; (c) in the child process: 64
    seeded 608x608 JPEG files labelled by the model itself (as phase 9
    (a)), the augmenting loader alone (mosaic, affine with the reference's
    jitter, HSV, flip; images/s), then ``run_training`` (yolov3 @608, bs=8,
@@ -161,8 +167,7 @@ Phases; any failure exits non-zero, and nothing runs on the CPU instead
    pseudo-labels: mAP@0.5 >= 0.99, K1 once a batch), its survivors at conf
    0.1 beside the f32 sim's, both sims' ``make_infer`` timed in turns.
 
-11. the rest of quantization, in a child process (``chip_smoke.py
-   --phase11 DIR``; JPEG files and the file loader need OpenCV): (a)
+11. the rest of quantization: (a)
    ``cfg/yolov4/yolov4.cfg`` at full width, 608 px, seeded random weights
    (the smallest ``conv_scale`` of ``V4_SCALES`` that keeps 20 boxes an
    image above conf 0.001 with bounded heads, printed; BN running
@@ -187,8 +192,8 @@ Phases; any failure exits non-zero, and nothing runs on the CPU instead
    and after the switch, a profile of each, the peak memory, the loss
    falling, every conv's qstate step at 12; the f32 gradient at 320 px,
    bs=2, from frozen quantizer scales, card (with and without cuDNN)
-   against CPU (at its threads and at 1), the full step and the BN-frozen
-   one (``QAT_FROZEN_TOL``, ``QAT_FULL_*``); (d)
+   against CPU (at its threads; the full step at 1 thread too, the CPU's
+   own spread), the full step and the BN-frozen one (``QAT_FROZEN_TOL``, ``QAT_FULL_*``); (d)
    TPSQ on yolov3 @608: ``tpsq_warmup`` on one batch (timed), 3 QAT
    steps, the engine (K2 on the convs on int8 edges, on the [-127, 127]
    grid with the 127/128 multiplier, the others on float edges; K1 once),
@@ -199,9 +204,8 @@ Phases; any failure exits non-zero, and nothing runs on the CPU instead
    eval batch of the sim, ``last.npz`` holding qstate (every conv at step
    16), then a resume for a third epoch (steps to 24).
 
-12. knowledge distillation, evolve, the FPGA export and anchors, in a
-   child process (``chip_smoke.py --phase12 DIR``; JPEG files and the
-   file loader need OpenCV): (a) the teacher, yolov3 @608 from seed 0
+12. knowledge distillation, evolve, the FPGA export and anchors: (a) the
+   teacher, yolov3 @608 from seed 0
    (``CONV_SCALE``), written as an .npz; 64 seeded JPEG files labelled by
    it; the student's parent, the teacher with ``shrink_gammas``, as an
    .npz; the student, the parent through ``channel_prune('normal',
@@ -236,9 +240,8 @@ Phases; any failure exits non-zero, and nothing runs on the CPU instead
    printed, the stem equal; (g) ``kmean_anchors`` over the files' labels
    (n 9, ``default_rng(0)``), the anchors, recall and seconds.
 
-13. the data path, in a child process (``chip_smoke.py --phase13 DIR``;
-   JPEG files, the loaders and the video need OpenCV), yolov3 @608 from
-   seed 0 (``CONV_SCALE``) and 64 seeded JPEG files labelled by it: (a)
+13. the data path, yolov3 @608 from seed 0 (``CONV_SCALE``) and the 64
+   JPEG files labelled by it: (a)
    the host library (``csrc/fastpre.cpp``) built by g++ (its seconds,
    OpenMP's threads), ``BatchLoader`` taking the native path by default,
    its batches equal to the cv2 path's at 608 (the eval letterbox of a
@@ -264,11 +267,10 @@ Phases; any failure exits non-zero, and nothing runs on the CPU instead
    at 4 frame steps: K1 once a step, the same detections in each stream,
    a 4-frame video written for each.
 
-14. data parallelism, in a child process (``chip_smoke.py --phase14
-   DIR``; JPEG files and the loader need OpenCV) that starts the ranks
-   (``--phase14-rank``, ``--phase14-cli``, ``--phase14-nccl``), yolov3
-   @608 from seed 0 (``CONV_SCALE``) and 64 seeded JPEG files labelled by
-   it: (a) a job of two ranks sharing ``cuda:0`` over gloo (CUDA tensors
+14. data parallelism, two rank processes sharing ``cuda:0``
+   (``--phase14-rank``: (a) and (c), then (b)) and one over NCCL
+   (``--phase14-nccl``), yolov3 @608 from seed 0 (``CONV_SCALE``) and the
+   64 JPEG files labelled by it: (a) a job of two ranks sharing ``cuda:0`` over gloo (CUDA tensors
    in its all-reduces and broadcasts): one f32 ``grad_fn`` of yolov3 @320,
    global bs 4 as 2 x 2, its summed gradient against one process on the
    card (loss items within 1e-4 relative, every tensor within 2.3e-2 of
@@ -288,10 +290,10 @@ Phases; any failure exits non-zero, and nothing runs on the CPU instead
    evaluate, and a ``grad_fn`` whose every collective runs through NCCL
    against the step without a mesh.
 
-15. remat, tensor parallelism and spatial partitioning, in a child process
-   (``chip_smoke.py --phase15 DIR``) that starts the ranks
-   (``--phase15-rank``, ``--phase15-cli``), yolov3 from seed 0 and 64
-   seeded JPEG files labelled by it: (a) the remat policies none, blocks
+15. remat, tensor parallelism and spatial partitioning, two rank
+   processes sharing ``cuda:0`` (``--phase15-rank``: (b) and (c), then
+   (d)), yolov3 from seed 0 and the 64 JPEG files labelled by it: (a) the
+   remat policies none, blocks
    and full: an f32 step @320 of each (loss items and BN statistics
    bit-equal, the gradients within ``REMAT_GRAD_TOL``), bf16 SGD steps
    @608 bs 8 of each (``grad_fn`` ms, kernels, peak memory); (b) two ranks
@@ -308,7 +310,13 @@ Phases; any failure exits non-zero, and nothing runs on the CPU instead
    same ranks on a (2, 1) mesh: ``make_infer(mesh=...)`` dense and sparse
    on ``shard_spatial``'s rows of a 640² image, f32 within 1e-4 of one
    process, bf16 printed, K1 once a call on each rank, ms beside one
-   process's, the all-reduces' bytes; (d) ``python -m
+   process's, the all-reduces' bytes; then the google sim and the int8
+   engine of phase 6's calibrated yolov3 (saved to one file that both
+   ranks load) and float TTA in f32 on the same rows: K1 once a call and
+   K2 74 times an engine call on each rank, the same detections on both,
+   the sim and TTA within 1e-4 of one process, the engine's gathered int8
+   head codes against one process's (the differing ones counted, each at
+   most ``SP_Q_LSB`` quanta apart), ms beside one process's; (d) ``python -m
    yolo_tpu_torch.train --coordinator ... --tp 2`` (its ``main``), 1 epoch
    of bs 8 on the files: the same loss lines on both ranks,
    ``results.txt`` and the checkpoint on rank 0 alone, images/s beside
@@ -333,8 +341,8 @@ and its totals by class, phase 8's engine by route, and yolov4's
 ptq_cos engine's K2 calls summed and the TPSQ engine's count, phase 11);
 the line before it the card's name and power limit; the last line is the JSON device record. At the end the
 run checks that neither jax nor OpenCV nor any module of the JAX package
-``yolo_tpu`` was imported into this process (the children of phases 9
-to 15 load OpenCV).
+``yolo_tpu`` was imported into this process (the child of phases 9 to 15
+loads OpenCV).
 """
 
 from __future__ import annotations
@@ -1150,12 +1158,14 @@ def profile_device(fn, n=3, ranges=()):
     """Device time per call of ``fn`` by kernel group, busy share and kernel
     count, from torch.profiler over ``n`` calls after a warm-up; and the
     device time of the kernels launched inside each ``record_function``
-    range named in ``ranges`` (see ``in_range``), a part of the groups."""
+    range named in ``ranges`` (see ``in_range``), a part of the groups.
+    Without ``ranges`` only the device is traced: the host's operator
+    events, tens of thousands a training step, take seconds to parse."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]
+                 + [ProfilerActivity.CPU] * bool(ranges)) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             fn()
@@ -1895,6 +1905,48 @@ def write_jpeg_set(root, infer, dev, n_images, cap=None):
     return data, batches, labels
 
 
+# the yolov3 set of phases 10 (c), 13, 14 and 15, made once in the child
+_YOLOV3_SET = {}
+
+
+def yolov3_set(root, dev, n_images):
+    """``n_images`` seeded JPEG files labelled by yolov3 at random weights
+    (seed 0, ``CONV_SCALE``; ``write_jpeg_set``) and those weights as
+    init.npz: made once in a process, under its first caller's ``root``,
+    then shared. Each caller gets its own ``root/set/set.data`` and
+    ``root/set/val.txt`` (listing the same files), to which it may add,
+    and ``root/init.npz`` (a link). Returns (the .data path, the labels
+    by batch, init.npz's path)."""
+    from yolo_tpu_torch import runtime
+    from yolo_tpu_torch.convert import to_jax
+    from yolo_tpu_torch.utils.checkpoint import save_checkpoint
+    if n_images in _YOLOV3_SET:
+        print(f'  (a) the {n_images} JPEG files, their labels and init.npz '
+              f'of an earlier phase, shared')
+    else:
+        base = os.path.join(root, 'yolov3_set')
+        raw = runtime.load_model(CFG, device=dev, conv_scale=CONV_SCALE,
+                                 generator=torch.Generator().manual_seed(0))
+        kw = dict(conf_thres=CONF_THRES, iou_thres=0.6, top_k=512,
+                  max_det=300)
+        _, _, labels = write_jpeg_set(base, raw.fuse().make_infer(**kw), dev,
+                                      n_images)
+        init = os.path.join(base, 'init.npz')
+        p, s = to_jax(raw.net, raw.params, raw.state)
+        save_checkpoint(init, params=p, state=s)
+        _YOLOV3_SET[n_images] = base, labels, init
+    base, labels, init = _YOLOV3_SET[n_images]
+    own = os.path.join(root, 'set')
+    os.makedirs(own)
+    shutil.copy(os.path.join(base, 'val.txt'), own)
+    data = os.path.join(own, 'set.data')
+    with open(data, 'w') as f:
+        f.write(f'classes=80\nvalid={own}/val.txt\n'
+                f'names={ROOT}/data_cfg/coco.names\n')
+    os.symlink(init, os.path.join(root, 'init.npz'))
+    return data, labels, os.path.join(root, 'init.npz')
+
+
 def time_loader(data, n_images, card):
     """(b) The data layer alone: decode of every file, ``DetectionDataset``
     set-up and one pass of ``BatchLoader``, twice; returns the loader's
@@ -1983,7 +2035,7 @@ def run_cli(method, cfg, weights, data, workdir, dev):
 
 
 def prune_child(root, dev):
-    """Phase 9 (in a process of its own: the file loader imports OpenCV).
+    """Phase 9 (in the child process: the file loader imports OpenCV).
     Writes its numbers to ``root/phase9.json``."""
     from yolo_tpu_torch import runtime
     from yolo_tpu_torch.compress import prune as P
@@ -2168,22 +2220,6 @@ def prune_child(root, dev):
     with open(os.path.join(root, 'phase9.json'), 'w') as f:
         json.dump(out, f)
 
-
-def phase_prune():
-    """Phase 9 in a child process; returns its numbers."""
-    print(f'[9/15] pruning: yolov3 @{SIZE}, {PRUNE_IMAGES} JPEG files, '
-          f'bs={BS} (a child process)')
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as root:
-        sys.stdout.flush()
-        r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            '--phase9', root], timeout=900)
-        if r.returncode != 0:
-            raise SmokeFailure(f'phase 9 (child) exited {r.returncode}')
-        with open(os.path.join(root, 'phase9.json')) as f:
-            out = json.load(f)
-    print(f'  phase 9: {time.perf_counter() - t0:.1f} s')
-    return out
 
 
 # ------------------------------------------------- phase 10: float training
@@ -2431,33 +2467,23 @@ def snap_sim(dev, card, qb):
 
 
 def train_child(root, dev):
-    """Phase 10 (c), in a process of its own (the file loader imports
+    """Phase 10 (c), in the child process (the file loader imports
     OpenCV): ``run_training`` on JPEG files, then a resume. Writes its
     numbers to ``root/phase10.json``."""
     from yolo_tpu_torch import runtime
     from yolo_tpu_torch.config import DEFAULT_HYP
-    from yolo_tpu_torch.convert import to_jax
     from yolo_tpu_torch.data.datasets import BatchLoader, DetectionDataset
     from yolo_tpu_torch.ops.nms_suppress import suppress
     from yolo_tpu_torch.train import loop
-    from yolo_tpu_torch.utils.checkpoint import save_checkpoint
     card = device_setup() if dev.type == 'cuda' else 'the CPU'
     sync = torch.cuda.synchronize if dev.type == 'cuda' else (lambda: None)
     t_phase = time.perf_counter()
-    raw = runtime.load_model(CFG, device=dev, conv_scale=CONV_SCALE,
-                             generator=torch.Generator().manual_seed(0))
     kw = dict(conf_thres=CONF_THRES, iou_thres=0.6, top_k=512, max_det=300)
-    data, _, labels = write_jpeg_set(os.path.join(root, 'set'),
-                                     raw.fuse().make_infer(**kw), dev,
-                                     TRAIN_IMAGES)
+    data, labels, init = yolov3_set(root, dev, TRAIN_IMAGES)
     per_image = max(len(lab) for per in labels for lab in per)
     lst = os.path.join(root, 'set', 'val.txt')
     with open(data, 'a') as f:
         f.write(f'train={lst}\n')
-    init = os.path.join(root, 'init.npz')
-    p, s = to_jax(raw.net, raw.params, raw.state)
-    save_checkpoint(init, params=p, state=s)
-    del raw
 
     # the augmenting loader alone, one pass
     hyp = {**DEFAULT_HYP, **TRAIN_AFFINE}
@@ -2559,9 +2585,11 @@ def train_child(root, dev):
 
 
 def phase_train(dev, card, qb):
-    """Phase 10: the train step on the card against the CPU, the step at
-    full size, the loop from files in a child process, the eval snap."""
-    print(f'[10/15] float training: yolov3 @{SIZE}, bs={BS}')
+    """Phase 10 in this process: the train step on the card against the
+    CPU, the step at full size, the eval snap. (c), the loop from files,
+    runs in the child process of phases 9 to 15."""
+    print(f'[10/15] float training: yolov3 @{SIZE}, bs={BS} ((c) in the '
+          f'child process, below)')
     from yolo_tpu_torch.ir import build_ir
     from yolo_tpu_torch.models.network import init_params
     t0 = time.perf_counter()
@@ -2570,16 +2598,8 @@ def phase_train(dev, card, qb):
                                 conv_scale=CONV_SCALE)
     out = grad_card_vs_cpu(dev, params, state, net)
     out.update(train_steps(dev, card, params, state, net))
-    with tempfile.TemporaryDirectory() as root:
-        sys.stdout.flush()
-        r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            '--phase10', root], timeout=900)
-        if r.returncode != 0:
-            raise SmokeFailure(f'phase 10 (child) exited {r.returncode}')
-        with open(os.path.join(root, 'phase10.json')) as f:
-            out['loop'] = json.load(f)
     out['snap'] = snap_sim(dev, card, qb)
-    print(f'  phase 10: {time.perf_counter() - t0:.1f} s')
+    print(f'  phase 10 (a), (b), the snap: {time.perf_counter() - t0:.1f} s')
     return out
 
 
@@ -3027,10 +3047,11 @@ def qat_grad_card_vs_cpu(dev, b):
     """(c) One f32 QAT ``grad_fn`` (google) of yolov3 at full width,
     QAT_GRAD_SIZE px, bs=2, from calibrated, frozen quantizer scales (2
     calibration steps on the card), through the full step (the BN fold on
-    batch statistics) and the BN-frozen one, on the CPU (at its threads
-    and at 1) and on the card (with cuDNN and without), from the same
-    weights, state and batch: the loss items, the quantizer state and the
-    gradients of each against the CPU's."""
+    batch statistics) and the BN-frozen one, on the CPU (at its threads,
+    and the full step at 1 as well: the CPU's own spread) and on the card
+    (with cuDNN and without), from the same weights, state and batch: the
+    loss items, the quantizer state and the gradients of each against the
+    CPU's."""
     from yolo_tpu_torch.convert import qstate_to_jax
     from yolo_tpu_torch.train.trainer import init_train_state
     x, tgt, valid = train_batch(70, GRAD_BS, QAT_GRAD_SIZE, dev)
@@ -3046,6 +3067,8 @@ def qat_grad_card_vs_cpu(dev, b):
         fn = g if mode == 'full' else gf
         out = {}
         for name, d, cudnn, threads in runs:
+            if mode == 'frozen' and name == 'cpu1':
+                continue
             old = torch.get_num_threads()
             torch.backends.cudnn.enabled = cudnn
             if threads:
@@ -3070,6 +3093,8 @@ def qat_grad_card_vs_cpu(dev, b):
                   f'bs={GRAD_BS} on {name}: {secs:.2f} s')
         g_cpu, it_cpu, q_cpu = out['cpu']
         for name in ('cpu1', 'cuda', 'cuda_nocudnn'):
+            if name not in out:
+                continue
             g_c, it_c, q_c = out[name]
             err, err_all = rel_l2(g_c, g_cpu)
             head = max(e for k, e in err.items() if k.split('.')[0] in heads)
@@ -3300,7 +3325,7 @@ def qat_loop(root, dev, card, data, per_image, out):
 
 
 def quant_child(root, dev):
-    """Phase 11 in a process of its own (the JPEG files and the file
+    """Phase 11 in the child process (the JPEG files and the file
     loader need OpenCV). Writes its numbers to ``root/phase11.json``."""
     card = device_setup()
     t_phase = time.perf_counter()
@@ -3321,22 +3346,6 @@ def quant_child(root, dev):
     with open(os.path.join(root, 'phase11.json'), 'w') as f:
         json.dump(out, f)
 
-
-def phase_quant():
-    """Phase 11 in a child process; returns its numbers."""
-    print(f'[11/15] quantization: yolov4 @{SIZE} PTQ and its engine, QAT and '
-          f'TPSQ on yolov3 @{SIZE}, the QAT loop')
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as root:
-        sys.stdout.flush()
-        r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            '--phase11', root], timeout=900)
-        if r.returncode != 0:
-            raise SmokeFailure(f'phase 11 (child) exited {r.returncode}')
-        with open(os.path.join(root, 'phase11.json')) as f:
-            out = json.load(f)
-    print(f'  phase 11: {time.perf_counter() - t0:.1f} s')
-    return out
 
 
 # ------------------------- phase 12: distillation, evolve, the FPGA export
@@ -3868,7 +3877,7 @@ def kmeans_anchors(setup, root):
 
 
 def kd_child(root, dev):
-    """Phase 12 in a process of its own (the JPEG files and the file
+    """Phase 12 in the child process (the JPEG files and the file
     loader need OpenCV). Writes its numbers to ``root/phase12.json``."""
     card = device_setup()
     t_phase = time.perf_counter()
@@ -3895,22 +3904,6 @@ def kd_child(root, dev):
     with open(os.path.join(root, 'phase12.json'), 'w') as f:
         json.dump(out, f)
 
-
-def phase_kd():
-    """Phase 12 in a child process; returns its numbers."""
-    print(f'[12/15] distillation, evolve, the FPGA export and anchors: '
-          f'yolov3 @{SIZE} and its pruned student (a child process)')
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as root:
-        sys.stdout.flush()
-        r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            '--phase12', root], timeout=900)
-        if r.returncode != 0:
-            raise SmokeFailure(f'phase 12 (child) exited {r.returncode}')
-        with open(os.path.join(root, 'phase12.json')) as f:
-            out = json.load(f)
-    print(f'  phase 12: {time.perf_counter() - t0:.1f} s')
-    return out
 
 
 # ------------------------------------------------------ phase 13: the data path
@@ -4219,23 +4212,14 @@ def stream_detect(root, dev, init, data):
 
 
 def data_child(root, dev):
-    """Phase 13 in a process of its own (the JPEG files, the loaders and
+    """Phase 13 in the child process (the JPEG files, the loaders and
     the video need OpenCV). Writes its numbers to ``root/phase13.json``."""
     from yolo_tpu_torch import runtime
-    from yolo_tpu_torch.convert import to_jax
-    from yolo_tpu_torch.utils.checkpoint import save_checkpoint
     card = device_setup()
     t_phase = time.perf_counter()
-    raw = runtime.load_model(CFG, device=dev, conv_scale=CONV_SCALE,
-                             generator=torch.Generator().manual_seed(0))
-    kw = dict(conf_thres=CONF_THRES, iou_thres=0.6, top_k=512, max_det=300)
-    data, _, labels = write_jpeg_set(os.path.join(root, 'set'),
-                                     raw.fuse().make_infer(**kw), dev,
-                                     DATA_IMAGES)
+    data, labels, init = yolov3_set(root, dev, DATA_IMAGES)
     per_image = max(len(lab) for per in labels for lab in per)
-    init = os.path.join(root, 'init.npz')
-    p, s = to_jax(raw.net, raw.params, raw.state)
-    save_checkpoint(init, params=p, state=s)
+    raw = runtime.load_model(CFG, init, device=dev)
     out = {'seconds': {}}
     for name, fn in (('a', lambda: native_loader(root, dev, card, data, raw)),
                      ('b', lambda: device_aug_check(dev, card, data,
@@ -4254,29 +4238,6 @@ def data_child(root, dev):
     with open(os.path.join(root, 'phase13.json'), 'w') as f:
         json.dump(out, f)
 
-
-def phase_data(train):
-    """Phase 13 in a child process; returns its numbers. ``train``: phase
-    10's numbers, whose host-augment loop (c) is printed beside the
-    ``--device-aug`` one."""
-    print(f'[13/15] the data path: the native letterbox, the device '
-          f'augmentation, train --device-aug, detect on streams (a child '
-          f'process)')
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as root:
-        sys.stdout.flush()
-        r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            '--phase13', root], timeout=900)
-        if r.returncode != 0:
-            raise SmokeFailure(f'phase 13 (child) exited {r.returncode}')
-        with open(os.path.join(root, 'phase13.json')) as f:
-            out = json.load(f)
-    host = train['loop']['loop_images_per_s']
-    print(f'  the training loop: --device-aug {out["c"]["images_per_s"]:.1f} '
-          f'images/s (phase 13 c) against the host augmentation\'s '
-          f'{", ".join(f"{r:.1f}" for r in host)} (phase 10 c, by epoch)')
-    print(f'  phase 13: {time.perf_counter() - t0:.1f} s')
-    return out
 
 
 # ------------------------------------ phase 14: data parallelism
@@ -4537,10 +4498,7 @@ def dp_nccl(root):
     out = {'k1': suppress.launches,
            'rows': np.loadtxt('results.txt', ndmin=2).tolist()}
     # the CLI left the job at its end: join a new one on another port
-    import socket
-    with socket.socket() as s:
-        s.bind(('localhost', 0))
-        os.environ['MASTER_PORT'] = str(s.getsockname()[1])
+    os.environ['MASTER_PORT'] = str(free_ports(1)[0])
     dev = init_multihost()
     out['backend'] = dist.get_backend()
     net = build_ir(CFG)
@@ -4603,6 +4561,19 @@ def paired_loaders(ds_cls, loader_cls, n_ranks=DP_RANKS):
     return Paired, Loader
 
 
+def free_ports(n):
+    """``n`` distinct free TCP ports of localhost."""
+    import socket
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for sk in socks:
+            sk.bind(('localhost', 0))
+        return [sk.getsockname()[1] for sk in socks]
+    finally:
+        for sk in socks:
+            sk.close()
+
+
 def dp_spawn(argv_of_rank, n, env=None, timeout=600):
     """Start ``n`` processes, wait for all of them and check that each
     exited 0 (their output goes to ours)."""
@@ -4622,12 +4593,10 @@ def dp_spawn(argv_of_rank, n, env=None, timeout=600):
 
 
 def dp_child(root, dev):
-    """Phase 14 in a process of its own (the JPEG files and the loader need
+    """Phase 14 in the child process (the JPEG files and the loader need
     OpenCV); it starts the ranks. Writes ``root/phase14.json``."""
-    import socket
     from yolo_tpu_torch import runtime
     from yolo_tpu_torch.config import parse_data_cfg
-    from yolo_tpu_torch.convert import to_jax
     from yolo_tpu_torch.data import datasets as tds
     from yolo_tpu_torch.data.datasets import DetectionDataset
     from yolo_tpu_torch.eval.evaluator import evaluate
@@ -4637,30 +4606,16 @@ def dp_child(root, dev):
     from yolo_tpu_torch.train import loop
     from yolo_tpu_torch.train.__main__ import main
     from yolo_tpu_torch.train.trainer import init_train_state
-    from yolo_tpu_torch.utils.checkpoint import save_checkpoint
     card = device_setup()
     t_phase = time.perf_counter()
     out = {'seconds': {}, 'card': card}
 
-    def port():
-        with socket.socket() as s:
-            s.bind(('localhost', 0))
-            return s.getsockname()[1]
     me = os.path.abspath(__file__)
-    raw = runtime.load_model(CFG, device=dev, conv_scale=CONV_SCALE,
-                             generator=torch.Generator().manual_seed(0))
-    kw = dict(conf_thres=CONF_THRES, iou_thres=0.6, top_k=512, max_det=300)
-    data, _, labels = write_jpeg_set(os.path.join(root, 'set'),
-                                     raw.fuse().make_infer(**kw), dev,
-                                     TRAIN_IMAGES)
+    data, labels, init = yolov3_set(root, dev, TRAIN_IMAGES)
     per_image = max(len(lab) for per in labels for lab in per)
     lst = parse_data_cfg(data)['valid']
     with open(data, 'a') as f:
         f.write(f'train={lst}\n')
-    init = os.path.join(root, 'init.npz')
-    p, s = to_jax(raw.net, raw.params, raw.state)
-    save_checkpoint(init, params=p, state=s)
-    del raw
     # (d)'s set: the first DP_NCCL_IMAGES files
     with open(lst) as f:
         files = f.read().split()[:DP_NCCL_IMAGES]
@@ -4696,16 +4651,18 @@ def dp_child(root, dev):
           f'{DP_STEPS - DP_WARMUP}) ({card})')
     out['seconds']['single'] = time.perf_counter() - t0
 
-    # (a) and (c): two ranks on the card
+    # (a) and (c), then (b): two ranks on the card, one process each
     t0 = time.perf_counter()
-    pt = port()
+    pts = free_ports(2)
     dp_spawn(lambda r: [sys.executable, me, '--phase14-rank', str(r),
-                        str(pt), root], DP_RANKS)
-    ranks = []
+                        str(pts[0]), str(pts[1]), root], DP_RANKS)
+    ranks, clis = [], []
     for r in range(DP_RANKS):
         with open(os.path.join(root, f'rank{r}.json')) as f:
             ranks.append(json.load(f))
-    out['seconds']['a_c'] = time.perf_counter() - t0
+        with open(os.path.join(root, f'cli{r}.json')) as f:
+            clis.append(json.load(f))
+    out['seconds']['ranks'] = time.perf_counter() - t0
     a = ranks[0]
     check(all(q['backend'] == 'gloo' and q['device'] == 'cuda:0'
               for q in ranks),
@@ -4792,14 +4749,6 @@ def dp_child(root, dev):
     # (b) the train CLI over two ranks, against one process fed their
     # batches
     t0 = time.perf_counter()
-    pt = port()
-    dp_spawn(lambda r: [sys.executable, me, '--phase14-cli', str(r),
-                        str(pt), root], DP_RANKS)
-    clis = []
-    for r in range(DP_RANKS):
-        with open(os.path.join(root, f'cli{r}.json')) as f:
-            clis.append(json.load(f))
-    out['seconds']['b'] = time.perf_counter() - t0
     rows = np.loadtxt(os.path.join(root, 'cli0', 'results.txt'), ndmin=2)
     n_eval = TRAIN_IMAGES // DP_RANKS // max(BS // 4 // DP_RANKS, 1)
     check(clis[0]['totals'] == clis[1]['totals'] and rows.shape == (1, 12)
@@ -4832,6 +4781,7 @@ def dp_child(root, dev):
           f'against one process fed the ranks\' batches '
           f'{np.round(one[0, 1:5], 5).tolist()} (rtol '
           f'{DP_CLI_TOL["rtol"]:g}, atol {DP_CLI_TOL["atol"]:g})')
+    out['seconds']['b_one'] = time.perf_counter() - t0
     out['b'] = {'images_per_s': clis[0]['images_per_s'],
                 'k1': [c['k1'] for c in clis], 's': clis[0]['s'],
                 'loss': rows[0, 1:5].tolist(), 'loss_one': one[0, 1:5].tolist()}
@@ -4844,7 +4794,7 @@ def dp_child(root, dev):
     t0 = time.perf_counter()
     env = dict(os.environ, RANK='0', WORLD_SIZE='1', LOCAL_RANK='0',
                LOCAL_WORLD_SIZE='1', MASTER_ADDR='localhost',
-               MASTER_PORT=str(port()))
+               MASTER_PORT=str(free_ports(1)[0]))
     dp_spawn(lambda r: [sys.executable, me, '--phase14-nccl', root], 1,
              env=env)
     with open(os.path.join(root, 'nccl.json')) as f:
@@ -4873,30 +4823,6 @@ def dp_child(root, dev):
         json.dump(out, f)
 
 
-def phase_parallel(train):
-    """Phase 14 in a child process, which starts the ranks; returns its
-    numbers. ``train``: phase 10's, whose one-process loop is printed
-    beside the two ranks'."""
-    print(f'[14/15] data parallelism: {DP_RANKS} ranks on the card (gloo), '
-          f'the train CLI across them, evaluate over them, NCCL (a child '
-          f'process)')
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as root:
-        sys.stdout.flush()
-        r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            '--phase14', root], timeout=900)
-        if r.returncode != 0:
-            raise SmokeFailure(f'phase 14 (child) exited {r.returncode}')
-        with open(os.path.join(root, 'phase14.json')) as f:
-            out = json.load(f)
-    one = train['loop']['loop_images_per_s']
-    print(f'  the training loop: {DP_RANKS} ranks on one card '
-          f'{out["b"]["images_per_s"]:.1f} images/s (phase 14 b) against one '
-          f'process\'s {", ".join(f"{r:.1f}" for r in one)} (phase 10 c, '
-          f'by epoch)')
-    print(f'  phase 14: {time.perf_counter() - t0:.1f} s')
-    return out
-
 
 # ------------------------------------ phase 15: remat, tensor parallelism,
 # spatial partitioning
@@ -4918,7 +4844,7 @@ TP_STEPS, TP_WARMUP = 2, 1
 # (b): then bf16 SGD steps @320, bs 4, on the same state, after which the
 # leaves every rank holds whole (the head convs), their momentum and their
 # EMA must be bit-equal on both ranks
-TP_EQUAL_STEPS, TP_EQUAL_SIZE, TP_EQUAL_BS = 10, 320, 4
+TP_EQUAL_STEPS, TP_EQUAL_SIZE, TP_EQUAL_BS = 5, 320, 4
 # (b): the f32 gradient over the model axis against one process's. Each
 # split conv's input gradient is the sum of the two ranks' halves, another
 # f32 summation order than one conv's, which the BN backward amplifies as
@@ -4935,10 +4861,19 @@ TP_FAULT_MARGIN = 4.0
 # another algorithm for half the filters
 TP_HEADS_TOL = 1e-4
 SP_SIZE = 640                 # (c): H splits over 2 ranks x stride 32
-SP_ITERS = 3                  # (c): timed calls of each path
+SP_ITERS = 2                  # (c): timed calls of each path
 SP_INFER = dict(conf_thres=0.01, iou_thres=0.6, top_k=128, max_det=32)
 SP_TOL = dict(rtol=1e-4, atol=1e-4)   # (c): tests/test_parallel.py's
-TP_IMAGES = 32                # (b) evaluate, (d): the first 4 batches
+# (c): the quantized and TTA paths on the rows: the google sim and the int8
+# engine from phase 6's calibrated state (one file that both ranks load),
+# and float TTA in f32
+SP_PATHS = ('q_sim', 'q_engine', 'tta_f32')
+# (c): the engine's int8 head codes against one process's: each at most
+# this many quanta apart, the differing codes counted and printed. Only
+# the float stem conv (cuDNN in f32, on a block of rows against the whole
+# image) may sum in another order; every int8 conv after it is exact
+SP_Q_LSB = 1
+TP_IMAGES = 16                # (b) evaluate, (d): the first 2 batches
                               # of the files
 
 
@@ -4953,6 +4888,27 @@ def host_ms(fn, n):
         torch.cuda.synchronize()
         ts.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(ts)
+
+
+class HeadsSeen:
+    """Within the block, the sparse NMS of ``runtime.make_infer`` keeps a
+    host copy of the head maps it is given (``self.heads``): the int8
+    engine's gathered heads on the main path, with no second engine
+    pass."""
+
+    def __enter__(self):
+        from yolo_tpu_torch import runtime
+        self.heads, self.nms = [], runtime.non_max_suppression_heads
+
+        def call(heads, *a, **k):
+            self.heads = [h.cpu() for h in heads]
+            return self.nms(heads, *a, **k)
+        runtime.non_max_suppression_heads = call
+        return self
+
+    def __exit__(self, *exc):
+        from yolo_tpu_torch import runtime
+        runtime.non_max_suppression_heads = self.nms
 
 
 def remat_checks(dev, card):
@@ -5049,6 +5005,7 @@ def tp_rank(rank, port, root):
     from yolo_tpu_torch.eval.evaluator import evaluate
     from yolo_tpu_torch.ir import build_ir
     from yolo_tpu_torch.models.network import Darknet, init_params
+    from yolo_tpu_torch.ops.conv_int8 import fused_conv_int8
     from yolo_tpu_torch.ops.nms_suppress import suppress
     from yolo_tpu_torch.parallel import (MODEL_AXIS, allgather_host_values,
                                          gather_state, init_multihost,
@@ -5060,7 +5017,7 @@ def tp_rank(rank, port, root):
     from yolo_tpu_torch.train.trainer import init_train_state
     dev = init_multihost(f'localhost:{port}', TP_RANKS, rank)
     device_setup()
-    suppress.launches = 0
+    suppress.launches = fused_conv_int8.launches = 0
     mesh = make_mesh(dev, model_parallel=TP_RANKS)
     out = {'backend': dist.get_backend(), 'device': str(dev),
            'mesh': [mesh.data_index, mesh.model_index]}
@@ -5186,9 +5143,10 @@ def tp_rank(rank, port, root):
     sp = make_mesh(dev)
     x = preprocess(images(73, 1, SP_SIZE), device=dev)
     xs = shard_spatial(sp, x)
+    bundles = {}
     for tag, dtype in (('f32', torch.float32), ('bf16', torch.bfloat16)):
-        bundle = runtime.load_model(CFG, os.path.join(root, 'init.npz'),
-                                    device=dev, dtype=dtype)
+        bundle = bundles[tag] = runtime.load_model(
+            CFG, os.path.join(root, 'init.npz'), device=dev, dtype=dtype)
         for mode in ('dense', 'sparse'):
             infer = bundle.make_infer(sparse=mode == 'sparse', mesh=sp,
                                       **SP_INFER)
@@ -5209,7 +5167,32 @@ def tp_rank(rank, port, root):
                 'collectives': cnt.n, 'bytes': cnt.bytes,
                 'halo_bytes': cnt.bytes - gathered}
     part('spatial')
+    # (c) the quantized paths and TTA on the rows: each rank loads the one
+    # calibrated file (make_infer broadcasts rank 0's tensors as well)
+    del bundles['bf16'], bundle
+    qb = runtime.load_model(CFG, os.path.join(root, 'q.npz'), device=dev,
+                            quantized=1, steps=100)
+    for tag in SP_PATHS:
+        infer = (bundles['f32'].make_infer(augment=True, mesh=sp, **SP_INFER)
+                 if tag == 'tta_f32' else
+                 qb.make_infer(engine=tag == 'q_engine', mesh=sp,
+                               **SP_INFER))
+        torch.cuda.synchronize()
+        k1, k2 = suppress.launches, fused_conv_int8.launches
+        with DpCounts() as cnt, HeadsSeen() as seen:
+            dets = infer(xs)
+            torch.cuda.synchronize()
+        out[f'sp_{tag}'] = {
+            'dets': dets.cpu().tolist(), 'k1': suppress.launches - k1,
+            'k2': fused_conv_int8.launches - k2, 'collectives': cnt.n,
+            'bytes': cnt.bytes, 'ms': host_ms(lambda: infer(xs), SP_ITERS)}
+        if tag == 'q_engine' and rank == 0:
+            torch.save(seen.heads, os.path.join(root, 'sp_heads.pt'))
+    del qb, bundles
+    torch.cuda.empty_cache()
+    part('spatial_quant_tta')
     out['k1'] = suppress.launches
+    out['k2'] = fused_conv_int8.launches
     out['seconds'] = sec
     dist.destroy_process_group()
     with open(os.path.join(root, f'tp{rank}.json'), 'w') as f:
@@ -5217,31 +5200,24 @@ def tp_rank(rank, port, root):
 
 
 def tp_child(root, dev):
-    """Phase 15 in a process of its own (the JPEG files need OpenCV): (a)
-    here, then the ranks of (b)-(c) and of (d). Writes
-    ``root/phase15.json``."""
-    import socket
+    """Phase 15 in the child process (the JPEG files need OpenCV): (a)
+    here, then the ranks of (b)-(d). Writes ``root/phase15.json``."""
     from yolo_tpu_torch import runtime
     from yolo_tpu_torch.config import DEFAULT_HYP, parse_data_cfg
-    from yolo_tpu_torch.convert import to_jax
     from yolo_tpu_torch.data.datasets import DetectionDataset
     from yolo_tpu_torch.eval.evaluator import evaluate
     from yolo_tpu_torch.ir import build_ir
     from yolo_tpu_torch.models.network import init_params
+    from yolo_tpu_torch.ops.conv_int8 import fused_conv_int8
     from yolo_tpu_torch.ops.nms_suppress import suppress
     from yolo_tpu_torch.runtime import preprocess
     from yolo_tpu_torch.train.loss import LossHyp
     from yolo_tpu_torch.train.trainer import init_train_state
-    from yolo_tpu_torch.utils.checkpoint import save_checkpoint
     card = device_setup()
     t_phase = time.perf_counter()
     out = {'seconds': {}, 'card': card}
-    suppress.launches = 0
+    suppress.launches = fused_conv_int8.launches = 0
 
-    def port():
-        with socket.socket() as s:
-            s.bind(('localhost', 0))
-            return s.getsockname()[1]
     me = os.path.abspath(__file__)
 
     t0 = time.perf_counter()
@@ -5250,20 +5226,11 @@ def tp_child(root, dev):
 
     # the files, the weights and one process's references
     t0 = time.perf_counter()
-    raw = runtime.load_model(CFG, device=dev, conv_scale=CONV_SCALE,
-                             generator=torch.Generator().manual_seed(0))
-    kw = dict(conf_thres=CONF_THRES, iou_thres=0.6, top_k=512, max_det=300)
-    data, _, labels = write_jpeg_set(os.path.join(root, 'set'),
-                                     raw.fuse().make_infer(**kw), dev,
-                                     TRAIN_IMAGES)
+    data, labels, init = yolov3_set(root, dev, TRAIN_IMAGES)
     per_image = max(len(lab) for per in labels for lab in per)
     lst = parse_data_cfg(data)['valid']
     with open(data, 'a') as f:
         f.write(f'train={lst}\n')
-    init = os.path.join(root, 'init.npz')
-    p, s = to_jax(raw.net, raw.params, raw.state)
-    save_checkpoint(init, params=p, state=s)
-    del raw
     # (b)'s evaluate and (d) take the first TP_IMAGES files
     with open(lst) as f:
         files = f.read().split()[:TP_IMAGES]
@@ -5309,26 +5276,45 @@ def tp_child(root, dev):
     del b
     x = preprocess(images(73, 1, SP_SIZE), device=dev)
     sp_one = {}
+    bundles = {}
     for tag, dtype in (('f32', torch.float32), ('bf16', torch.bfloat16)):
-        bundle = runtime.load_model(CFG, init, device=dev, dtype=dtype)
+        bundle = bundles[tag] = runtime.load_model(CFG, init, device=dev,
+                                                   dtype=dtype)
         for mode in ('dense', 'sparse'):
             infer = bundle.make_infer(sparse=mode == 'sparse', **SP_INFER)
             sp_one[f'{tag}_{mode}'] = (infer(x).cpu(),
                                        host_ms(lambda: infer(x), SP_ITERS))
+    del bundles['bf16'], bundle
+    qb = runtime.load_model(CFG, os.path.join(root, 'q.npz'), device=dev,
+                            quantized=1, steps=100)
+    for tag in SP_PATHS:
+        infer = (bundles['f32'].make_infer(augment=True, **SP_INFER)
+                 if tag == 'tta_f32' else
+                 qb.make_infer(engine=tag == 'q_engine', **SP_INFER))
+        with HeadsSeen() as seen:
+            dets = infer(x).cpu()
+        if tag == 'q_engine':
+            heads_one = seen.heads
+        sp_one[tag] = (dets, host_ms(lambda: infer(x), SP_ITERS))
+    n_k2 = sum(l.kind == 'conv' for l in qb.net.layers) - 1
+    del qb, bundles
+    torch.cuda.empty_cache()
     out['seconds']['set_up'] = time.perf_counter() - t0
 
-    # (b) and (c): two ranks on the card
+    # (b) and (c), then (d): two ranks on the card, one process each
     t0 = time.perf_counter()
-    pt = port()
+    pts = free_ports(2)
     dp_spawn(lambda r: [sys.executable, me, '--phase15-rank', str(r),
-                        str(pt), root], TP_RANKS)
-    ranks = []
+                        str(pts[0]), str(pts[1]), root], TP_RANKS)
+    ranks, clis = [], []
     for r in range(TP_RANKS):
         with open(os.path.join(root, f'tp{r}.json')) as f:
             ranks.append(json.load(f))
-    out['seconds']['b_c'] = time.perf_counter() - t0
+        with open(os.path.join(root, f'tpcli{r}.json')) as f:
+            clis.append(json.load(f))
+    out['seconds']['ranks'] = time.perf_counter() - t0
     a = ranks[0]
-    out['seconds']['b_c_rank0'] = a['seconds']
+    out['seconds']['rank0'] = a['seconds']
     check(all(q['backend'] == 'gloo' and q['device'] == 'cuda:0'
               for q in ranks)
           and [q['mesh'] for q in ranks] == [[0, 0], [0, 1]],
@@ -5454,17 +5440,51 @@ def tp_child(root, dev):
                 'ms': q[0]['ms'], 'ms_one': one_ms, 'diff': diff,
                 'collectives': q[0]['collectives'],
                 'bytes': q[0]['bytes'], 'halo_bytes': q[0]['halo_bytes']}
+    h_sp = torch.load(os.path.join(root, 'sp_heads.pt'))
+    n_codes = n_off = 0
+    lsb = 0
+    for hs, ho in zip(h_sp, heads_one):
+        d = (hs.to(torch.int32) - ho.to(torch.int32)).abs()
+        n_codes += d.numel()
+        n_off += int((d > 0).sum())
+        lsb = max(lsb, int(d.max()))
+    check(all(hs.dtype == torch.int8 and hs.shape == ho.shape
+              for hs, ho in zip(h_sp, heads_one)) and lsb <= SP_Q_LSB,
+          f'(c) int8 engine on the rows: its gathered int8 head codes against '
+          f'one process\'s on the whole image: {n_off} of {n_codes} differ, '
+          f'by at most {lsb} quanta (<= {SP_Q_LSB})')
+    for tag in SP_PATHS:
+        q = [r[f'sp_{tag}'] for r in ranks]
+        got = [torch.tensor(v['dets']) for v in q]
+        ref, one_ms = sp_one[tag]
+        diff = float((got[0] - ref).abs().max())
+        n_det = int((ref[..., 4] > 0).sum())
+        k2_want = n_k2 if tag == 'q_engine' else 0
+        # the engine's detections are held to one process's where its
+        # head codes are all equal; else their difference is printed
+        close = (torch.allclose(got[0], ref, **SP_TOL)
+                 or (tag == 'q_engine' and n_off > 0))
+        check(torch.equal(got[0], got[1]) and n_det > 0 and close
+              and all(v['k1'] == 1 and v['k2'] == k2_want for v in q),
+              f'(c) {tag} make_infer on the rows of a {SP_SIZE}² image over '
+              f'{TP_RANKS} ranks: the same {n_det} detections on both, K1 '
+              f'once a call and K2 {k2_want} times on each, |d| {diff:.2e} '
+              f'from one process'
+              + (f' (rtol {SP_TOL["rtol"]:g}, atol {SP_TOL["atol"]:g})'
+                 if tag != 'q_engine' or n_off == 0 else
+                 f' ({n_off} head codes apart)'))
+        print(f'  (c) {tag}: {q[0]["ms"]:.3f} ms an image over {TP_RANKS} '
+              f'ranks against {one_ms:.3f} ms in one process (host clock, '
+              f'median of {SP_ITERS}); {q[0]["collectives"]} collectives, '
+              f'{q[0]["bytes"] / 2**20:.2f} MiB through them a call, make_infer\'s '
+              f'broadcast excluded ({card})')
+        out['c'][tag] = {'ms': q[0]['ms'], 'ms_one': one_ms, 'diff': diff,
+                         'collectives': q[0]['collectives'],
+                         'bytes': q[0]['bytes'], 'k2': q[0]['k2']}
+    out['c']['q_engine'].update(head_codes=n_codes, head_codes_off=n_off,
+                                head_lsb=lsb)
 
     # (d) the train CLI with --tp 2 over the two ranks
-    t0 = time.perf_counter()
-    pt = port()
-    dp_spawn(lambda r: [sys.executable, me, '--phase15-cli', str(r),
-                        str(pt), root], TP_RANKS)
-    clis = []
-    for r in range(TP_RANKS):
-        with open(os.path.join(root, f'tpcli{r}.json')) as f:
-            clis.append(json.load(f))
-    out['seconds']['d'] = time.perf_counter() - t0
     rows = np.loadtxt(os.path.join(root, 'tpcli0', 'results.txt'),
                       ndmin=2)
     n_eval = TP_IMAGES // max(BS // 4, 1)
@@ -5488,37 +5508,103 @@ def tp_child(root, dev):
           f'evaluate ({card})')
     out['nms_suppress'] = (suppress.launches + sum(q['k1'] for q in ranks)
                            + sum(c['k1'] for c in clis))
+    out['conv_int8'] = fused_conv_int8.launches + sum(q['k2'] for q in ranks)
     out['seconds']['all'] = time.perf_counter() - t_phase
     print(f'  phase 15 (child): {out["seconds"]["all"]:.1f} s '
-          f'({", ".join(f"{k} {v:.1f}" for k, v in out["seconds"].items() if k not in ("all", "b_c_rank0"))}; '
-          f'rank 0 of b_c: {", ".join(f"{k} {v:.1f}" for k, v in a["seconds"].items())})')
+          f'({", ".join(f"{k} {v:.1f}" for k, v in out["seconds"].items() if k not in ("all", "rank0"))}; '
+          f'rank 0: {", ".join(f"{k} {v:.1f}" for k, v in a["seconds"].items())}, '
+          f'(d) {clis[0]["s"]:.1f})')
     with open(os.path.join(root, 'phase15.json'), 'w') as f:
         json.dump(out, f)
 
 
-def phase_tp(train):
-    """Phase 15 in a child process, which starts the ranks; returns its
-    numbers. ``train``: phase 10's, whose one-process loop is printed
-    beside the TP loop's."""
-    print(f'[15/15] remat, tensor parallelism ({TP_RANKS} ranks on the card, '
-          f'gloo), spatial partitioning, the train CLI with --tp (a child '
-          f'process)')
+# ------------------------------------------ phases 9 to 15: one child process
+
+CHILD_PHASES = (
+    (9, f'[9/15] pruning: yolov3 @{SIZE}, {PRUNE_IMAGES} JPEG files, bs={BS}',
+     prune_child),
+    (10, f'[10/15] (c) float training: run_training on {TRAIN_IMAGES} JPEG '
+     f'files, then a resume', train_child),
+    (11, f'[11/15] quantization: yolov4 @{SIZE} PTQ and its engine, QAT and '
+     f'TPSQ on yolov3 @{SIZE}, the QAT loop', quant_child),
+    (12, f'[12/15] distillation, evolve, the FPGA export and anchors: yolov3 '
+     f'@{SIZE} and its pruned student', kd_child),
+    (13, '[13/15] the data path: the native letterbox, the device '
+     'augmentation, train --device-aug, detect on streams', data_child),
+    (14, f'[14/15] data parallelism: {DP_RANKS} ranks on the card (gloo), the '
+     f'train CLI across them, evaluate over them, NCCL', dp_child),
+    (15, f'[15/15] remat, tensor parallelism ({TP_RANKS} ranks on the card, '
+     f'gloo), spatial partitioning, the train CLI with --tp', tp_child))
+CHILDREN_TIMEOUT = 1100
+
+
+def children(root, dev):
+    """Phases 9, 10 (c) and 11 to 15 in one process of their own
+    (``chip_smoke.py --children DIR``; their JPEG files and loaders import
+    OpenCV, which the main process must not). Each runs in ``root/p{n}``
+    as in a fresh process: both kernels' counts at 0, the global
+    generators at their first seed, that directory the working one; each
+    writes its numbers to ``root/p{n}/phase{n}.json``. Between phases
+    ``evaluate``'s cache of models is emptied (a fresh process has none,
+    and the next phase's peak memory must not count them) and the device
+    memory still allocated is printed."""
+    import gc
+    from yolo_tpu_torch.eval import evaluator
+    from yolo_tpu_torch.ops.conv_int8 import fused_conv_int8
+    from yolo_tpu_torch.ops.nms_suppress import suppress
+    seed = torch.initial_seed()
+    for n, title, fn in CHILD_PHASES:
+        print(title)
+        t0 = time.perf_counter()
+        work = os.path.join(root, f'p{n}')
+        os.chdir(work)
+        suppress.launches = fused_conv_int8.launches = 0
+        torch.manual_seed(seed)
+        fn(work, dev)
+        evaluator._CACHE.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f'  phase {n}: {time.perf_counter() - t0:.1f} s '
+              f'({torch.cuda.memory_allocated() / 2**20:.1f} MiB of the '
+              f'device still allocated)')
+        sys.stdout.flush()
+
+
+def phase_children(train, qb):
+    """Phases 9, 10 (c) and 11 to 15 in one child process; returns their
+    numbers by phase. ``train``: phase 10's in this process, which gains
+    ``loop``; ``qb``: phase 6's calibrated bundle, saved to the one file
+    that phase 15 (c)'s ranks and one-process references load."""
+    from yolo_tpu_torch.convert import qstate_to_jax, to_jax
+    from yolo_tpu_torch.utils.checkpoint import save_checkpoint
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as root:
+        for n, _, _ in CHILD_PHASES:
+            os.makedirs(os.path.join(root, f'p{n}'))
+        p, s = to_jax(qb.net, qb.params, qb.state)
+        save_checkpoint(os.path.join(root, 'p15', 'q.npz'), params=p,
+                        state=s, qstate=qstate_to_jax(qb.qstate))
+        del p, s
         sys.stdout.flush()
         r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            '--phase15', root], timeout=900)
+                            '--children', root], timeout=CHILDREN_TIMEOUT)
         if r.returncode != 0:
-            raise SmokeFailure(f'phase 15 (child) exited {r.returncode}')
-        with open(os.path.join(root, 'phase15.json')) as f:
-            out = json.load(f)
-    if train is not None:
-        one = train['loop']['loop_images_per_s']
-        print(f'  the training loop: --tp {TP_RANKS} on one card '
-              f'{out["d"]["images_per_s"]:.1f} images/s (phase 15 d) against '
-              f'one process\'s {", ".join(f"{r:.1f}" for r in one)} (phase '
-              f'10 c, by epoch)')
-    print(f'  phase 15: {time.perf_counter() - t0:.1f} s')
+            raise SmokeFailure(f'phases 9 to 15 (the child) exited '
+                               f'{r.returncode}')
+        out = {}
+        for n, _, _ in CHILD_PHASES:
+            with open(os.path.join(root, f'p{n}', f'phase{n}.json')) as f:
+                out[n] = json.load(f)
+    train['loop'] = out[10]
+    one = ', '.join(f'{r:.1f}' for r in out[10]['loop_images_per_s'])
+    print(f'  the training loop, against the host augmentation\'s {one} '
+          f'images/s in one process (phase 10 c, by epoch): --device-aug '
+          f'{out[13]["c"]["images_per_s"]:.1f} (phase 13 c), {DP_RANKS} ranks '
+          f'on one card {out[14]["b"]["images_per_s"]:.1f} (phase 14 b), '
+          f'--tp {TP_RANKS} on one card {out[15]["d"]["images_per_s"]:.1f} '
+          f'(phase 15 d)')
+    print(f'  phases 9 to 15 (the child process): '
+          f'{time.perf_counter() - t0:.1f} s')
     return out
 
 
@@ -5554,19 +5640,27 @@ def main():
         raise SmokeFailure('yolo_tpu_torch/ not found beside chip_smoke.py')
     t0 = time.perf_counter()
     build_s = phase_build()
+    lap = [time.perf_counter()]
+
+    def laps(n):                # the seconds of phase n, to here
+        t = time.perf_counter()
+        print(f'  phase {n}: {t - lap[0]:.1f} s')
+        lap[0] = t
     k1 = phase_kernel(dev)
+    laps(3)
     k1_float, k1_main = phase_pipeline(dev, card)
+    laps(4)
     k2_err = phase_conv_kernel(dev)
+    laps(5)
     launches, k2_tot, qb = phase_int8(dev, card)
+    laps(6)
     eval_launches = phase_eval(dev, card, qb)
+    laps(7)
     new_launches, routes = phase_new_cfgs(dev, card)
-    prune = phase_prune()
     train = phase_train(dev, card, qb)
-    quant = phase_quant()
-    kd = phase_kd()
-    data = phase_data(train)
-    par = phase_parallel(train)
-    tp = phase_tp(train)
+    kids = phase_children(train, qb)
+    prune, quant, kd, data, par, tp = (kids[n] for n in (9, 11, 12, 13, 14,
+                                                          15))
     check_imports()
     print(f'build {build_s:.2f} s; whole run {time.perf_counter() - t0:.1f} s')
     print(card)
@@ -5598,9 +5692,10 @@ def main():
          'replaces': 'yolo_tpu/ops/pallas_conv.py:132',
          'launches': (launches['conv_int8'] + eval_launches['conv_int8']
                       + new_launches['conv_int8'] + quant['conv_int8']
-                      + kd['conv_int8']),
+                      + kd['conv_int8'] + tp['conv_int8']),
          'launches_phase11': quant['conv_int8'],
          'launches_phase12': kd['conv_int8'],
+         'launches_phase15': tp['conv_int8'],
          'max_abs_err': k2_err,
          'ms': k2_tot['ms'], 'device_ms': k2_tot['dev'],
          'plain_ms': k2_tot['plain'], 'bound_ms': k2_tot['bound'],
@@ -5623,8 +5718,8 @@ def main():
 
 
 def main_child(child, root):
-    """The child process of phase 9, 10, 11, 12, 13, 14 or 15
-    (``chip_smoke.py --phase9 DIR`` and so on)."""
+    """The child process of phases 9 to 15 (``chip_smoke.py --children
+    DIR``)."""
     dev = torch.device('cuda', 0)
     torch.cuda.set_device(dev)
     sys.path.insert(0, ROOT)
@@ -5633,34 +5728,22 @@ def main_child(child, root):
 
 if __name__ == '__main__':
     try:
-        if sys.argv[1:2] == ['--phase9']:
-            main_child(prune_child, sys.argv[2])
-        elif sys.argv[1:2] == ['--phase10']:
-            main_child(train_child, sys.argv[2])
-        elif sys.argv[1:2] == ['--phase11']:
-            main_child(quant_child, sys.argv[2])
-        elif sys.argv[1:2] == ['--phase12']:
-            main_child(kd_child, sys.argv[2])
-        elif sys.argv[1:2] == ['--phase13']:
-            main_child(data_child, sys.argv[2])
-        elif sys.argv[1:2] == ['--phase14']:
-            main_child(dp_child, sys.argv[2])
-        elif sys.argv[1:2] in (['--phase14-rank'], ['--phase14-cli']):
-            # a rank of phase 14's job picks its card in init_multihost
+        if sys.argv[1:2] == ['--children']:
+            main_child(children, sys.argv[2])
+        elif sys.argv[1:2] == ['--phase14-rank']:
+            # a rank of phase 14's jobs (a), (c), then (b) on another port;
+            # it picks its card in init_multihost
             sys.path.insert(0, ROOT)
-            (dp_rank if sys.argv[1] == '--phase14-rank' else dp_cli_rank)(
-                int(sys.argv[2]), sys.argv[3], sys.argv[4])
+            dp_rank(int(sys.argv[2]), sys.argv[3], sys.argv[5])
+            dp_cli_rank(int(sys.argv[2]), sys.argv[4], sys.argv[5])
         elif sys.argv[1:2] == ['--phase14-nccl']:
             sys.path.insert(0, ROOT)
             dp_nccl(sys.argv[2])
-        elif sys.argv[1:2] == ['--phase15']:
-            main_child(tp_child, sys.argv[2])
         elif sys.argv[1:2] == ['--phase15-rank']:
+            # a rank of phase 15's jobs (b), (c), then (d) on another port
             sys.path.insert(0, ROOT)
-            tp_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
-        elif sys.argv[1:2] == ['--phase15-cli']:
-            sys.path.insert(0, ROOT)
-            dp_cli_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4],
+            tp_rank(int(sys.argv[2]), sys.argv[3], sys.argv[5])
+            dp_cli_rank(int(sys.argv[2]), sys.argv[4], sys.argv[5],
                         name='tpcli', extra=['--tp', str(TP_RANKS)])
         else:
             main()

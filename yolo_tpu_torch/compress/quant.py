@@ -52,7 +52,8 @@ from ..ops import activations as act_mod
 from ..ops import conv as conv_ops
 from ..ops.conv import LONE_BN_EPS, LONE_BN_MOM
 from ..ops.conv_int8 import round_half_away
-from ..parallel.collectives import all_reduce_nograd, batch_moments
+from ..parallel.collectives import (all_gather_dim, all_reduce_nograd,
+                                    batch_moments)
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.01     # quantized-conv BN momentum
@@ -501,16 +502,19 @@ def _bn_fold(p, st, qs, out_f, train: bool, cfg: QuantConfig, group=None):
     return inv, bias, new_st, new_qs
 
 
-def _conv(x, w, lyr, compute_dtype):
+def _conv(x, w, lyr, compute_dtype, rows=None):
     """The conv's MACs in ``compute_dtype`` (None: as given); the result in
-    x's dtype."""
+    x's dtype. ``rows``: x holds this rank's rows of the image, split over
+    that group (``ops/conv.conv_rows_nhwc`` adds the halo)."""
+    stride = lyr.stride_xy or lyr.stride
+    x, pad = conv_ops.conv_rows_nhwc(x, lyr.size, stride, lyr.pad, rows)
     if compute_dtype is not None:
         y = conv_ops.conv2d_nhwc(x.to(compute_dtype), w.to(compute_dtype),
-                                 stride=lyr.stride_xy or lyr.stride,
-                                 padding=lyr.pad, groups=lyr.groups)
+                                 stride=stride, padding=pad,
+                                 groups=lyr.groups)
         return y.to(x.dtype)
-    return conv_ops.conv2d_nhwc(x, w, stride=lyr.stride_xy or lyr.stride,
-                                padding=lyr.pad, groups=lyr.groups)
+    return conv_ops.conv2d_nhwc(x, w, stride=stride, padding=pad,
+                                groups=lyr.groups)
 
 
 def _fold_quant_weights(cfg, lyr, p, st, qs, *, train, warmup=False,
@@ -608,7 +612,8 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig, compute_dtype=None,
                      eval_snap_dtype=None, capture_trace: bool = False):
     """Build the fake-quant apply of ``cfg.scheme`` on NHWC inputs:
 
-    apply(params, state, qstate, x, train=False, group=None) ->
+    apply(params, state, qstate, x, train=False, group=None,
+          spatial=None) ->
       train: ((yolo_p, feats), new_state, new_qstate)
       eval:  (io, yolo_p, feats), or (head_out, [None] * n) with
              ``heads_only``
@@ -617,6 +622,14 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig, compute_dtype=None,
     to the return, in both modes (the per-layer dump of
     ``compress/fpga_export.py``); not with ``heads_only``. ``group``: the
     data group of a data-parallel train step (module docstring).
+    ``spatial`` (eval only; spatial partitioning): the group over whose
+    ranks the image's rows are split, ``x`` holding this rank's
+    (``parallel.shard_spatial``): each conv takes its halo rows, the pools,
+    SE and avgpool follow ``ops/conv``'s row rules, and the head maps are
+    gathered whole before the decode, so every rank returns one process's
+    outputs (its feats and trace hold its rows). ``train=True`` with
+    ``spatial`` raises ValueError: training on split rows is not
+    supported.
 
     conv and depthwise conv -> BN-fold quantized conv with a quantized
     activation; shortcut -> requantized add (min or max way) and multi-route
@@ -653,7 +666,7 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig, compute_dtype=None,
 
     snap = lambda train: None if train else eval_snap_dtype
 
-    def qconv(lyr, p, st, qs, x, train, group):
+    def qconv(lyr, p, st, qs, x, train, group, rows):
         if not train and 'qw' in p:
             qw, qb = p['qw'], p['qb']
         else:
@@ -661,7 +674,7 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig, compute_dtype=None,
                 cfg, lyr, p, st, qs, train=train, warmup=warmup,
                 bn_frozen=bn_frozen, compute_dtype=compute_dtype, x=x,
                 group=group)
-        out = _conv(x, qw, lyr, compute_dtype)
+        out = _conv(x, qw, lyr, compute_dtype, rows)
         # qb sits on an 8-bit grid: exact in the compute dtype
         out = out + qb.to(out.dtype)
         # the DoReFa modules' leaky slope is 0.125
@@ -786,7 +799,13 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig, compute_dtype=None,
     yolos = [l for l in layers if l.kind == 'yolo']
     anchor_cache: dict = {}
 
-    def apply(params, state, qstate, x, train: bool = False, group=None):
+    def apply(params, state, qstate, x, train: bool = False, group=None,
+              spatial=None):
+        if train and spatial is not None:
+            raise ValueError('the sim takes split rows (spatial) in eval '
+                             'mode only: training on split rows is not '
+                             'supported')
+        rows = conv_ops.RowSplit(spatial)
         outs: dict[int, Any] = {}
         trace: dict[str, Any] = {}
         yolo_p, head_out, feats = [], [], []
@@ -796,10 +815,11 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig, compute_dtype=None,
         for lyr in layers:
             k = str(lyr.index)
             kind = lyr.kind
+            sp = rows.split
             if kind in ('conv', 'depthwise'):
                 st = state.get(k, {})
                 prev, st2, new_q[k] = qconv(lyr, params[k], st, new_q[k],
-                                            prev, train, group)
+                                            prev, train, group, sp)
                 if st:
                     new_state[k] = st2
             elif kind == 'batchnorm':
@@ -816,12 +836,13 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig, compute_dtype=None,
                                                   LONE_BN_EPS)
                 prev = y.permute(0, 2, 3, 1)
             elif kind == 'maxpool':
-                prev = conv_ops.max_pool_nhwc(prev, lyr.size, lyr.stride)
+                prev = conv_ops.max_pool_nhwc(prev, lyr.size, lyr.stride,
+                                              group=sp)
             elif kind == 'se':
                 prev = conv_ops.se_block_nhwc(prev, params[k]['fc1'],
-                                              params[k]['fc2'])
+                                              params[k]['fc2'], group=sp)
             elif kind == 'avgpool':
-                prev = conv_ops.global_avg_pool_nhwc(prev)
+                prev = conv_ops.global_avg_pool_nhwc(prev, group=sp)
             elif kind == 'scale_channels':
                 prev = outs[lyr.layers[0]] * prev
             elif kind == 'upsample':
@@ -844,15 +865,17 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig, compute_dtype=None,
                 else:
                     prev = fshortcut(lyr, params, prev, outs)
             elif kind == 'yolo':
+                h = prev if sp is None else all_gather_dim(prev, 1, sp)
                 if head_layout == 'nhwc':
-                    bs_, ny_, nx_, _ = prev.shape
-                    yolo_p.append(prev.reshape(bs_, ny_, nx_, lyr.na, lyr.no))
+                    bs_, ny_, nx_, _ = h.shape
+                    yolo_p.append(h.reshape(bs_, ny_, nx_, lyr.na, lyr.no))
                 else:
-                    yolo_p.append(reshape_pred(prev, lyr.na, lyr.no))
-                head_out.append(prev)
+                    yolo_p.append(reshape_pred(h, lyr.na, lyr.no))
+                head_out.append(h)
             elif kind == 'reorg3d':
                 prev = conv_ops.space_to_depth_nhwc(prev, lyr.stride)
             # dropout: identity
+            rows.after(lyr)
             if lyr.is_routed:
                 outs[lyr.index] = prev
             if lyr.feature_out:

@@ -54,7 +54,8 @@ from ..ir import NetworkIR
 from ..ops import conv as conv_ops
 from ..ops.conv import LONE_BN_EPS
 from ..ops.conv_int8 import (float_edge_conv, fused_conv_int8,
-                              grouped_conv_int8, supported)
+                              grouped_conv_int8, k2_rows, supported)
+from ..parallel.collectives import all_gather_dim
 from .yolo_head import anchors_on, decode_yolo_nhwc, reshape_pred
 
 BN_EPS = 1e-5
@@ -190,7 +191,7 @@ def _as_float(t):
 
 
 def make_int8_apply(net: NetworkIR, plan: Int8Plan, heads_only: bool = False,
-                    conv=fused_conv_int8):
+                    conv=fused_conv_int8, spatial=None):
     """Build apply(arrays, x) -> (io, yolo_p) on an NHWC f32 batch x.
     Inference only.
 
@@ -203,7 +204,17 @@ def make_int8_apply(net: NetworkIR, plan: Int8Plan, heads_only: bool = False,
 
     ``conv``: the int8 conv of the convs K2 takes, K2 (``fused_conv_int8``)
     by default; pass its plain version (``fused_conv_int8_reference``) to
-    hold one against the other on the card."""
+    hold one against the other on the card.
+
+    ``spatial`` (spatial partitioning): the process group over whose ranks
+    the image's rows are split; ``x`` holds this rank's rows
+    (``parallel.shard_spatial``). Each conv takes its halo rows from the
+    neighbours (int8 rows on an int8 edge; K2 on its stride-aligned block,
+    ``ops/conv_int8.k2_rows``), the pools follow ``ops/conv``'s row rules,
+    SE and avgpool sum over the group, and the head maps (int8) are
+    gathered whole before the obj maps and the decode, whose grid offsets
+    are the whole image's rows: every rank returns one process's
+    outputs."""
     check_supported(net, plan.scheme)
     check_engine_scheme(plan.scheme)
     layers = net.layers
@@ -229,23 +240,29 @@ def make_int8_apply(net: NetworkIR, plan: Int8Plan, heads_only: bool = False,
         y = round_half_away(_as_float(t) * mult(scale))
         return ('q', torch.clamp(y, rq_min, qmax).to(torch.int8), scale)
 
-    def conv_i8(lyr, arr, t):
+    def conv_i8(lyr, arr, t, sp):
         stride = lyr.stride_xy or lyr.stride
         m = meta[str(lyr.index)]
         epi = dict(act=lyr.activation, maxabs=plan.maxabsscaler, qmin=rq_min,
                    qmax=qmax, out_mult=mult(m['sa']) if tpsq else None)
         if t[0] == 'f':
-            q = float_edge_conv(t[1], arr['w8'], arr['bias'], m['sw'],
-                                m['sa'], stride=stride, pad=lyr.pad,
+            x, pad = conv_ops.conv_rows_nhwc(t[1], lyr.size, stride, lyr.pad,
+                                             sp)
+            q = float_edge_conv(x, arr['w8'], arr['bias'], m['sw'],
+                                m['sa'], stride=stride, pad=pad,
                                 groups=lyr.groups, **epi)
         elif (isinstance(stride, int)
               and supported(lyr.size, stride, lyr.pad, lyr.groups)):
-            q = conv(t[1], arr['w8'], arr['bias'], t[2] * m['sw'], m['sa'],
-                     stride=stride, out_q=True, **epi)
+            args = (t[1], arr['w8'], arr['bias'], t[2] * m['sw'], m['sa'])
+            q = (conv(*args, stride=stride, out_q=True, **epi) if sp is None
+                 else k2_rows(*args, stride=stride, group=sp, conv=conv,
+                              out_q=True, **epi))
         else:
-            q = grouped_conv_int8(t[1], arr['w8'], arr['bias'],
+            x, pad = conv_ops.conv_rows_nhwc(t[1], lyr.size, stride, lyr.pad,
+                                             sp)
+            q = grouped_conv_int8(x, arr['w8'], arr['bias'],
                                   t[2] * m['sw'], m['sa'], stride=stride,
-                                  pad=lyr.pad, groups=lyr.groups, **epi)
+                                  pad=pad, groups=lyr.groups, **epi)
         return ('q', q, m['sa'])
 
     def shortcut_f(lyr, arr, t, outs):
@@ -322,16 +339,20 @@ def make_int8_apply(net: NetworkIR, plan: Int8Plan, heads_only: bool = False,
         outs: dict[int, Any] = {}
         yolo_p, head_out, obj_out = [], [], []
         prev = ('f', x)
+        rows = conv_ops.RowSplit(spatial)
         for lyr in layers:
             k = str(lyr.index)
             kind = lyr.kind
+            sp = rows.split
             if kind in ('conv', 'depthwise'):
-                prev = conv_i8(lyr, arrays[k], prev)
+                prev = conv_i8(lyr, arrays[k], prev, sp)
             elif kind == 'se':
                 prev = ('f', conv_ops.se_block_nhwc(
-                    _as_float(prev), arrays[k]['fc1'], arrays[k]['fc2']))
+                    _as_float(prev), arrays[k]['fc1'], arrays[k]['fc2'],
+                    group=sp))
             elif kind == 'avgpool':
-                prev = ('f', conv_ops.global_avg_pool_nhwc(_as_float(prev)))
+                prev = ('f', conv_ops.global_avg_pool_nhwc(_as_float(prev),
+                                                           group=sp))
             elif kind == 'batchnorm':   # a float edge (eps 1e-4)
                 a = arrays[k]
                 prev = ('f', conv_ops.batch_norm_infer(
@@ -341,8 +362,8 @@ def make_int8_apply(net: NetworkIR, plan: Int8Plan, heads_only: bool = False,
             elif kind == 'scale_channels':
                 prev = ('f', _as_float(outs[lyr.layers[0]]) * _as_float(prev))
             elif kind == 'maxpool':
-                prev = (prev[0], conv_ops.max_pool_nhwc(prev[1], lyr.size,
-                                                        lyr.stride), *prev[2:])
+                prev = (prev[0], conv_ops.max_pool_nhwc(
+                    prev[1], lyr.size, lyr.stride, group=sp), *prev[2:])
             elif kind == 'upsample':
                 prev = (prev[0], conv_ops.upsample_nearest_nhwc(
                     prev[1], lyr.stride), *prev[2:])
@@ -366,17 +387,20 @@ def make_int8_apply(net: NetworkIR, plan: Int8Plan, heads_only: bool = False,
                 prev = (prev[0], conv_ops.space_to_depth_nhwc(
                     prev[1], lyr.stride), *prev[2:])
             elif kind == 'yolo':
+                h = prev if sp is None else (
+                    prev[0], all_gather_dim(prev[1], 1, sp), *prev[2:])
                 if heads_only:
                     # the head stays int8; the obj map is its dequantized
                     # obj channel (head convs are linear: that is the logit)
-                    head_out.append(prev[1])
-                    obj_out.append(prev[1][..., 4::lyr.no].to(torch.float32)
-                                   * prev[2])
+                    head_out.append(h[1])
+                    obj_out.append(h[1][..., 4::lyr.no].to(torch.float32)
+                                   * h[2])
                 else:
-                    hf = _as_float(prev)
+                    hf = _as_float(h)
                     yolo_p.append(reshape_pred(hf, lyr.na, lyr.no))
                     head_out.append(hf)
             # dropout: identity
+            rows.after(lyr)
             if lyr.is_routed:
                 outs[lyr.index] = prev
 

@@ -22,6 +22,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -67,16 +68,15 @@ class _Pass:
     """What one forward pass gathers: the BN layers' new statistics, the
     head maps, the slim objectness maps (and the head convs that make them),
     the KD feature maps. ``spatial``: the group over whose ranks the
-    image's rows are split; ``whole`` says that the current tensor is
-    the same on every rank (after a global pool), ``rep`` which routed
-    outputs are."""
+    image's rows are split; ``rows`` tracks which tensors hold rows and
+    which are whole (``ops.conv.RowSplit``)."""
 
     def __init__(self, train, group, head_convs, spatial):
         self.train, self.group = train, group
         self.head_convs, self.spatial = head_convs, spatial
         self.pending, self.heads, self.objs, self.feats = {}, [], [], []
         self.new_state = {}
-        self.whole, self.rep = False, set()
+        self.rows = conv_ops.RowSplit(spatial)
 
     def fork(self):
         """A pass with the same settings and empty collections."""
@@ -351,17 +351,13 @@ class Darknet(nn.Module):
         halo rows from its neighbours, the global pools sum over the group,
         and the head maps are gathered whole."""
         kind = lyr.kind
-        sp = None if pas.whole else pas.spatial
+        sp = pas.rows.split
         if kind in CONV_KINDS:
             t = self.layer[str(lyr.index)]
             stride = lyr.stride_xy or lyr.stride
             w = self._c(t.w)
             split = self.model_group is not None and w.shape[0] != lyr.filters
-            pad = lyr.pad
-            if sp is not None:
-                sy = stride[0] if isinstance(stride, tuple) else stride
-                prev = conv_ops.rows_with_halo(prev, lyr.size, sy, pad, sp)
-                pad = (0, pad)
+            prev, pad = conv_ops.conv_rows(prev, lyr.size, stride, lyr.pad, sp)
             if split:
                 prev = copy_to_model(prev, self.model_group)
             elif lyr.index in pas.head_convs:
@@ -398,10 +394,8 @@ class Darknet(nn.Module):
             prev = conv_ops.se_block(prev, t.fc1, t.fc2, group=sp)
         elif kind == 'avgpool':
             prev = conv_ops.global_avg_pool(prev, group=sp)
-            pas.whole = pas.spatial is not None
         elif kind == 'scale_channels':
             prev = outs[lyr.layers[0]] * prev
-            pas.whole = pas.whole and lyr.layers[0] in pas.rep
         elif kind == 'reorg3d':
             prev = conv_ops.space_to_depth(prev, lyr.stride)
         elif kind == 'upsample':
@@ -409,15 +403,12 @@ class Darknet(nn.Module):
         elif kind == 'route':
             if len(lyr.layers) > 1:
                 prev = torch.cat([outs[j] for j in lyr.layers], 1)
-                pas.whole = all(j in pas.rep for j in lyr.layers)
             elif lyr.route_groups:
                 prev = prev[:, prev.shape[1] // 2:]
             else:
                 prev = outs[lyr.layers[0]]
-                pas.whole = lyr.layers[0] in pas.rep
         elif kind == 'shortcut':
             prev = self._shortcut(lyr, prev, outs)
-            pas.whole = pas.whole and all(j in pas.rep for j in lyr.layers)
         elif kind == 'yolo':
             h = (self._asff_fuse(lyr, outs, sp) if lyr.index in self._asff
                  else prev.permute(0, 2, 3, 1))
@@ -430,10 +421,9 @@ class Darknet(nn.Module):
             pas.objs.append(o)
         # dropout: the identity, in train mode too (as in the JAX
         # package, which never drops)
+        pas.rows.after(lyr)
         if lyr.is_routed:
             outs[lyr.index] = prev
-            if pas.whole and pas.spatial is not None:
-                pas.rep.add(lyr.index)
         if pas.train and lyr.feature_out:
             pas.feats.append(prev.permute(0, 2, 3, 1))
         return prev
@@ -520,20 +510,46 @@ class Darknet(nn.Module):
         return self._run(x, want_obj=False, train=True,
                          head_layout=head_layout, group=group, remat=remat)
 
-    def forward_augment(self, x):
+    def forward_augment(self, x, spatial=None):
         """Test-time augmentation (the JAX package's
         ``make_augmented_apply``): the decoded io of the input, of its
         left-right flip scaled by 0.83 (boxes divided by 0.83, x centres
         flipped back against the input width) and of the input scaled by
-        0.67 (boxes divided by 0.67), concatenated along the rows."""
+        0.67 (boxes divided by 0.67), concatenated along the rows.
+
+        ``spatial``: ``x`` holds this rank's rows of the image, split over
+        the group's ranks in order (``parallel.shard_spatial``). The rows
+        are gathered whole once; each pass flips and scales the whole
+        image, runs on this rank's rows of it and gathers its own head
+        maps, so every rank returns the whole image's io. Each pass's H
+        must split over the ranks times the deepest stride (``scale_img``
+        pads to a multiple of 64, which splits over 2 ranks at stride 32);
+        ValueError otherwise."""
+        if spatial is not None:
+            x = all_gather_dim(x, 1, spatial)
         img_w = x.shape[2]
-        io0 = self(x)
-        io1 = self(scale_img(torch.flip(x, (2,)), 0.83))
+        io0 = self._tta_pass(x, spatial)
+        io1 = self._tta_pass(scale_img(torch.flip(x, (2,)), 0.83), spatial)
         io1 = torch.cat([img_w - io1[..., :1] / 0.83, io1[..., 1:4] / 0.83,
                          io1[..., 4:]], -1)
-        io2 = self(scale_img(x, 0.67))
+        io2 = self._tta_pass(scale_img(x, 0.67), spatial)
         io2 = torch.cat([io2[..., :4] / 0.67, io2[..., 4:]], -1)
         return torch.cat([io0, io1, io2], 1)
+
+    def _tta_pass(self, x, spatial):
+        """The decoded io of the whole NHWC image ``x``; under ``spatial``,
+        run on this rank's rows of it."""
+        if spatial is None:
+            return self(x)
+        n, r = dist.get_world_size(spatial), dist.get_rank(spatial)
+        deepest = max(l.yolo_stride for l in self._yolos)
+        if x.shape[1] % (n * deepest):
+            raise ValueError(f'a test-time augmentation pass of '
+                             f'{x.shape[1]} rows does not split over {n} '
+                             f'ranks x the deepest stride {deepest}')
+        h = x.shape[1] // n
+        return self.decode(self.heads(x[:, r * h:(r + 1) * h].contiguous(),
+                                      spatial=spatial))
 
 
 def scale_img(x, ratio: float, same_shape: bool = False, gs: int = 64):

@@ -83,7 +83,13 @@ def batch_norm_train(x, gamma, beta, running_mean, running_var,
 
 def max_pool(x, size: int, stride: int):
     """Darknet maxpool: -inf padding of (size - 1) // 2, except the tiny
-    k=2/s=1 case, which pads one zero row and column at the bottom/right."""
+    k=2/s=1 case, which pads one zero row and column at the bottom/right.
+    An int8 tensor is pooled in f32 and cast back: its values are exact
+    there, so it works on every device, and the -inf padding, which has
+    no int8 code, never wins a window (as the int8 minimum pad of the JAX
+    package never does)."""
+    if x.dtype == torch.int8:
+        return max_pool(x.to(torch.float32), size, stride).to(torch.int8)
     if size == 2 and stride == 1:
         return F.max_pool2d(F.pad(x, (0, 1, 0, 1)), 2, 1)
     return F.max_pool2d(x, size, stride, padding=(size - 1) // 2)
@@ -139,32 +145,109 @@ def global_avg_pool(x, group=None):
     return _mean_hw(x, group)[:, :, None, None].to(x.dtype)
 
 
-# spatial partitioning: an NCHW tensor holds one rank's rows of the image,
-# the ranks of ``group`` in order (parallel.shard_spatial)
+# spatial partitioning: a tensor holds one rank's rows of the image, the
+# ranks of ``group`` in order (parallel.shard_spatial). The row rules below
+# serve the float forward (NCHW, models/network.py), the fake-quant sim and
+# the int8 engine (NHWC, compress/quant.py, models/int8_engine.py) alike
 
-def rows_with_halo(x, size: int, stride: int, pad: int, group,
-                   fill: float = 0.0):
-    """This rank's rows with the halo rows that a window of ``size`` rows at
-    ``stride`` with ``pad`` rows of padding reads from its neighbours:
-    ``pad`` rows over and ``max(size - stride - pad, 0)`` under (a 3x3
-    conv: one each side; 3x3 stride 2: one over; SPP's 5/9/13 maxpools:
-    2/4/6 each side). The image's own top and bottom take ``fill`` (the
-    padding). Run the window with no padding over H after this."""
-    above, below = pad, max(size - stride - pad, 0)
+class RowSplit:
+    """Which tensors of one forward pass hold this rank's rows of the
+    image, split over ``group``, and which are whole on every rank. A
+    global pool's output is whole, and so is every layer after it that
+    reads only whole tensors (the 1x1 convs of an SE-like branch), until a
+    layer reads rows again (``scale_channels``, a shortcut or a route onto
+    a split tensor). ``group`` None: one process, nothing is split."""
+
+    def __init__(self, group):
+        self.group = group
+        self.whole = False
+        self.rep = set()        # the routed outputs that are whole
+
+    @property
+    def split(self):
+        """The group over whose ranks the current tensor's rows are split,
+        or None where it is whole."""
+        return None if self.whole else self.group
+
+    def after(self, lyr):
+        """Note that ``lyr`` has run; call once after each layer."""
+        if self.group is None:
+            return
+        kind = lyr.kind
+        if kind == 'avgpool':
+            self.whole = True
+        elif kind == 'scale_channels':
+            self.whole = self.whole and lyr.layers[0] in self.rep
+        elif kind == 'shortcut':
+            self.whole = self.whole and all(j in self.rep for j in lyr.layers)
+        elif kind == 'route' and (len(lyr.layers) > 1
+                                  or not lyr.route_groups):
+            self.whole = all(j in self.rep for j in lyr.layers)
+        if lyr.is_routed and self.whole:
+            self.rep.add(lyr.index)
+
+
+def halo_extent(size: int, stride: int, pad: int):
+    """The rows a window of ``size`` rows at ``stride`` with ``pad`` rows of
+    padding reads from its neighbours: ``pad`` over and ``max(size - stride
+    - pad, 0)`` under (a 3x3 conv: one each side; 3x3 stride 2: one over;
+    SPP's 5/9/13 maxpools: 2/4/6 each side)."""
+    return pad, max(size - stride - pad, 0)
+
+
+def rows_with_halo_nhwc(x, above: int, below: int, group, fill=0.0):
+    """This rank's rows of an NHWC tensor with ``above`` rows over and
+    ``below`` rows under from its neighbours, the image's own top and
+    bottom taking ``fill`` (any dtype: an int8 edge takes an int8 code)."""
     if not (above or below):
         return x
     over, under = halo_rows(x, above, below, group, fill)
-    return torch.cat([over.to(x.dtype), x, under.to(x.dtype)], 2)
+    return torch.cat([over, x, under], 1)
+
+
+def rows_with_halo(x, size: int, stride: int, pad: int, group,
+                   fill: float = 0.0):
+    """This rank's rows of an NCHW tensor with the halo rows that a window
+    of ``size`` rows at ``stride`` with ``pad`` rows of padding reads
+    (``halo_extent``); the image's own top and bottom take ``fill`` (the
+    padding). Run the window with no padding over H after this."""
+    return rows_with_halo_nhwc(x.permute(0, 2, 3, 1),
+                               *halo_extent(size, stride, pad), group,
+                               fill).permute(0, 3, 1, 2)
+
+
+def conv_rows_nhwc(x, size: int, stride, pad: int, group):
+    """A conv's input and padding on this rank's rows of an NHWC tensor of
+    any dtype: the rows with the window's halo (zero rows at the image's
+    top and bottom; on an int8 edge code 0, the value 0 of the symmetric
+    grids) and the padding ``(0, pad)``, H's being in the halo.
+    ``stride``: an int or an (sy, sx) pair. Without a group, (x, pad)."""
+    if group is None:
+        return x, pad
+    sy = stride[0] if isinstance(stride, tuple) else stride
+    return (rows_with_halo_nhwc(x, *halo_extent(size, sy, pad), group, 0),
+            (0, pad))
+
+
+def conv_rows(x, size: int, stride, pad: int, group):
+    """``conv_rows_nhwc`` of an NCHW tensor."""
+    x, pad = conv_rows_nhwc(x.permute(0, 2, 3, 1), size, stride, pad, group)
+    return x.permute(0, 3, 1, 2), pad
 
 
 def max_pool_rows(x, size: int, stride: int, group):
-    """``max_pool`` of this rank's rows: the halo of the window with -inf
-    padding; tiny's k=2/s=1 pool takes one row from under, and the last
-    rank the zero row of its padding."""
+    """``max_pool`` of this rank's rows of an NCHW tensor: the halo of the
+    window with -inf padding; tiny's k=2/s=1 pool takes one row from under,
+    and the last rank the zero row of its padding. An int8 tensor is
+    pooled in f32 and cast back, as ``max_pool`` pools one: the -inf halo
+    rows have no int8 code."""
+    if x.dtype == torch.int8:
+        return max_pool_rows(x.to(torch.float32), size, stride,
+                             group).to(torch.int8)
     if size == 2 and stride == 1:
-        _, under = halo_rows(x, 0, 1, group, 0.0)
-        return F.max_pool2d(F.pad(torch.cat([x, under.to(x.dtype)], 2),
-                                  (0, 1, 0, 0)), 2, 1)
+        _, under = halo_rows(x.permute(0, 2, 3, 1), 0, 1, group, 0.0)
+        return F.max_pool2d(F.pad(torch.cat([x, under.permute(0, 3, 1, 2)],
+                                            2), (0, 1, 0, 0)), 2, 1)
     pad = (size - 1) // 2
     x = rows_with_halo(x, size, stride, pad, group, float('-inf'))
     return F.max_pool2d(x, size, stride, padding=(0, pad))
@@ -183,9 +266,10 @@ def resize_rows(x, size, group):
     f = h // x.shape[2]
     n, r = torch.distributed.get_world_size(group), \
         torch.distributed.get_rank(group)
-    over, under = halo_rows(x, 1, 1, group)
-    over = x[:, :, :1] if r == 0 else over.to(x.dtype)
-    under = x[:, :, -1:] if r == n - 1 else under.to(x.dtype)
+    over, under = (t.permute(0, 3, 1, 2) for t in
+                   halo_rows(x.permute(0, 2, 3, 1), 1, 1, group))
+    over = x[:, :, :1] if r == 0 else over
+    under = x[:, :, -1:] if r == n - 1 else under
     ext = torch.cat([over, x, under], 2)
     y = F.interpolate(ext, size=(ext.shape[2] * f, w), mode='bilinear',
                       align_corners=False)
@@ -235,24 +319,25 @@ def conv2d_nhwc(x, w, *, stride=1, padding: int = 0, groups: int = 1,
     return y.permute(0, 2, 3, 1)
 
 
-def max_pool_nhwc(x, size: int, stride: int):
-    """``max_pool`` on an NHWC tensor. An int8 tensor is pooled in f32 (int8
-    values are exact there) and cast back, so it works on every device;
-    the -inf padding of the general case then never wins a window, as the
-    int8 minimum pad of the JAX package never does."""
-    xf = x.to(torch.float32) if x.dtype == torch.int8 else x
-    y = max_pool(xf.permute(0, 3, 1, 2), size, stride).permute(0, 2, 3, 1)
-    return y.to(torch.int8).contiguous() if x.dtype == torch.int8 else y
+def max_pool_nhwc(x, size: int, stride: int, group=None):
+    """``max_pool`` on an NHWC tensor (any dtype, int8 included), or
+    ``max_pool_rows`` on this rank's rows under ``group``; contiguous."""
+    xc = x.permute(0, 3, 1, 2)
+    y = (max_pool(xc, size, stride) if group is None
+         else max_pool_rows(xc, size, stride, group))
+    return y.permute(0, 2, 3, 1).contiguous()
 
 
-def se_block_nhwc(x, fc1_w, fc2_w):
+def se_block_nhwc(x, fc1_w, fc2_w, group=None):
     """``se_block`` on an NHWC tensor; returns NHWC."""
-    return se_block(x.permute(0, 3, 1, 2), fc1_w, fc2_w).permute(0, 2, 3, 1)
+    return se_block(x.permute(0, 3, 1, 2), fc1_w, fc2_w,
+                    group=group).permute(0, 2, 3, 1)
 
 
-def global_avg_pool_nhwc(x):
+def global_avg_pool_nhwc(x, group=None):
     """``global_avg_pool`` on an NHWC tensor: (n, 1, 1, c)."""
-    return global_avg_pool(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    return global_avg_pool(x.permute(0, 3, 1, 2),
+                           group=group).permute(0, 2, 3, 1)
 
 
 def upsample_nearest_nhwc(x, scale: int):

@@ -186,24 +186,26 @@ def _epilogue(acc, bias, scale, out_scale, act, maxabs, out_q, qmin, qmax,
     return q.to(torch.int8).contiguous()
 
 
-def grouped_conv_s32(x8, w8, *, stride, pad: int, groups: int):
+def grouped_conv_s32(x8, w8, *, stride, pad, groups: int):
     """The exact s32 sums of an int8 conv of any window, stride, padding
     and group count, in plain PyTorch on every device: x8 int8 NHWC, w8
-    int8 (Cout, K, K, Cin // groups), zero padding ``pad``, ``stride`` an
-    int or an (sy, sx) pair; returns int32 NHWC. The sums are int32
+    int8 (Cout, K, K, Cin // groups), zero padding ``pad`` (an int, or a
+    (py, px) pair: (0, pad) on a block of rows with its halo), ``stride``
+    an int or an (sy, sx) pair; returns int32 NHWC. The sums are int32
     products of shifted int8 slices, added tap by tap over the K x K
     window: exact by construction, with no float conv algorithm between (a
     cuDNN f32 conv may pick Winograd or FFT, which are not exact)."""
     sy, sx = (stride, stride) if isinstance(stride, int) else stride
+    py, px = (pad, pad) if isinstance(pad, int) else pad
     n, h, w, cin = x8.shape
     cout, kh, kw, cg = w8.shape
     og = cout // groups
     if cin != cg * groups or cout != og * groups:
         raise ValueError(f'grouped_conv_s32: x8 {tuple(x8.shape)} and w8 '
                          f'{tuple(w8.shape)} do not match groups={groups}')
-    ho = (h + 2 * pad - kh) // sy + 1
-    wo = (w + 2 * pad - kw) // sx + 1
-    xp = F.pad(x8.to(torch.int32), (0, 0, pad, pad, pad, pad))
+    ho = (h + 2 * py - kh) // sy + 1
+    wo = (w + 2 * px - kw) // sx + 1
+    xp = F.pad(x8.to(torch.int32), (0, 0, px, px, py, py))
     wg = w8.to(torch.int32).reshape(groups, og, kh, kw, cg)
     acc = torch.zeros((n, ho, wo, groups, og), dtype=torch.int32,
                       device=x8.device)
@@ -220,11 +222,12 @@ def grouped_conv_s32(x8, w8, *, stride, pad: int, groups: int):
     return acc.reshape(n, ho, wo, cout)
 
 
-def grouped_conv_int8(x8, w8, bias, scale, out_scale, *, stride, pad: int,
+def grouped_conv_int8(x8, w8, bias, scale, out_scale, *, stride, pad,
                       groups: int, act: str = 'leaky', maxabs: bool = False,
                       qmin: int = -128, qmax: int = 127, out_mult=None):
     """The int8 convs K2 does not take (depthwise and grouped ones, other
-    windows, strides or paddings): ``grouped_conv_s32``, then K2's f32
+    windows, strides or paddings; ``pad`` as ``grouped_conv_s32`` takes
+    it): ``grouped_conv_s32``, then K2's f32
     epilogue into int8 (the JAX package runs these through XLA's s8 conv
     with s32 sums and the same epilogue). Plain PyTorch on every device;
     each call adds one to ``grouped_conv_int8.calls``."""
@@ -338,7 +341,34 @@ def _launch(x8, w8, bias, out, stride, scale, oinv, act, slope, out_q, qmin,
 fused_conv_int8.launches = 0
 
 
-def float_edge_conv(x, w8, bias, sw, sa, *, stride, pad: int, groups: int,
+def k2_rows(x8, w8, bias, scale, out_scale, *, stride: int, group,
+            conv=fused_conv_int8, **kw):
+    """``conv`` (K2, or its plain twin) on this rank's rows of an int8 NHWC
+    edge whose H is split over ``group``. A 1x1 conv runs on the rows as
+    they are. K2 pads every side of a 3x3 conv by 1, H as W (the kernel is
+    unchanged): output j of a block whose first row is global row b reads
+    global rows b - 1 + s*j .. b + 1 + s*j at stride s, and darknet's
+    output i reads rows s*i - 1 .. s*i + 1. So the block starts s rows
+    over this rank's first row r0 (a multiple of s, as every rank's rows
+    are) and its output 1 is this rank's first: stride 1 takes one row over and one
+    under from the neighbours, stride 2 two over and none under (the
+    image's top and bottom code 0, the value 0 of the symmetric grids).
+    Output 0, and stride 1's last, read the block's own padding and are
+    cropped: output rows 1 .. rows / s are this rank's rows of the whole
+    image's output."""
+    if w8.shape[1] == 1:
+        return conv(x8, w8, bias, scale, out_scale, stride=stride, **kw)
+    n = x8.shape[1]
+    if n % stride:
+        raise ValueError(f'{n} rows of a rank do not split at stride '
+                         f'{stride}')
+    above, below = (1, 1) if stride == 1 else (2, 0)
+    y = conv(conv_ops.rows_with_halo_nhwc(x8, above, below, group, 0), w8,
+             bias, scale, out_scale, stride=stride, **kw)
+    return y[:, 1:1 + n // stride].contiguous()
+
+
+def float_edge_conv(x, w8, bias, sw, sa, *, stride, pad, groups: int,
                     act: str, maxabs: bool, qmin: int, qmax: int,
                     out_mult=None):
     """A conv on a float edge (f32 NHWC ``x``) into an int8 edge of scale
@@ -346,7 +376,8 @@ def float_edge_conv(x, w8, bias, sw, sa, *, stride, pad: int, groups: int,
     weights (exact in bf16), summed and kept in f32, then bias, activation
     and requantization. That is the JAX engine as its jitted program
     computes it: XLA keeps the bf16 conv's f32 sums without rounding them
-    to bf16 (its eager op does round them). Each call adds one to
+    to bf16 (its eager op does round them). ``pad``: an int or a (py, px)
+    pair ((0, pad) on a block of rows with its halo). Each call adds one to
     ``float_edge_conv.calls``. ``out_mult``: the requant multiplier (a
     Python float, as the JAX engine's), else 1 / ``sa``."""
     wf = w8.permute(0, 3, 1, 2).to(torch.float32) * sw

@@ -23,7 +23,9 @@ blocks; its backward keeps this rank's block).
 
 Spatially partitioned inference splits the image's rows over the data
 group: ``halo_rows`` hands each rank its neighbours' edge rows, and
-``all_gather_dim`` joins the head maps.
+``all_gather_dim`` joins the head maps. Both move any dtype the backend
+sums, the int8 edges and heads of the int8 engine included (gloo and NCCL
+sum int8 tensors).
 
 Gloo reduces CUDA tensors for ``all_reduce`` and ``broadcast`` only. So a
 gather (and a halo exchange) is an all-reduce of a zero-filled buffer of
@@ -228,12 +230,16 @@ def gather_channels(x, group):
 
 def halo_rows(x, above: int, below: int, group, fill: float = 0.0):
     """The ``above`` rows over and the ``below`` rows under this rank's rows
-    of an NCHW tensor whose H is split over ``group`` in rank order: the
-    neighbours' edge rows, or rows of ``fill`` at the image's top (first
-    rank) and bottom (last rank). Returns (rows over, rows under), NCHW,
-    without a gradient."""
+    of an NHWC tensor whose H (dimension 1) is split over ``group`` in rank
+    order: the neighbours' edge rows, or rows of ``fill`` at the image's
+    top (first rank) and bottom (last rank). Returns (rows over, rows
+    under), NHWC, contiguous, without a gradient, in x's dtype: an int8
+    edge crosses as int8 (one rank writes each slot of the summed buffer,
+    so the sum is that rank's rows, exact), and ``fill`` must then be an
+    int8 code (0 for a conv's padding: every scheme the int8 engine
+    serves is symmetric, so code 0 is the value 0)."""
     n, r = dist.get_world_size(group), dist.get_rank(group)
-    xh = _nhwc(x.detach())                     # (N, h, W, C)
+    xh = x.detach().contiguous()               # (N, h, W, C)
     if max(above, below) > xh.shape[1]:
         raise ValueError(f'a halo of {max(above, below)} rows is more than '
                          f'the {xh.shape[1]} rows of a rank')
@@ -251,4 +257,4 @@ def halo_rows(x, above: int, below: int, group, fill: float = 0.0):
     dist.all_reduce(buf, group=group)
     over = buf[r - 1, :, :above] if r > 0 else edge(above)
     under = buf[r + 1, :, above:] if r < n - 1 else edge(below)
-    return over.permute(0, 3, 1, 2), under.permute(0, 3, 1, 2)
+    return over, under

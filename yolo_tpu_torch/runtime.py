@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from .compress.quant import (SCHEMES, QuantConfig, init_quant_state,
-                             make_quant_apply, unported)
+                             make_quant_apply)
 from .convert import from_jax, qstate_from_jax
 from .ir import NetworkIR, build_ir
 from .models.darknet_io import load_darknet_weights
@@ -32,7 +32,7 @@ from .models.int8_engine import make_int8_apply, prepare_int8
 from .models.network import Darknet, fuse_params, init_params
 from .models.torch_import import load_torch_checkpoint
 from .ops.nms import non_max_suppression, non_max_suppression_heads
-from .parallel.mesh import DATA_AXIS
+from .parallel.mesh import DATA_AXIS, replicate
 from .utils.checkpoint import load_checkpoint
 
 
@@ -143,15 +143,22 @@ class ModelBundle:
         (``parallel.shard_spatial(mesh, x)``); each layer takes its halo
         rows from its neighbours, the head maps are gathered whole, and
         every rank decodes and runs the NMS on the whole image, so it
-        returns one process's detections. Float bundles, without
-        ``augment``; H must divide by the data axis times the deepest
-        stride."""
+        returns one process's detections. This holds for every path above:
+        the float forward (dense or sparse), test-time augmentation (the
+        input's rows gathered once, each pass run on this rank's rows of
+        its flipped or scaled image), the fake-quant sim, and the int8
+        engine (int8 halo rows; K2 on stride-aligned blocks of rows, its
+        int8 heads gathered into the sparse NMS). H (and each TTA pass's H)
+        must divide by the data axis times the deepest stride. A quantized
+        bundle serves rank 0's weights, BN statistics and calibration:
+        they are broadcast over the data axis here, before the engine's
+        plan is prepared, so that every rank quantizes on one grid (a
+        calibration run on each rank may set the pow-2 scales apart)."""
         spatial = None
         if mesh is not None and mesh.shape[DATA_AXIS] > 1:
-            if self.quantized or augment:
-                raise unported('spatial partitioning of a quantized model '
-                               'or of test-time augmentation')
             spatial = mesh.data_group
+            if self.quantized:
+                replicate(mesh, (self.params, self.state, self.qstate))
         if augment and self.quantized:
             print('WARNING: --augment (TTA) is not supported with quantized '
                   'inference; running single-pass')
@@ -159,12 +166,13 @@ class ModelBundle:
                   max_det=max_det, multi_label=multi_label, agnostic=agnostic,
                   classes=classes)
         if self.quantized:
-            return self._make_quant_infer(kw, engine)
+            return self._make_quant_infer(kw, engine, spatial)
         model = self.model()
         if augment:
             @torch.inference_mode()
             def infer(x):
-                return non_max_suppression(model.forward_augment(x), **kw)
+                return non_max_suppression(
+                    model.forward_augment(x, spatial=spatial), **kw)
         elif sparse:
             anchors = model.anchors()
             strides = self.strides
@@ -181,7 +189,7 @@ class ModelBundle:
                     model.decode(model.heads(x, spatial=spatial)), **kw)
         return infer
 
-    def _make_quant_infer(self, kw, engine):
+    def _make_quant_infer(self, kw, engine, spatial):
         if engine is None:
             engine = self.qcfg.scheme in ('google', 'ptq_cos')
         if not engine:
@@ -190,12 +198,13 @@ class ModelBundle:
 
             @torch.inference_mode()
             def infer(x):
-                return non_max_suppression(sim(params, state, qstate, x)[0],
-                                           **kw)
+                return non_max_suppression(
+                    sim(params, state, qstate, x, spatial=spatial)[0], **kw)
             return infer
         plan = prepare_int8(self.net, self.params, self.state, self.qstate,
                             self.qcfg, device=self.device)
-        eng = make_int8_apply(self.net, plan, heads_only=True)
+        eng = make_int8_apply(self.net, plan, heads_only=True,
+                              spatial=spatial)
         anchors, strides = self.anchors(), self.strides
 
         @torch.inference_mode()
