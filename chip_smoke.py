@@ -274,7 +274,7 @@ yolov3 from seed 0 and its init.npz, made by phase 10 (c).
    in its all-reduces and broadcasts): one f32 ``grad_fn`` of yolov3 @320,
    global bs 4 as 2 x 2, its summed gradient against one process on the
    card (loss items within 1e-4 relative, every tensor within 2.3e-2 of
-   its norm, the head convs within 1e-3), then 10 bf16 SGD steps @608,
+   its norm, the head convs within 1e-3), then 6 bf16 SGD steps @608,
    global bs 8 (ms a step by CUDA events beside one process's, the
    collectives of a step, the gradient all-reduce's ms), both ranks'
    parameters bit-equal after them; (b) ``python -m yolo_tpu_torch.train
@@ -306,7 +306,19 @@ yolov3 from seed 0 and its init.npz, made by phase 10 (c).
    a rank, the replicated params bit-equal on both ranks), the TP
    checkpoint reloaded in one process against the split model's heads,
    ``evaluate(mesh=...)`` in f32 over the files (the same on both ranks,
-   K1 once a batch, against one process within ``DP_EVAL_TOL``); (c) the
+   K1 once a batch, against one process within ``DP_EVAL_TOL``); then QAT
+   over the model axis (``tp_qat``) on yolov3 with google scales
+   calibrated and frozen as phase 11 (c) starts: the f32 step @320, full
+   and BN-frozen, gathered, against one process's by phase 11 (c)'s
+   card-against-CPU tolerances (the full step's gradient against one
+   process's own spread with cuDNN off), the quantizer state bit-equal on
+   both ranks; bf16 google QAT steps @608 bs 8 (ms beside one process's,
+   collectives and bytes a step, peak a rank, the quantizer state
+   bit-equal on both ranks); and ``evaluate(mesh=...)`` of phase 6's
+   calibrated model over the files, the google sim on split params and
+   the int8 engine whole on each rank: the same results on both ranks, K1
+   once a batch and K2 74 times an engine batch on each, against one
+   process within ``DP_EVAL_TOL``; (c) the
    same ranks on a (2, 1) mesh: ``make_infer(mesh=...)`` dense and sparse
    on ``shard_spatial``'s rows of a 640² image, f32 within 1e-4 of one
    process, bf16 printed, K1 once a call on each rank, ms beside one
@@ -331,7 +343,8 @@ the card busy while the host queues the call). A pipeline's time is
 The line before the last is a JSON object with each kernel's launches on
 the main paths (phases 4, 6, 7, 8, 9, 10, 11, 12, 13, 14 and 15;
 ``launches_phase9`` to ``launches_phase15`` those of the later phases
-alone), error, times
+alone, ``launches_phase15_tp_quant`` those of phase 15 (b)'s quantized
+evaluate over the model axis on both ranks), error, times
 and bound (``ms``, ``plain_ms`` and
 ``library_ms`` by ``cuda_ms``, ``device_ms`` beside them; for nms_suppress
 also its cluster and CTAs at k=512, bs=8, the wrapper's host time per call,
@@ -3025,9 +3038,10 @@ def ptq_yolov4(root, dev, card, out):
     return data, max(len(lab) for per in labels for lab in per)
 
 
-def qat_functions(net, qcfg, compute_dtype):
+def qat_functions(net, qcfg, compute_dtype, mesh=None):
     """(grad_fn, update_fn, frozen grad_fn, the apply) of QAT in bf16 MACs
-    (or f32), NHWC heads, as ``run_training`` builds them."""
+    (or f32), NHWC heads, as ``run_training`` builds them (over ``mesh``'s
+    axes when given)."""
     from yolo_tpu_torch.compress.quant import make_quant_apply
     from yolo_tpu_torch.config import DEFAULT_HYP
     from yolo_tpu_torch.train.loss import LossHyp
@@ -3037,9 +3051,11 @@ def qat_functions(net, qcfg, compute_dtype):
     apply = make_quant_apply(net, qcfg, compute_dtype=compute_dtype,
                              eval_snap_dtype=compute_dtype, head_layout='nhwc')
     hyp = LossHyp.from_dict(DEFAULT_HYP, nc=net.nc)
-    g, u = make_train_functions(net, avecs, net.nc, hyp, quant_apply=apply)
+    g, u = make_train_functions(net, avecs, net.nc, hyp, quant_apply=apply,
+                                mesh=mesh)
     gf, _ = make_train_functions(net, avecs, net.nc, hyp,
-                                 quant_apply=apply.make_bn_frozen())
+                                 quant_apply=apply.make_bn_frozen(),
+                                 mesh=mesh)
     return g, u, gf, apply
 
 
@@ -4251,7 +4267,7 @@ DP_GRAD_SIZE, DP_GRAD_BS = 320, 4   # (a): the f32 gradient, 2 x 2
 # theirs (phase 10 (a)'s GRAD_TOL)
 DP_LOSS_TOL = 1e-4
 DP_GRAD_TOL = 2.3e-2
-DP_STEPS, DP_WARMUP = 10, 3   # (a): bf16 SGD steps @608, global bs 8
+DP_STEPS, DP_WARMUP = 6, 2    # (a): bf16 SGD steps @608, global bs 8
 # (c): evaluate over the ranks (local bs 4) against one process (bs 8).
 # cuDNN may pick other algorithms for 4 images than for 8, so each
 # detection's score moves by the rounding of its sums; where two of the
@@ -4830,7 +4846,7 @@ def dp_child(root, dev):
 TP_RANKS = 2                  # (b)-(d): two ranks share the one card, over
                               # gloo: data 1 x model 2, or data 2 for (c)
 REMAT_POLICIES = ('none', 'blocks', 'full')
-REMAT_STEPS, REMAT_WARMUP = 3, 1          # (a): bf16 SGD steps @608, bs 8
+REMAT_STEPS, REMAT_WARMUP = 2, 1          # (a): bf16 SGD steps @608, bs 8
 REMAT_GRAD_SIZE, REMAT_GRAD_BS = 320, 2   # (a): the f32 step of each policy
 # (a): the f32 gradients of 'blocks' and 'full' against no remat. The
 # recompute runs the same forward (loss items and BN statistics bit-equal),
@@ -4844,7 +4860,7 @@ TP_STEPS, TP_WARMUP = 2, 1
 # (b): then bf16 SGD steps @320, bs 4, on the same state, after which the
 # leaves every rank holds whole (the head convs), their momentum and their
 # EMA must be bit-equal on both ranks
-TP_EQUAL_STEPS, TP_EQUAL_SIZE, TP_EQUAL_BS = 5, 320, 4
+TP_EQUAL_STEPS, TP_EQUAL_SIZE, TP_EQUAL_BS = 3, 320, 4
 # (b): the f32 gradient over the model axis against one process's. Each
 # split conv's input gradient is the sum of the two ranks' halves, another
 # f32 summation order than one conv's, which the BN backward amplifies as
@@ -4988,6 +5004,330 @@ def remat_checks(dev, card):
     out['seconds'] = sec
     print(f'  (a) {", ".join(f"{k} {v:.1f} s" for k, v in sec.items())}')
     return out
+
+
+def tree_digest(tree):
+    """sha256 of a nested dict of tensors' bytes, in key order."""
+    import hashlib
+    h = hashlib.sha256()
+
+    def walk(t):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                h.update(k.encode())
+                walk(t[k])
+        else:
+            h.update(t.detach().cpu().numpy().tobytes())
+    walk(tree)
+    return np.frombuffer(h.digest(), np.uint8)
+
+
+def cpu_tree(tree):
+    if isinstance(tree, dict):
+        return {k: cpu_tree(v) for k, v in tree.items()}
+    return tree.detach().cpu()
+
+
+def tp_qat_model(root, dev):
+    """(b) QAT's model: yolov3 at full width from seed 0, its google scales
+    calibrated by two train-mode calls on (a)'s batch @QAT_GRAD_SIZE and
+    frozen after them (QuantConfig(steps=QAT_CFG_STEPS)), as phase 11 (c)
+    starts its gradient check; saved to ``root/qat.npz`` for the ranks."""
+    from yolo_tpu_torch import runtime
+    from yolo_tpu_torch.convert import qstate_to_jax, to_jax
+    from yolo_tpu_torch.utils.checkpoint import save_checkpoint
+    b = runtime.load_model(CFG, device=dev, quantized=1, steps=QAT_CFG_STEPS,
+                           conv_scale=CONV_SCALE,
+                           generator=torch.Generator().manual_seed(0))
+    x = train_batch(70, GRAD_BS, QAT_GRAD_SIZE, dev)[0]
+    for _ in range(2):
+        b.apply(x, train=True)
+    p, s = to_jax(b.net, b.params, b.state)
+    save_checkpoint(os.path.join(root, 'qat.npz'), params=p, state=s,
+                    qstate=qstate_to_jax(b.qstate))
+
+
+def tp_qat(root, dev, mesh=None, qb=None):
+    """(b) QAT over the model axis of ``mesh`` (each rank of the job calls
+    this), or in one process without it, from ``root/qat.npz``: one f32
+    google step @QAT_GRAD_SIZE bs=GRAD_BS through the full step and the
+    BN-frozen one (in one process the full step without cuDNN too: its own
+    spread), each one's gradient gathered whole and written with its loss
+    items and quantizer state to ``root/tpq_{one|tp}_{mode}.pt`` (rank 0);
+    then bf16 steps @SIZE bs=BS (the first counts the collectives; CUDA
+    events), and ``evaluate`` over the first TP_IMAGES files of the google
+    sim (split params under ``mesh``) and the int8 engine (its plan whole)
+    of phase 6's calibrated model (``root/q.npz``, or ``qb`` loaded from
+    it). Returns the numbers, with each quantizer state's digest on every
+    rank."""
+    import torch.distributed as dist
+    from yolo_tpu_torch import runtime
+    from yolo_tpu_torch.config import DEFAULT_HYP, parse_data_cfg
+    from yolo_tpu_torch.data.datasets import DetectionDataset
+    from yolo_tpu_torch.eval.evaluator import evaluate, int8_engine_apply
+    from yolo_tpu_torch.ops.conv_int8 import fused_conv_int8
+    from yolo_tpu_torch.ops.nms_suppress import suppress
+    from yolo_tpu_torch.parallel import (allgather_host_values,
+                                         gather_state, shard_state)
+    from yolo_tpu_torch.train.loss import LossHyp
+    from yolo_tpu_torch.train.trainer import init_train_state
+    tag = 'one' if mesh is None else 'tp'
+    lead = mesh is None or dist.get_rank() == 0
+    same = ((lambda d: True) if mesh is None else
+            (lambda d: bool((allgather_host_values(d) == d).all())))
+    b = runtime.load_model(CFG, os.path.join(root, 'qat.npz'), device=dev,
+                           quantized=1, steps=QAT_CFG_STEPS)
+
+    def state(dtype):
+        ts = init_train_state(b.net, b.params, b.state, compute_dtype=dtype,
+                              device=dev, optimizer='adam', qstate=b.qstate)
+        if mesh is not None:
+            shard_state(mesh, b.net, ts)
+        return ts
+    out, sec = {}, {}
+    t0 = time.perf_counter()
+    g, _, gf, _ = qat_functions(b.net, b.qcfg, None, mesh)
+    x, tgt, valid = train_batch(70, GRAD_BS, QAT_GRAD_SIZE, dev)
+    modes = [('full', g, True), ('frozen', gf, True)]
+    if mesh is None:
+        modes.append(('full_nocudnn', g, False))
+    for mode, fn, cudnn in modes:
+        torch.backends.cudnn.enabled = cudnn
+        try:
+            ts, items = fn(state(None), x, tgt, valid, 1.0, GRAD_BS / 64)
+        finally:
+            torch.backends.cudnn.enabled = True
+        grads = gather_state(mesh, b.net, {k: {f: p.grad for f, p in
+                                               d.items()}
+                                           for k, d in ts.params.items()})
+        out[f'qstate_equal_{mode}'] = same(tree_digest(ts.qstate))
+        if lead:
+            torch.save({'items': items.cpu(), 'qstate': cpu_tree(ts.qstate),
+                        'grads': {f'{k}.{f}': t.cpu() for k, d in
+                                  grads.items() for f, t in d.items()}},
+                       os.path.join(root, f'tpq_{tag}_{mode}.pt'))
+        del ts, grads
+    sec['f32_grads'] = time.perf_counter() - t0
+    # bf16 steps @SIZE bs=BS
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    g, u, _, _ = qat_functions(b.net, b.qcfg, torch.bfloat16, mesh)
+    ts = state(torch.bfloat16)
+    cnt = DpCounts()
+
+    def counted(*args):
+        if cnt.n:
+            return g(*args)
+        with cnt:
+            return g(*args)
+    step, g_ms, u_ms, losses = dp_steps(counted, u, ts,
+                                        *train_batch(71, BS, SIZE, dev), BS,
+                                        steps=TP_STEPS, warmup=TP_WARMUP)
+    out.update(step_ms=step, grad_ms=g_ms, update_ms=u_ms,
+               collectives=cnt.n, bytes=cnt.bytes,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               losses=losses[:, 3].float().cpu().tolist(),
+               qstate_equal_bf16=same(tree_digest(ts.qstate)))
+    del ts
+    torch.cuda.empty_cache()
+    sec['bf16_steps'] = time.perf_counter() - t0
+    # the quantized evaluate over the files: the sim, the int8 engine
+    t0 = time.perf_counter()
+    if qb is None:
+        qb = runtime.load_model(CFG, os.path.join(root, 'q.npz'),
+                                device=dev, quantized=1, steps=100)
+    plan, engine = int8_engine_apply(qb.net, qb.params, qb.state, qb.qstate,
+                                     qb.qcfg, dev)
+    params, st = qb.params, qb.state
+    if mesh is not None:
+        params = shard_state(mesh, qb.net, {k: dict(v)
+                                            for k, v in params.items()})
+        st = shard_state(mesh, qb.net, {k: dict(v) for k, v in st.items()})
+    data = os.path.join(root, 'set', 'half.data')
+    for what, args in (('sim', (params, st, qb.quant_apply(), qb.qstate)),
+                       ('engine', (plan, {}, engine, None))):
+        k1, k2 = suppress.launches, fused_conv_int8.launches
+        t1 = time.perf_counter()
+        res, maps, _ = evaluate(
+            qb.net, args[0], args[1], data, batch_size=BS, img_size=SIZE,
+            mesh=mesh, device=dev, dataset=DetectionDataset(
+                parse_data_cfg(data)['valid'], SIZE, BS, rect=False),
+            quant_apply=args[2], qstate=args[3],
+            loss_hyp=LossHyp.from_dict(DEFAULT_HYP, nc=qb.net.nc),
+            anchor_vecs=[np.asarray(l.anchors) / l.yolo_stride
+                         for l in qb.net.layers if l.kind == 'yolo'])
+        torch.cuda.synchronize()
+        out[f'eval_{what}'] = {'s': time.perf_counter() - t1,
+                               'k1': suppress.launches - k1,
+                               'k2': fused_conv_int8.launches - k2,
+                               'res': [float(v) for v in res],
+                               'maps': [float(v) for v in maps]}
+    # the sim's head maps on the first eval batch as codes of their
+    # activation quantizer's grid, with cuDNN and without it
+    from yolo_tpu_torch.compress.quant import prepare_eval_params
+    from yolo_tpu_torch.data.datasets import BatchLoader
+    from yolo_tpu_torch.runtime import preprocess
+    heads_only = qb.quant_apply().make_heads_only()
+    kw = {} if mesh is None else {'model_group': mesh.model_group}
+    x = preprocess(next(iter(BatchLoader(DetectionDataset(
+        parse_data_cfg(data)['valid'], SIZE, BS, rect=False), BS)))[0],
+        device=dev)
+    yolos = [l for l in qb.net.layers if l.kind == 'yolo']
+    codes = {}
+    with torch.inference_mode():
+        prepared = prepare_eval_params(qb.net, qb.qcfg, params, st,
+                                       qb.qstate, **kw)
+        for cudnn in (True, False):
+            torch.backends.cudnn.enabled = cudnn
+            try:
+                heads, _ = heads_only(prepared, st, qb.qstate, x, False,
+                                      **kw)
+            finally:
+                torch.backends.cudnn.enabled = True
+            scales = [qb.qstate[str(l.index - 1)]['aq']['scale']
+                      for l in yolos]
+            codes[f'cudnn_{cudnn}'] = [
+                torch.round(h / sc).to(torch.int32).cpu()
+                for h, sc in zip(heads, scales)]
+    if lead:
+        torch.save(codes, os.path.join(root, f'tpq_codes_{tag}.pt'))
+    del qb, plan, params, st, prepared, heads
+    torch.cuda.empty_cache()
+    sec['evaluate'] = time.perf_counter() - t0
+    out['seconds'] = sec
+    return out
+
+
+# (b): the quantized evaluate over the model axis against one process's,
+# by DP_EVAL_TOL's row. The engine runs whole on each rank ('f32'). The
+# sim's split convs run cuDNN on half the filters, for which it may pick
+# another algorithm (it did at bs 8, not at bs 2): a sum rounds apart, an
+# activation on a rounding boundary of its 8-bit grid lands a quantum
+# (2^-7 of its range) apart, and on random weights that spreads layer by
+# layer (measured on an H100: the first value apart in layer 7, most head
+# codes apart by the last layer). So the sim's results are held as a bf16
+# ulp (2^-8) moves them ('bf16'), and the split sim's function itself is
+# held by its head codes with cuDNN off: equal to one process's
+TPQ_EVAL_TOL = {'sim': 'bf16', 'engine': 'f32'}
+
+
+def tp_qat_checks(root, ranks, one, n_k2, heads, card):
+    """(b) QAT over the model axis against one process's (``tp_qat``);
+    returns the numbers."""
+    q = [r['qat'] for r in ranks]
+    res = {}
+    for mode in ('full', 'frozen'):
+        tp = torch.load(os.path.join(root, f'tpq_tp_{mode}.pt'))
+        ref = torch.load(os.path.join(root, f'tpq_one_{mode}.pt'))
+        err, err_all = rel_l2(tp['grads'], ref['grads'])
+        head = max(e for k, e in err.items() if k.split('.')[0] in heads)
+        k_w = max(err, key=err.get)
+        loss_rel = float(((tp['items'] - ref['items']).abs()
+                          / ref['items'].abs()).max())
+        scales = [(k, f) for k, d in ref['qstate'].items()
+                  for f, v in d.items() if isinstance(v, dict)]
+        same_q = all(torch.equal(tp['qstate'][k][f]['scale'],
+                                 ref['qstate'][k][f]['scale'])
+                     for k, f in scales)
+        res[mode] = {'loss_rel': loss_rel, 'head': head, 'worst': err[k_w],
+                     'all': err_all, 'scales_equal': same_q}
+        print(f'  (b) QAT grad_fn ({mode}) f32 @{QAT_GRAD_SIZE} '
+              f'bs={GRAD_BS} over the model axis against one process: loss '
+              f'items rel {loss_rel:.2e}; {len(scales)} quantizer scales '
+              f'{"equal" if same_q else "DIFFER"}; head-conv gradients '
+              f'{head:.2e} of their norm, the worst {k_w} {err[k_w]:.2e}, '
+              f'all together {err_all:.2e}')
+    spread = rel_l2(torch.load(os.path.join(
+        root, 'tpq_one_full_nocudnn.pt'))['grads'], torch.load(os.path.join(
+            root, 'tpq_one_full.pt'))['grads'])[1]
+    fr, fu = res['frozen'], res['full']
+    check(all(r[f'qstate_equal_{m}'] for r in q for m in ('full', 'frozen'))
+          and fr['scales_equal'] and fr['loss_rel'] <= QAT_FROZEN_TOL[0]
+          and fr['head'] <= QAT_FROZEN_TOL[1]
+          and fr['all'] <= QAT_FROZEN_TOL[2],
+          f'(b) the BN-frozen f32 QAT step over the model axis, gathered, '
+          f'against one process\'s: quantizer state bit-equal on both ranks '
+          f'and its scales one process\'s; loss items {fr["loss_rel"]:.2e}, '
+          f'head convs {fr["head"]:.2e}, all {fr["all"]:.2e} (<= '
+          f'{QAT_FROZEN_TOL}, phase 11 c\'s card against CPU)')
+    check(fu['scales_equal'] and fu['loss_rel'] <= QAT_FULL_LOSS_TOL
+          and fu['all'] <= QAT_FULL_RATIO * spread,
+          f'(b) the full f32 QAT step over the model axis against one '
+          f'process\'s: loss items {fu["loss_rel"]:.2e} (<= '
+          f'{QAT_FULL_LOSS_TOL:g}), the gradient {fu["all"]:.2e} of its '
+          f'norm (<= {QAT_FULL_RATIO:g} x one process\'s own spread with '
+          f'cuDNN off, {spread:.2e})')
+    a = q[0]
+    check(all(r['qstate_equal_bf16'] for r in q)
+          and np.isfinite(a['losses']).all(),
+          f'(b) {TP_STEPS} bf16 google QAT steps @{SIZE} bs={BS} over the '
+          f'model axis: the quantizer state bit-equal on both ranks '
+          f'(sha256); losses {np.round(a["losses"], 4).tolist()}')
+    print(f'  (b) a QAT step over {TP_RANKS} ranks on one card: '
+          f'{a["step_ms"]:.3f} ms (grad_fn {a["grad_ms"]:.3f}, update_fn '
+          f'{a["update_ms"]:.3f}; one process {one["step_ms"]:.3f}, CUDA '
+          f'events, median of {TP_STEPS - TP_WARMUP}); {a["collectives"]} '
+          f'collectives a grad_fn, {a["bytes"] / 2**30:.3f} GiB through '
+          f'them; peak {a["peak_gib"]:.2f} GiB a rank (one process '
+          f'{one["peak_gib"]:.2f}) ({card})')
+    tp_c, one_c = (torch.load(os.path.join(root, f'tpq_codes_{t}.pt'))
+                   for t in ('tp', 'one'))
+    off = {}
+    for cudnn in (True, False):
+        pairs = list(zip(tp_c[f'cudnn_{cudnn}'], one_c[f'cudnn_{cudnn}']))
+        off[cudnn] = (sum(int((a != b).sum()) for a, b in pairs),
+                      max(int((a - b).abs().max()) for a, b in pairs))
+    n_codes = sum(c.numel() for c in one_c['cudnn_True'])
+    check(off[False][0] == 0,
+          f'(b) the sim\'s head maps on the first eval batch ({BS} images '
+          f'@{SIZE}) over the model axis, as codes of their activation '
+          f'grid, with cuDNN off: {off[False][0]} of {n_codes} apart from '
+          f'one process\'s (0 asked); with cuDNN {off[True][0]} apart, by '
+          f'at most {off[True][1]} quanta (printed)')
+    res['head_codes'] = n_codes
+    res['head_codes_off_cudnn'], res['head_lsb_cudnn'] = off[True]
+    n_local = TP_IMAGES // BS
+    for what in ('sim', 'engine'):
+        tol, ltol = DP_EVAL_TOL[TPQ_EVAL_TOL[what]]
+        ev = [r[f'eval_{what}'] for r in q]
+        ref = one[f'eval_{what}']
+        rs = [np.asarray(e['res']) for e in ev]
+        ms = [np.asarray(e['maps']) for e in ev]
+        r1, m1 = np.asarray(ref['res']), np.asarray(ref['maps'])
+        k2 = n_k2 * n_local if what == 'engine' else 0
+        check(all(np.array_equal(rs[0], v) for v in rs)
+              and all(np.array_equal(ms[0], v) for v in ms)
+              and all(e['k1'] == n_local and e['k2'] == k2 for e in ev),
+              f'(b) the {what}\'s evaluate over the model axis on '
+              f'{TP_IMAGES} files: the same results and maps on both ranks; '
+              f'K1 {[e["k1"] for e in ev]} times (once a batch of {BS}) and '
+              f'K2 {[e["k2"] for e in ev]} ({k2 // max(n_local, 1)} a '
+              f'batch) on each')
+        d_met = float(np.abs(rs[0][:4] - r1[:4]).max())
+        d_maps = float(np.abs(ms[0] - m1).max())
+        d_loss = float(np.abs(rs[0][4:] / r1[4:] - 1).max())
+        check(d_met <= tol and d_maps <= tol and d_loss <= ltol,
+              f'(b) the {what}\'s evaluate against one process: P R mAP F1 '
+              f'{np.round(rs[0][:4], 6).tolist()} against '
+              f'{np.round(r1[:4], 6).tolist()} (|d| {d_met:.2e} <= {tol:g}), '
+              f'class APs |d| {d_maps:.2e}, val losses {d_loss:.2e} relative '
+              f'(<= {ltol:g}, DP_EVAL_TOL[{TPQ_EVAL_TOL[what]!r}]); '
+              f'{ev[0]["s"]:.1f} s against {ref["s"]:.1f} s')
+        res[f'eval_{what}'] = {'s': ev[0]['s'], 's_one': ref['s'],
+                               'metric_diff': d_met, 'maps_diff': d_maps,
+                               'loss_rdiff': d_loss, 'k1': ev[0]['k1'],
+                               'k2': ev[0]['k2'], 'res': ev[0]['res']}
+    res.update({k: a[k] for k in ('step_ms', 'grad_ms', 'update_ms',
+                                  'collectives', 'bytes', 'peak_gib')},
+               step_ms_one=one['step_ms'], peak_gib_one=one['peak_gib'],
+               spread=spread)
+    # the kernels' launches in the ranks' quantized evaluate
+    res['launches'] = {
+        'nms_suppress': sum(r[f'eval_{w}']['k1'] for r in q
+                            for w in ('sim', 'engine')),
+        'conv_int8': sum(r['eval_engine']['k2'] for r in q)}
+    return res
 
 
 def tp_rank(rank, port, root):
@@ -5139,6 +5479,14 @@ def tp_rank(rank, port, root):
     del b
     torch.cuda.empty_cache()
     part('evaluate')
+    # (b) QAT over the model axis, and the quantized evaluate over it, of
+    # the calibrated file that (c) serves as well
+    qb = runtime.load_model(CFG, os.path.join(root, 'q.npz'), device=dev,
+                            quantized=1, steps=100)
+    out['qat'] = tp_qat(root, dev, mesh, qb=qb)
+    for k, v in out['qat']['seconds'].items():
+        sec[f'qat_{k}'] = v
+    t_part[0] = time.perf_counter()
     # (c) spatial partitioning: the image's rows over both ranks
     sp = make_mesh(dev)
     x = preprocess(images(73, 1, SP_SIZE), device=dev)
@@ -5170,8 +5518,6 @@ def tp_rank(rank, port, root):
     # (c) the quantized paths and TTA on the rows: each rank loads the one
     # calibrated file (make_infer broadcasts rank 0's tensors as well)
     del bundles['bf16'], bundle
-    qb = runtime.load_model(CFG, os.path.join(root, 'q.npz'), device=dev,
-                            quantized=1, steps=100)
     for tag in SP_PATHS:
         infer = (bundles['f32'].make_infer(augment=True, mesh=sp, **SP_INFER)
                  if tag == 'tta_f32' else
@@ -5297,7 +5643,14 @@ def tp_child(root, dev):
             heads_one = seen.heads
         sp_one[tag] = (dets, host_ms(lambda: infer(x), SP_ITERS))
     n_k2 = sum(l.kind == 'conv' for l in qb.net.layers) - 1
-    del qb, bundles
+    del bundles
+    # (b) QAT's model for the ranks, and one process's QAT references
+    tp_qat_model(root, dev)
+    qat_one = tp_qat(root, dev, qb=qb)
+    secs = qat_one['seconds'].items()
+    print(f'  (b) one process\'s QAT references: '
+          f'{", ".join(f"{k} {v:.1f} s" for k, v in secs)}')
+    del qb
     torch.cuda.empty_cache()
     out['seconds']['set_up'] = time.perf_counter() - t0
 
@@ -5402,6 +5755,7 @@ def tp_child(root, dev):
           f'{np.round(res1[:4], 6).tolist()} (|d| {d_met:.2e} <= {tol:g}), '
           f'class APs |d| {d_maps:.2e}, val losses {d_loss:.2e} relative '
           f'(<= {ltol:g}); {ev[0]["s"]:.1f} s')
+    out['b_qat'] = tp_qat_checks(root, ranks, qat_one, n_k2, heads, card)
     out['b'] = {k: a[k] for k in ('step_ms', 'grad_ms', 'update_ms',
                                   'collectives', 'bytes', 'peak_gib',
                                   'split_leaves')}
@@ -5685,6 +6039,7 @@ def main():
          'launches_phase13': data['nms_suppress'],
          'launches_phase14': par['nms_suppress'],
          'launches_phase15': tp['nms_suppress'],
+         'launches_phase15_tp_quant': tp['b_qat']['launches']['nms_suppress'],
          'main_path_ms': k1_main['ms'],
          'main_path_device_ms': k1_main['device_ms']},
         {'name': 'conv_int8', 'route': 'cuda',
@@ -5696,6 +6051,7 @@ def main():
          'launches_phase11': quant['conv_int8'],
          'launches_phase12': kd['conv_int8'],
          'launches_phase15': tp['conv_int8'],
+         'launches_phase15_tp_quant': tp['b_qat']['launches']['conv_int8'],
          'max_abs_err': k2_err,
          'ms': k2_tot['ms'], 'device_ms': k2_tot['dev'],
          'plain_ms': k2_tot['plain'], 'bound_ms': k2_tot['bound'],

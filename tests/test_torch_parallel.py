@@ -511,9 +511,9 @@ def test_mesh_outside_a_job():
                          ids=['tp', 'remat'])
 def test_cli_unported_parallel_flags_raise(argv, monkeypatch):
     """Beside ``--coordinator``: ``--tp`` with ``--quantized`` (QAT under
-    tensor parallelism, not ported) still raises before the process joins
-    the job; ``--remat``, which once raised, joins it (the join stubbed
-    here) and reaches ``run_training``."""
+    tensor parallelism) and ``--remat``, which once raised, join the job
+    (the join stubbed here) and reach ``run_training`` with their
+    options."""
     from yolo_tpu_torch import parallel
     from yolo_tpu_torch.train import loop
     from yolo_tpu_torch.train.__main__ import main
@@ -526,15 +526,14 @@ def test_cli_unported_parallel_flags_raise(argv, monkeypatch):
                         or (0.0,) * 7)
     argv = argv + ['--coordinator', 'localhost:1', '--num-hosts', '2',
                    '--host-id', '0', '--device', 'cpu']
-    if '--quantized' in argv:
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            main(argv)
-        assert not joined and not opts
-        return
     main(argv)
     assert joined[0][0] == ('localhost:1',)
     assert joined[0][1]['num_processes'] == 2
-    assert opts[0].remat == 'blocks' and opts[0].device == 'cpu'
+    assert opts[0].device == 'cpu'
+    if '--quantized' in argv:
+        assert (opts[0].tp, opts[0].quantized) == (2, 1)
+    else:
+        assert opts[0].remat == 'blocks'
 
 
 # ------------------------------------------------------------ the job's ranks

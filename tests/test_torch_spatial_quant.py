@@ -452,27 +452,69 @@ def test_max_pool_rows_on_int8(size, stride, rows_in_one_process):
 
 
 def test_tensor_parallel_quant_paths_still_raise(tmp_path):
-    """What the next slice ports still raises ``NotImplementedError``
-    naming ROADMAP.md: a quantized ``evaluate`` over a model axis, and a
-    QAT step under one (``make_train_functions(quant_apply=...,
-    mesh=...)``)."""
+    """What raised ``NotImplementedError`` until the port's last slice now
+    runs: a QAT step under a mesh with a model axis
+    (``make_train_functions(quant_apply=..., mesh=...)``) and a quantized
+    ``evaluate`` over one, the google sim and the int8 engine. On a rank
+    whose params are whole nothing is split, so no collective runs (the
+    model group here is a stand-in): the step's loss items and gradients
+    are one process's bit for bit, and both evaluations one process's
+    results. ``tests/test_torch_tp_quant.py`` holds the split path to
+    JAX's model mesh across ranks."""
     from yolo_tpu_torch.compress import quant as TQ
-    from yolo_tpu_torch.eval.evaluator import evaluate
+    from yolo_tpu_torch.convert import from_jax
+    from yolo_tpu_torch.eval.evaluator import evaluate, int8_engine_apply
     from yolo_tpu_torch.ir import build_ir
     from yolo_tpu_torch.parallel import Mesh
-    from yolo_tpu_torch.train.loss import LossHyp
-    from yolo_tpu_torch.train.trainer import make_train_functions
+    from yolo_tpu_torch.train.loss import LossHyp, pad_targets
+    from yolo_tpu_torch.train.trainer import (init_train_state,
+                                              make_train_functions)
     cfg = tmp_path / 'leaky.cfg'
     cfg.write_text(LEAKY_CFG)
+    (tmp_path / 'names').write_text('a\nb\n')
+    data = tmp_path / 'q.data'
+    data.write_text(f'classes=2\nnames={tmp_path}/names\n')
     net = build_ir(str(cfg))
     tp = Mesh(shape={'data': 1, 'model': 2}, data_index=0, data_group=None,
               device=torch.device('cpu'), model_group=object())
-    qa = TQ.make_quant_apply(net, TQ.QuantConfig(scheme='google'))
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        evaluate(net, {}, {}, str(tmp_path / 'none.data'), quant_apply=qa,
-                 mesh=tp, device='cpu')
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        make_train_functions(net, [], 2, LossHyp(), quant_apply=qa, mesh=tp)
+    qcfg = TQ.QuantConfig(scheme='google', steps=10)
+    qa = TQ.make_quant_apply(net, qcfg)
+    avecs = [np.asarray(l.anchors) / l.yolo_stride for l in net.layers
+             if l.kind == 'yolo']
+    u8 = images(3, 2, 64)
+    lab = [np.array([[0, .5, .5, .4, .3]], np.float32),
+           np.array([[1, .3, .6, .2, .5]], np.float32)]
+    tgt, valid = pad_targets(lab, 4)
+    x = torch.from_numpy(u8.astype(np.float32) / 255.0)
+    got = []
+    for mesh in (None, tp):
+        grad_fn, _ = make_train_functions(net, avecs, 2, LossHyp(),
+                                          quant_apply=qa, mesh=mesh)
+        ts = init_train_state(net, *from_jax(net, *random_jax_weights(
+            net, seed=4)), compute_dtype=None, device='cpu',
+            qstate=TQ.init_quant_state(net, qcfg)[0])
+        ts, items = grad_fn(ts, x, torch.from_numpy(tgt),
+                            torch.from_numpy(valid), 1.0, 1.0)
+        out = {'items': items.numpy()}
+        out.update({f'{k}/{f}': p.grad.numpy() for k, d in ts.params.items()
+                    for f, p in d.items()})
+        params = {k: {f: p.detach() for f, p in d.items()}
+                  for k, d in ts.params.items()}
+        plan, engine = int8_engine_apply(net, params, ts.bn_state,
+                                         ts.qstate, qcfg, 'cpu')
+        for tag, args in (('sim', (params, ts.bn_state, qa, ts.qstate)),
+                          ('engine', (plan, {}, engine, None))):
+            res, maps, _ = evaluate(
+                net, args[0], args[1], str(data), batch_size=2, img_size=64,
+                compute_dtype=torch.float32, loader=[(u8, tgt, valid,
+                                                      ['a', 'b'], [None] * 2)],
+                quant_apply=args[2], qstate=args[3], mesh=mesh,
+                device='cpu')
+            out[tag] = np.asarray(res + tuple(maps), np.float64)
+        got.append(out)
+    assert got[0].keys() == got[1].keys() and len(got[0]) > 20
+    for k, v in got[0].items():
+        np.testing.assert_array_equal(got[1][k], v, err_msg=k)
 
 
 if __name__ == '__main__':

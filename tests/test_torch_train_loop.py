@@ -20,6 +20,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from _torch_port import TOY_CFG, random_jax_weights
 from test_torch_augment import write_jpeg_set
@@ -219,25 +220,27 @@ def test_cli_unported_flags_raise(argv, train_set, tmp_path, monkeypatch):
     ``--tp K`` trains without a mesh (JAX's rule: the model axis needs
     ranks), and ``--remat`` reaches ``make_train_functions``; beside the
     multi-host flags alone (which join no job without ``--coordinator``)
-    the same. ``--tp`` with ``--quantized`` still raises, before the process
-    would join a job (QAT under tensor parallelism is not ported)."""
+    the same. ``--tp`` with ``--quantized`` (QAT under tensor parallelism,
+    which raised until the port's last slice) trains likewise: alone, or
+    after joining a job (the join stubbed here, so the process is still
+    one rank and trains without a mesh), the quant apply in the step."""
+    from yolo_tpu_torch import parallel
     from yolo_tpu_torch.train import loop
     from yolo_tpu_torch.train.__main__ import main
     _, cfg, data, init = train_set
-    seen = []
+    seen, joined = [], []
     make = loop.make_train_functions
 
     def record(*a, **k):
         seen.append(k)
         return make(*a, **k)
     monkeypatch.setattr(loop, 'make_train_functions', record)
+    monkeypatch.setattr(parallel, 'init_multihost', lambda *a, **k:
+                        joined.append(a) or torch.device('cpu'))
+    monkeypatch.setattr(torch.distributed, 'destroy_process_group',
+                        lambda: None)
     monkeypatch.chdir(tmp_path)
     argv = argv + ['--device', 'cpu']
-    if '--quantized' in argv:
-        with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-            main(argv)
-        assert not seen
-        return
     r = main(argv + ['--cfg', cfg, '--data', data, '--weights', init,
                      '--epochs', '1', '--batch-size', '4', '--img-size',
                      '64', '--notest', '--nosave'])
@@ -245,6 +248,10 @@ def test_cli_unported_flags_raise(argv, train_set, tmp_path, monkeypatch):
     remat = argv[argv.index('--remat') + 1] if '--remat' in argv else 'none'
     assert seen and all(k['mesh'] is None and k['remat'] == remat
                         for k in seen)
+    assert all((k['quant_apply'] is not None) == ('--quantized' in argv)
+               for k in seen)
+    assert joined == ([('localhost:1234',)] if '--coordinator' in argv
+                      else [])
     rows = np.loadtxt(tmp_path / 'results.txt', ndmin=2)
     assert rows.shape == (1, 12) and np.isfinite(rows).all()
 

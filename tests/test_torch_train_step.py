@@ -462,10 +462,11 @@ def test_ema_matches_jax():
 def test_trainer_raises_on_unported_paths(toy_cfg):
     """The remat policies, which once raised, build ('none', 'blocks',
     'full' and JAX's True; ``test_torch_remat.py`` holds them to JAX), and
-    an unknown one raises ValueError; QAT under a mesh with a model axis
-    raises NotImplementedError naming ROADMAP.md; the KD term, which the
-    first training slice refused, builds (tests/test_torch_kd.py holds it
-    to JAX)."""
+    an unknown one raises ValueError; QAT under a mesh with a model axis,
+    which raised NotImplementedError until the port's last slice, builds,
+    its BN-frozen apply and remat too (``tests/test_torch_tp_quant.py``
+    holds it to JAX's model mesh); the KD term, which the first training
+    slice refused, builds (tests/test_torch_kd.py holds it to JAX)."""
     from yolo_tpu_torch.compress import quant as TQ
     from yolo_tpu_torch.ir import build_ir
     from yolo_tpu_torch.parallel import Mesh
@@ -479,8 +480,11 @@ def test_trainer_raises_on_unported_paths(toy_cfg):
     tp = Mesh(shape={'data': 1, 'model': 2}, data_index=0, data_group=None,
               device=torch.device('cpu'), model_group=object())
     qa = TQ.make_quant_apply(net, TQ.QuantConfig(scheme='google'))
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        make_train_functions(net, [], 2, LossHyp(), quant_apply=qa, mesh=tp)
+    for apply, remat in ((qa, None), (qa.make_bn_frozen(), None),
+                         (qa, 'blocks')):
+        fns = make_train_functions(net, [], 2, LossHyp(), quant_apply=apply,
+                                   mesh=tp, remat=remat)
+        assert len(fns) == 2 and all(map(callable, fns))
     make_train_functions(net, [], 2, LossHyp(), kd_loss_fn=lambda *a: 0)
 
 

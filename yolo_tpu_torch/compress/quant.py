@@ -23,7 +23,11 @@ fold on batch statistics, its statistics conv and every fake-quant
 data-parallel step the train mode takes the data group (``apply(...,
 group=...)``): the activation trackers' min/max, the cos-PTQ votes' cosines
 and the BN fold's batch statistics are then the global batch's, as under
-the JAX package's mesh; weights are replicated and need no collective. Its eval
+the JAX package's mesh; weights are replicated and need no collective.
+Under tensor parallelism it also takes the model group (``apply(...,
+model_group=...)``): a split conv runs its block of the filters and
+gathers its activation, and its weight's per-tensor reductions span the
+model group (``_fold_quant_weights``). Its eval
 mode is the sim the int8 engine is held against. SE, global avgpool,
 scale_channels and a standalone [batchnorm] stay float, as in the JAX
 package's sim.
@@ -53,7 +57,9 @@ from ..ops import conv as conv_ops
 from ..ops.conv import LONE_BN_EPS, LONE_BN_MOM
 from ..ops.conv_int8 import round_half_away
 from ..parallel.collectives import (all_gather_dim, all_reduce_nograd,
-                                    batch_moments)
+                                    batch_moments, copy_to_model,
+                                    gather_channels)
+from ..parallel.mesh import split_group
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.01     # quantized-conv BN momentum
@@ -290,7 +296,29 @@ def _cosines(dq, xn):
         torch.linalg.vector_norm(dq, dim=1), 1e-12)
 
 
-def _tpsq_search_scale(x, bits: int):
+def _search_cosines(dq_of, n: int, flat, group=None):
+    """The cosine with ``flat`` of each of ``n`` candidates, where
+    ``dq_of(c)`` gives the dequantized candidates of the slice ``c`` as
+    rows, run in chunks (``SEARCH_CHUNK``). Under ``group``, ``flat`` is
+    this rank's part of the vector (a block of a split weight, or of the
+    global batch): each candidate's dot product with it and squared norm,
+    and its squared norm, are summed over the ranks in one all-reduce."""
+    chunks = _chunks(n, flat.numel())
+    if group is None:
+        xn = flat / torch.clamp_min(torch.linalg.vector_norm(flat), 1e-12)
+        return torch.cat([_cosines(dq_of(c), xn) for c in chunks])
+    dot, sq = [], []
+    for c in chunks:
+        dq = dq_of(c)
+        dot.append(torch.mv(dq, flat))
+        sq.append(dq.square().sum(1))
+    g = all_reduce_nograd(torch.cat(dot + sq + [flat.square().sum()[None]]),
+                          group)
+    return g[:n] / torch.clamp_min(g[n:2 * n].sqrt(), 1e-12) \
+        / torch.clamp_min(g[-1].sqrt(), 1e-12)
+
+
+def _tpsq_search_scale(x, bits: int, group=None):
     """The TPSQ warmup's scale search: 99 candidate scales i * max(x) / 100,
     each quantized through ``tpsq_quantize``; the cosine-similarity winner
     (the first of equal ones). A candidate enters ``tpsq_quantize`` only
@@ -298,18 +326,20 @@ def _tpsq_search_scale(x, bits: int):
     distinct power (in chunks, ``SEARCH_CHUNK``) and the first candidate of
     the best power wins, as the first of the tied candidates does in the
     JAX package's scan. A tensor with no positive value gives a step of 0
-    or less, as there."""
+    or less, as there. ``group``: ``x`` is this rank's block of a tensor
+    split over it (a split conv's weight or bias), and the maximum, the
+    norm and every candidate's dot product and norm are the whole
+    tensor's."""
     with torch.no_grad():
         flat = x.detach().reshape(-1).to(torch.float32)
-        step = torch.max(flat) / 100.0
-        xn = flat / torch.clamp_min(torch.linalg.vector_norm(flat), 1e-12)
+        step = all_reduce_nograd(torch.max(flat), group, 'max') / 100.0
         cands = step * torch.arange(1, 100, dtype=torch.float32,
                                     device=flat.device)
         p2 = search_pow2(cands)
         powers = torch.unique(p2)
-        cos = torch.cat([_cosines(tpsq_quantize(flat[None, :],
-                                                powers[c][:, None], bits), xn)
-                         for c in _chunks(len(powers), flat.numel())])
+        cos = _search_cosines(lambda c: tpsq_quantize(
+            flat[None, :], powers[c][:, None], bits), len(powers), flat,
+            group)
         first = torch.nonzero(p2 == powers[torch.argmax(cos)])[0, 0]
         return cands[first]
 
@@ -318,7 +348,11 @@ def tpsq_warmup(net, cfg, params, state, qstate, x):
     """Data-driven init of every TPSQ scale param (the reference's
     first-forward warmup): one train-mode forward of ``x`` in which each
     site's scale is its ``_tpsq_search_scale`` winner. Returns a copy of
-    ``params`` with ``w_scale``/``b_scale``/``a_scale`` replaced."""
+    ``params`` with ``w_scale``/``b_scale``/``a_scale`` replaced. It runs
+    in one process on whole params: the train loop calls it before the
+    state is split over a model axis (a train-mode apply under a model
+    group with ``warmup`` would search the split weights over the group
+    too)."""
     apply = make_quant_apply(net, cfg, warmup=True)
     with torch.no_grad():
         _, _, new_q = apply(params, state, qstate, x, True)
@@ -345,9 +379,10 @@ def cospt_quantize(x, qs, *, bits: int, train: bool, group=None):
     vote and the most-voted candidate is the working scale. The candidates
     run in chunks (``SEARCH_CHUNK``; the JAX package vectorises all of them
     at once), so that a large activation is in memory one copy at a
-    time. Under ``group`` the cosines are the global batch's: each
-    candidate's dot product with x and squared norm, and x's squared norm,
-    summed over the ranks in one all-reduce."""
+    time. Under ``group`` the cosines are those of the whole of ``x`` over
+    the ranks (``_search_cosines``): the global batch's for an activation
+    under the data group, the whole tensor's for a split conv's weight or
+    bias under the model group."""
     if bits == 32:
         return x, qs
     qmin, qmax = qrange(bits, True)
@@ -358,27 +393,9 @@ def cospt_quantize(x, qs, *, bits: int, train: bool, group=None):
             n = bits + 7
             scales = torch.exp2(torch.arange(n, dtype=torch.float32,
                                              device=flat.device) - 5.0) / qr
-            if group is None:
-                xn = flat / torch.clamp_min(torch.linalg.vector_norm(flat),
-                                            1e-12)
-                cos = []
-                for c in _chunks(n, flat.numel()):
-                    sc = scales[c][:, None]
-                    cos.append(_cosines(torch.clamp(round_half_away(
-                        flat[None, :] / sc), qmin, qmax) * sc, xn))
-                cos = torch.cat(cos)
-            else:
-                dot, sq = [], []
-                for c in _chunks(n, flat.numel()):
-                    sc = scales[c][:, None]
-                    dq = torch.clamp(round_half_away(flat[None, :] / sc),
-                                     qmin, qmax) * sc
-                    dot.append(torch.mv(dq, flat))
-                    sq.append(dq.square().sum(1))
-                g = all_reduce_nograd(torch.cat(
-                    dot + sq + [flat.square().sum()[None]]), group)
-                cos = g[:n] / torch.clamp_min(g[n:2 * n].sqrt(), 1e-12) \
-                    / torch.clamp_min(g[-1].sqrt(), 1e-12)
+            cos = _search_cosines(lambda c: torch.clamp(round_half_away(
+                flat[None, :] / scales[c][:, None]), qmin, qmax)
+                * scales[c][:, None], n, flat, group)
             winner = torch.argmax(cos)
             votes = qs['votes'] + (torch.arange(n, device=flat.device)
                                    == winner).to(torch.float32)
@@ -519,14 +536,25 @@ def _conv(x, w, lyr, compute_dtype, rows=None):
 
 def _fold_quant_weights(cfg, lyr, p, st, qs, *, train, warmup=False,
                         bn_frozen=False, compute_dtype=None, x=None,
-                        group=None):
+                        group=None, model_group=None):
     """BN fold + weight/bias quantization of one conv, per scheme. Returns
     (qw OIHW, qb, st, qs); trackers and statistics update only when
     ``train`` (the statistics conv runs on ``x`` then, unless
     ``bn_frozen``, its statistics over ``group`` too); ``warmup`` records
-    TPSQ's search winners in qs."""
+    TPSQ's search winners in qs.
+
+    ``model_group``: this conv's output channels are split over it
+    (``split_group``), ``p`` holds this rank's block of them. The BN
+    statistics are per channel, so they span the data group alone; every
+    per-tensor quantity of the weight and the bias (google's range,
+    cos-PTQ's cosines, DoReFa's max, ternary's means, TPSQ's warmup
+    search) spans the model group and never the data group, whose ranks
+    hold the same weights. TPSQ's ``w_scale``/``b_scale``, whole on every
+    rank, pass through ``copy_to_model``, so that their gradient is the
+    whole tensor's on every rank."""
     from . import quant_legacy as QL
     sch = cfg.scheme
+    mg = model_group
     if lyr.bn:
         stat_fold = train and not bn_frozen
         out_f = _conv(x, p['w'], lyr, compute_dtype) if stat_fold else None
@@ -536,55 +564,59 @@ def _fold_quant_weights(cfg, lyr, p, st, qs, *, train, warmup=False,
     else:
         w_fold = p['w']
         bias = p['b'] if 'b' in p else torch.zeros(
-            lyr.filters, dtype=torch.float32, device=p['w'].device)
+            p['w'].shape[0], dtype=torch.float32, device=p['w'].device)
     qs = dict(qs)
     if sch == 'google':
         qw, qs['wq'] = google_quantize(w_fold, qs['wq'], bits=cfg.w_bits,
                                        train=train,
                                        freeze_step=cfg.scale_freeze_step,
-                                       track='global')
+                                       track='global', group=mg)
         qb, qs['bq'] = google_quantize(bias, qs['bq'], bits=cfg.w_bits,
                                        train=train,
                                        freeze_step=cfg.scale_freeze_step,
-                                       track='global')
+                                       track='global', group=mg)
     elif sch == 'tpsq':
         if warmup:
-            qs['w_scale'] = _tpsq_search_scale(w_fold, cfg.w_bits)
-            qs['b_scale'] = _tpsq_search_scale(bias, cfg.w_bits)
-        qw = tpsq_quantize(w_fold, qs['w_scale'] if warmup else p['w_scale'],
-                           cfg.w_bits)
-        qb = tpsq_quantize(bias, qs['b_scale'] if warmup else p['b_scale'],
-                           cfg.w_bits)
+            qs['w_scale'] = _tpsq_search_scale(w_fold, cfg.w_bits, mg)
+            qs['b_scale'] = _tpsq_search_scale(bias, cfg.w_bits, mg)
+        scale = lambda f: qs[f] if warmup else copy_to_model(p[f], mg)
+        qw = tpsq_quantize(w_fold, scale('w_scale'), cfg.w_bits)
+        qb = tpsq_quantize(bias, scale('b_scale'), cfg.w_bits)
     elif sch == 'dorefa':
         # the folded weight and bias both go through the tanh quantizer
-        qw = QL.dorefa_weight(w_fold, cfg.w_bits)
-        qb = QL.dorefa_weight(bias, cfg.w_bits)
+        qw = QL.dorefa_weight(w_fold, cfg.w_bits, mg)
+        qb = QL.dorefa_weight(bias, cfg.w_bits, mg)
     elif sch == 'wbin':
         qw, qb = QL.binary_weight(w_fold), bias
     elif sch == 'ternary':
-        qw, qb = QL.ternary_weight(w_fold), bias
+        qw, qb = QL.ternary_weight(w_fold, group=mg), bias
     else:   # ptq_cos
         qw, qs['wq'] = cospt_quantize(w_fold, qs['wq'], bits=cfg.w_bits,
-                                      train=train)
+                                      train=train, group=mg)
         qb, qs['bq'] = cospt_quantize(bias, qs['bq'], bits=cfg.w_bits,
-                                      train=train)
+                                      train=train, group=mg)
     return qw, qb, st, qs
 
 
 def prepare_eval_params(net: NetworkIR, cfg: QuantConfig, params, state,
-                        qstate):
+                        qstate, model_group=None):
     """The eval-constant work of each quantized conv hoisted out of the
     batch: a copy of ``params`` whose convs also hold ``qw``/``qb``, the
     BN-folded, fake-quantized weight and bias that the eval sim then uses
-    as they are (the same floats as the unprepared eval)."""
+    as they are (the same floats as the unprepared eval). ``model_group``:
+    ``params`` hold this rank's blocks of the split convs, and each gets
+    its block of ``qw``/``qb``; google, cos-PTQ and TPSQ read stored
+    scales, DoReFa and ternary reduce over the group (every rank of it
+    calls this)."""
     out = {k: dict(v) for k, v in params.items()}
     for lyr in net.layers:
         if lyr.kind not in ('conv', 'depthwise'):
             continue
         k = str(lyr.index)
-        qw, qb, _, _ = _fold_quant_weights(cfg, lyr, params[k],
-                                           state.get(k, {}),
-                                           qstate.get(k, {}), train=False)
+        qw, qb, _, _ = _fold_quant_weights(
+            cfg, lyr, params[k], state.get(k, {}), qstate.get(k, {}),
+            train=False, model_group=split_group(lyr, params[k]['w'],
+                                                 model_group))
         out[k]['qw'], out[k]['qb'] = qw, qb
     return out
 
@@ -613,7 +645,7 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig, compute_dtype=None,
     """Build the fake-quant apply of ``cfg.scheme`` on NHWC inputs:
 
     apply(params, state, qstate, x, train=False, group=None,
-          spatial=None) ->
+          spatial=None, model_group=None) ->
       train: ((yolo_p, feats), new_state, new_qstate)
       eval:  (io, yolo_p, feats), or (head_out, [None] * n) with
              ``heads_only``
@@ -622,6 +654,13 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig, compute_dtype=None,
     to the return, in both modes (the per-layer dump of
     ``compress/fpga_export.py``); not with ``heads_only``. ``group``: the
     data group of a data-parallel train step (module docstring).
+    ``model_group`` (tensor parallelism, train and eval): the params hold
+    this rank's blocks of the split convs (``parallel.shard_state``); each
+    runs its block on the ``copy_to_model``'d input and gathers the
+    activation whole before its quantizer (``_fold_quant_weights`` for the
+    weight's reductions), so every tracker, shortcut and concat sees whole
+    tensors and spans the data group alone, and every rank of a data
+    index returns the same outputs and quantizer state.
     ``spatial`` (eval only; spatial partitioning): the group over whose
     ranks the image's rows are split, ``x`` holding this rank's
     (``parallel.shard_spatial``): each conv takes its halo rows, the pools,
@@ -666,14 +705,19 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig, compute_dtype=None,
 
     snap = lambda train: None if train else eval_snap_dtype
 
-    def qconv(lyr, p, st, qs, x, train, group, rows):
+    def qconv(lyr, p, st, qs, x, train, group, rows, model_group):
+        mg = split_group(lyr, p['w'], model_group)
+        # a split conv: its block of the filters between copy_to_model and
+        # the gather (models/network.py); the statistics conv of the BN
+        # fold reads the same input
+        x = copy_to_model(x, mg)
         if not train and 'qw' in p:
             qw, qb = p['qw'], p['qb']
         else:
             qw, qb, st, qs = _fold_quant_weights(
                 cfg, lyr, p, st, qs, train=train, warmup=warmup,
                 bn_frozen=bn_frozen, compute_dtype=compute_dtype, x=x,
-                group=group)
+                group=group, model_group=mg)
         out = _conv(x, qw, lyr, compute_dtype, rows)
         # qb sits on an 8-bit grid: exact in the compute dtype
         out = out + qb.to(out.dtype)
@@ -682,6 +726,11 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig, compute_dtype=None,
                         and not cfg.maxabsscaler)
         out = _activation(lyr.activation, cfg.maxabsscaler,
                           0.125 if dorefa_leaky else None)(out)
+        if mg is not None:
+            # the whole activation before its quantizer, which is then
+            # elementwise given a per-tensor scale of the data group alone
+            out = gather_channels(out.permute(0, 3, 1, 2), mg).permute(
+                0, 2, 3, 1)
         if sch == 'google':
             out, qs['aq'] = google_quantize(out, qs['aq'], bits=bits,
                                             train=train,
@@ -800,7 +849,7 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig, compute_dtype=None,
     anchor_cache: dict = {}
 
     def apply(params, state, qstate, x, train: bool = False, group=None,
-              spatial=None):
+              spatial=None, model_group=None):
         if train and spatial is not None:
             raise ValueError('the sim takes split rows (spatial) in eval '
                              'mode only: training on split rows is not '
@@ -819,7 +868,8 @@ def make_quant_apply(net: NetworkIR, cfg: QuantConfig, compute_dtype=None,
             if kind in ('conv', 'depthwise'):
                 st = state.get(k, {})
                 prev, st2, new_q[k] = qconv(lyr, params[k], st, new_q[k],
-                                            prev, train, group, sp)
+                                            prev, train, group, sp,
+                                            model_group)
                 if st:
                     new_state[k] = st2
             elif kind == 'batchnorm':

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.collectives import all_reduce_max, all_reduce_nograd
 from .quant import _clip, fq, pow2_snap, round_half_away
 
 
@@ -30,17 +31,19 @@ def quantize_k(x, k: int):
     return _ste(y, torch.round(y)) / n
 
 
-def dorefa_weight(w, bits: int):
+def dorefa_weight(w, bits: int, group=None):
     """DoReFa-Net weights: tanh-normalise to [0, 1], k-bit quantize, map
     back to [-1, 1]. 1-bit weights are refused (the 'wbin' scheme is the
-    1-bit one)."""
+    1-bit one). ``group``: ``w`` is this rank's block of a tensor split
+    over it (tensor parallelism), and ``max|tanh w|``, which carries a
+    gradient, is the whole tensor's (``all_reduce_max``)."""
     if bits == 32:
         return w
     if bits == 1:
         raise ValueError("DoReFa 1-bit weights are unsupported; use the "
                          "'wbin' scheme instead")
     t = torch.tanh(w)
-    t = t / (2.0 * torch.max(torch.abs(t)) + 1e-12) + 0.5
+    t = t / (2.0 * all_reduce_max(torch.abs(t), group) + 1e-12) + 0.5
     return 2.0 * quantize_k(t, bits) - 1.0
 
 
@@ -66,15 +69,26 @@ def bwn_weight(w):
     return _ste(w, torch.sign(w) * alpha)
 
 
-def ternary_weight(w, thresh_factor: float = 0.7):
+def ternary_weight(w, thresh_factor: float = 0.7, group=None):
     """Ternarize to {-a, 0, +a} with delta = factor * mean|w| and a the mean
-    |w| of the entries beyond delta."""
-    delta = thresh_factor * torch.mean(torch.abs(w))
+    |w| of the entries beyond delta. ``group``: ``w`` is this rank's block
+    of a tensor split over it, and both means are the whole tensor's, each
+    a sum and a count summed over the ranks (no gradient: the result is a
+    straight-through estimator)."""
+    if group is None:
+        delta = thresh_factor * torch.mean(torch.abs(w))
+    else:
+        s = all_reduce_nograd(torch.stack(
+            [torch.sum(torch.abs(w)), w.new_tensor(w.numel())]), group)
+        delta = thresh_factor * (s[0] / s[1])
     mask_pos = w > delta
     mask_neg = w < -delta
     nz = mask_pos | mask_neg
-    alpha = (torch.sum(torch.abs(w) * nz)
-             / torch.clamp_min(torch.sum(nz).to(w.dtype), 1))
+    mass = torch.stack([torch.sum(torch.abs(w) * nz),
+                        torch.sum(nz).to(w.dtype)])
+    if group is not None:
+        mass = all_reduce_nograd(mass, group)
+    alpha = mass[0] / torch.clamp_min(mass[1], 1)
     t = alpha * (mask_pos.to(w.dtype) - mask_neg.to(w.dtype))
     return _ste(w, t)
 

@@ -34,9 +34,10 @@ every rank computes the same statistics. Rank 0 prints and plots.
 
 A mesh with a model axis (tensor parallelism): ``params``/``state`` hold
 this rank's blocks of the split convs (``parallel.shard_state``), the
-model gathers each split conv's output over the model group, and the
-ranks of one data index evaluate the same rows; the gathers take the
-first rank of each model axis.
+model (or the quantized sim, its ``qw``/``qb`` hoisted from the blocks)
+gathers each split conv's output over the model group, and the ranks of
+one data index evaluate the same rows; the gathers take the first rank of
+each model axis. The int8 engine's plan is whole on every rank.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..compress.quant import prepare_eval_params, unported
+from ..compress.quant import prepare_eval_params
 from ..config import load_classes, parse_data_cfg
 from ..data.datasets import BatchLoader, DetectionDataset
 from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
@@ -122,6 +123,20 @@ def int8_engine_apply(net, params, state, qstate, qcfg, device):
     return _cached(key, (net, params, state, qstate), build)
 
 
+def _check_whole_plan(net, arrays):
+    """The int8 engine under a model axis runs its whole plan on every
+    rank: ``state_shardings`` splits none of its leaves (``w8`` and
+    ``bias`` are not the fields it splits, as in the JAX package, where
+    the plan is replicated), so every conv there, K2's included, is whole.
+    A plan built from a rank's blocks raises ValueError."""
+    for lyr in net.layers:
+        a = arrays.get(str(lyr.index), {})
+        if 'w8' in a and a['w8'].shape[0] != lyr.filters:
+            raise ValueError(f'layer {lyr.index}: the int8 engine runs whole '
+                             'on every rank of a model axis; build its plan '
+                             'from whole params (parallel.gather_state)')
+
+
 def _build_infer(net, params, state, qstate, *, quant_apply, anchor_vecs,
                  loss_hyp, want_loss, augment, sparse, fused, compute_dtype,
                  maxabsscaler, conf_thres, iou_thres, top_k, max_det,
@@ -135,6 +150,9 @@ def _build_infer(net, params, state, qstate, *, quant_apply, anchor_vecs,
                   max_det=max_det, multi_label=multi_label)
     yolos = [l for l in net.layers if l.kind == 'yolo']
     layout = 'anchor_major'
+    # a sim takes the model group of its split convs; the engine runs whole
+    qkw = {} if model_group is None or getattr(
+        quant_apply, 'qcfg', None) is None else {'model_group': model_group}
     if quant_apply is not None and sparse:
         # the sim's heads-only twin into the sparse NMS (row mode)
         h_apply = quant_apply.make_heads_only()
@@ -143,7 +161,7 @@ def _build_infer(net, params, state, qstate, *, quant_apply, anchor_vecs,
         strides = [l.yolo_stride for l in yolos]
 
         def fwd(x):
-            heads, objs = h_apply(params, state, qstate, x, False)
+            heads, objs = h_apply(params, state, qstate, x, False, **qkw)
             return (non_max_suppression_heads(heads, anchors, strides,
                                               yolos[0].no, objs=objs,
                                               **nms_kw),
@@ -154,7 +172,8 @@ def _build_infer(net, params, state, qstate, *, quant_apply, anchor_vecs,
         layout = getattr(quant_apply, 'head_layout', layout)
 
         def fwd(x):
-            io, yolo_p, _ = quant_apply(params, state, qstate, x, False)
+            io, yolo_p, _ = quant_apply(params, state, qstate, x, False,
+                                        **qkw)
             return non_max_suppression(io, **nms_kw), yolo_p
     else:
         model = eval_model(net, params, state, fused=fused,
@@ -272,8 +291,9 @@ def evaluate(net, params, state, data, *, batch_size=16, img_size=416,
     module docstring); ``batch_size`` is the global batch and divides by
     the data axis. It needs ``device_match`` and takes no ``save_json``,
     as in the JAX package. A mesh of one rank is the single-process path.
-    With a model axis the float model's params are split (module
-    docstring); a quantized apply raises ``NotImplementedError``.
+    With a model axis the params are split (module docstring), the float
+    model's and a quantized sim's alike; the int8 engine's plan runs whole
+    on every rank.
 
     ``t_inf`` is the host's time to queue the batches and to wait for their
     results; ``t_nms`` is 0 (NMS runs inside the timed step), as in the JAX
@@ -281,8 +301,9 @@ def evaluate(net, params, state, data, *, batch_size=16, img_size=416,
     pc = 1 if mesh is None else mesh.shape[DATA_AXIS]
     tp = 1 if mesh is None else mesh.shape[MODEL_AXIS]
     model_group = None if mesh is None else mesh.model_group
-    if model_group is not None and quant_apply is not None:
-        raise unported('a quantized evaluate under tensor parallelism')
+    if model_group is not None and quant_apply is not None \
+            and getattr(quant_apply, 'qcfg', None) is None:
+        _check_whole_plan(net, params)
     multiproc = pc > 1
     if multiproc:
         if save_json:
@@ -327,7 +348,7 @@ def evaluate(net, params, state, data, *, batch_size=16, img_size=416,
         # the sim's BN fold and weight quantization, once (the same floats)
         with torch.inference_mode():
             params = prepare_eval_params(net, quant_apply.qcfg, params, state,
-                                         qstate)
+                                         qstate, model_group)
     avecs = ([torch.as_tensor(a, dtype=torch.float32, device=device)
               for a in anchor_vecs] if want_loss else None)
     infer = _build_infer(

@@ -34,6 +34,7 @@ from ..ops import conv as conv_ops
 from ..ops.conv import CONV_BN_EPS, CONV_BN_MOM, LONE_BN_EPS, LONE_BN_MOM
 from ..parallel.collectives import (all_gather_dim, copy_to_model,
                                     gather_channels)
+from ..parallel.mesh import split_group
 from .yolo_head import decode_yolo_nhwc, reshape_pred
 
 SUPPORTED_KINDS = ('conv', 'depthwise', 'batchnorm', 'maxpool', 'se',
@@ -356,7 +357,7 @@ class Darknet(nn.Module):
             t = self.layer[str(lyr.index)]
             stride = lyr.stride_xy or lyr.stride
             w = self._c(t.w)
-            split = self.model_group is not None and w.shape[0] != lyr.filters
+            split = split_group(lyr, w, self.model_group) is not None
             prev, pad = conv_ops.conv_rows(prev, lyr.size, stride, lyr.pad, sp)
             if split:
                 prev = copy_to_model(prev, self.model_group)

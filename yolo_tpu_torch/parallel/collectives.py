@@ -13,7 +13,9 @@ operations as before.
 ``all_reduce`` is differentiable: its backward is an all-reduce of the
 gradient (rank r's loss depends on the other ranks' activations through
 the shared statistic, so the gradient of that statistic is the sum of
-every rank's). The others run without a gradient, but for the two of
+every rank's). So is ``all_reduce_max``, the maximum of a tensor split
+over a group (DoReFa's weight scale under tensor parallelism). The others
+run without a gradient, but for the two of
 tensor parallelism over the model group (``Mesh.model_group``), which a
 sharded conv runs around itself (``models/network.py``):
 ``copy_to_model`` (the identity; its backward sums the input's gradient
@@ -82,6 +84,39 @@ def all_reduce_nograd(x, group, op: str = 'sum'):
     y = x.detach().contiguous().clone()
     dist.all_reduce(y, op=_OPS[op], group=group)
     return y
+
+
+class _AllReduceMax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        m = x.detach().max()
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        hit = x.detach() == m
+        n = hit.sum().to(torch.float32)
+        dist.all_reduce(n, group=group)
+        ctx.save_for_backward(hit, n)
+        ctx.group = group
+        return m
+
+    @staticmethod
+    def backward(ctx, g):
+        hit, n = ctx.saved_tensors
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return hit.to(g.dtype) * (g / n), None
+
+
+def all_reduce_max(x, group):
+    """The largest element of ``x`` and of the other ranks' tensors of
+    ``group``, differentiable as ``jnp.max`` of the whole: the gradient,
+    summed over the group (each rank's covers the uses of the maximum in
+    its own block), goes in equal shares to every element equal to the
+    maximum, the ties on all ranks counted. Two collectives forward, one
+    backward; without a group, ``torch.max`` (whose backward splits ties
+    the same way)."""
+    if group is None:
+        return torch.max(x)
+    return _AllReduceMax.apply(x, group)
 
 
 def batch_moments(x, dims, group, one_pass: bool):

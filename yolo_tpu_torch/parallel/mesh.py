@@ -201,6 +201,16 @@ def _tp_spec(net, tp: int, layer_idx: int, fld: str, shape) -> tuple:
     return ()
 
 
+def split_group(lyr, w, model_group):
+    """``model_group`` if the weight ``w`` of the conv ``lyr`` holds a block
+    of its filters (``shard_state`` split it over the group), else None:
+    such a conv runs its block between ``copy_to_model`` and
+    ``gather_channels``, in the float model and in the quantized sim."""
+    if model_group is None or w.shape[0] == lyr.filters:
+        return None
+    return model_group
+
+
 def state_shardings(mesh: Mesh, net, tree):
     """The ``Sharding`` of every leaf of a params-shaped tree (params, BN
     state, optimizer moments, EMA) by path pattern, as JAX's: a dict key
@@ -286,9 +296,9 @@ def gather_state(mesh: Mesh, net, tree: dict) -> dict:
     for k, d in tree.items():
         out[k] = {}
         for f, t in d.items():
-            whole = t.shape[0] * tp
-            if _tp_spec(net, tp, int(k), f,
-                        (whole,) + tuple(t.shape[1:])):
+            whole = (t.shape[0] * tp,) + tuple(t.shape[1:]) if t.dim() \
+                else ()
+            if _tp_spec(net, tp, int(k), f, whole):
                 t = all_gather_dim(t, 0, mesh.model_group)
             out[k][f] = t.detach()
     return out

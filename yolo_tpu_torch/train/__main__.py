@@ -39,17 +39,14 @@ of a host with c cards trains on ``cuda:{r % c}``. ``--batch-size`` is the
 global batch. Without ``--coordinator`` the process trains alone, as with
 ``--no-mesh``. ``--tp K`` splits the job's ranks into a (data, model) mesh
 with a model axis of K: the output channels of the convs whose filters
-divide by K are split over it (tensor parallelism); with one process it is
-ignored, as in the JAX package. ``--remat blocks|full`` recomputes
-activations in the backward (``blocks``: all but the block boundaries).
-
-``--tp`` with ``--quantized`` is not ported and raises
-``NotImplementedError`` (see ROADMAP.md), before the process joins a job.
+divide by K are split over it (tensor parallelism), QAT's
+(``--quantized``) included; with one process it is ignored, as in the JAX
+package. ``--remat blocks|full`` recomputes activations in the backward
+(``blocks``: all but the block boundaries).
 """
 
 from __future__ import annotations
 
-from ..compress.quant import unported
 from ..parallel.multihost import process_index
 from ..utils.cli import FlexParser
 
@@ -138,10 +135,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     opt = parse_args(argv)
-    # what is not ported raises before the process joins a job
-    if opt.tp > 1 and opt.quantized != -1:
-        raise unported(f'QAT under tensor parallelism (--tp {opt.tp} with '
-                       f'--quantized {opt.quantized})')
     if opt.coordinator:
         from ..parallel import init_multihost
         if opt.coordinator == 'auto':

@@ -59,8 +59,11 @@ load the same rows (``process_shard`` over the data axis). Each epoch's
 ``evaluate`` runs on the split EMA pair; the checkpoints hold whole
 tensors, gathered over the model group on every rank and written by rank
 0, so that JAX's loader and one process read them, and ``resume`` splits
-them again. ``tp`` with ``quantized`` raises ``NotImplementedError`` (see
-ROADMAP.md).
+them again. QAT under a model axis (``tp`` with ``quantized``) steps the
+quant apply with the model group (``trainer.py``): ``qstate`` and TPSQ's
+scales stay whole on every rank, the TPSQ warmup runs on the whole params
+before the state is split, each epoch's ``evaluate`` runs the sim on the
+split EMA pair, and the checkpoints hold ``qstate`` as one process's.
 
 ``remat`` ('none', 'blocks', 'full') reaches ``make_train_functions``.
 """
@@ -80,7 +83,7 @@ import torch.nn.functional as F
 
 from ..compress.prune import (prunable_sets_layer, prunable_sets_normal,
                               prunable_sets_shortcut)
-from ..compress.quant import make_quant_apply, tpsq_warmup, unported
+from ..compress.quant import make_quant_apply, tpsq_warmup
 from ..config import load_hyp, parse_data_cfg
 from ..convert import (from_jax, opt_state_from_jax, opt_state_to_jax,
                        qstate_to_jax, to_jax)
@@ -171,9 +174,6 @@ def _check_options(opt: TrainOptions):
         if opt.rect:
             raise ValueError('--device-aug needs square letterboxed '
                              'batches: no --rect')
-    if opt.tp > 1 and opt.quantized != -1:
-        raise unported(f'QAT under tensor parallelism (--tp {opt.tp} with '
-                       f'--quantized {opt.quantized})')
 
 
 def resize_batch(x, size: int):

@@ -42,9 +42,13 @@ over the data group, then averages over the model group what every rank
 of it holds whole (the gradients and BN statistics of the convs that are
 not split): each rank computed its own copy, and a backward that sums in
 another order on one rank would otherwise set the copies apart for good.
-QAT under a model axis raises ``NotImplementedError`` (its apply is a
-forward of its own, whose per-tensor trackers would need a maximum over
-the model group; see ROADMAP.md). A batch split by rows
+QAT under a model axis runs the quant apply with the model group
+(``make_quant_apply``'s ``model_group``): each split conv runs its block
+and gathers its activation before the quantizer, and the per-tensor
+reductions of its weight span the model group, so the quantizer state
+comes out the same on every rank of the group; TPSQ's scales of a split
+conv, whole on every rank, get the gradient of the whole tensor there
+(``copy_to_model``). A batch split by rows
 (``parallel.shard_spatial``) is for inference alone.
 
 ``remat`` (JAX's policies): 'blocks' recomputes in the backward every run
@@ -64,7 +68,6 @@ import torch
 
 from torch.utils.checkpoint import checkpoint
 
-from ..compress.quant import unported
 from ..ir import NetworkIR
 from ..models.network import Darknet
 from .ema import EMAState, ema_init, ema_update
@@ -179,10 +182,6 @@ def make_train_functions(net: NetworkIR, anchor_vecs, nc: int, hyp: LossHyp,
         remat = 'full'
     elif remat != 'blocks':
         raise ValueError(f'remat={remat!r}: none, blocks or full')
-    if quant_apply is not None and mesh is not None \
-            and mesh.model_group is not None:
-        raise unported('QAT under tensor parallelism (--tp with '
-                       '--quantized)')
     anchors: dict = {}
     group = None if mesh is None else mesh.data_group
     model_group = None if mesh is None else mesh.model_group
@@ -210,10 +209,10 @@ def make_train_functions(net: NetworkIR, anchor_vecs, nc: int, hyp: LossHyp,
                 imgs, head_layout=layout, group=group, remat=remat)
         else:
             args = (state.params, state.bn_state, state.qstate, imgs, True)
+            kw = dict(group=group, model_group=model_group)
             (yolo_p, feats), new_bn, new_q = (
-                quant_apply(*args, group=group) if remat is None else
-                checkpoint(quant_apply, *args, group=group,
-                           use_reentrant=False))
+                quant_apply(*args, **kw) if remat is None else
+                checkpoint(quant_apply, *args, **kw, use_reentrant=False))
             state.qstate = _tree_detach(new_q)
         loss, items = compute_loss(yolo_p, targets, valid, anchors[dev], nc,
                                    hyp, gr, layout=layout, group=group)
