@@ -1,0 +1,8 @@
+"""The share of the traced stretch of training in which no operation ran
+on the device."""
+
+
+def read(rec):
+    if rec['driver'] != 'train' or rec['window_s'] <= 0:
+        return None
+    return 100.0 * (1.0 - rec['busy_s'] / rec['window_s'])
