@@ -482,7 +482,7 @@ def candidate_arrays(rng, bs, k, chain=0):
 
 def candidates(rng, bs, k, dev, chain=0):
     """``candidate_arrays`` on ``dev`` with the invalid rows zeroed and the
-    scores times valid, as ``_suppress_and_finalize`` hands them to K1."""
+    scores times valid, as ``_suppress_pairs`` hands them to K1."""
     boxes, scores, valid = candidate_arrays(rng, bs, k, chain)
     valid = torch.from_numpy(valid).to(dev)
     boxes = torch.where(valid[..., None], torch.from_numpy(boxes).to(dev), 0.0)
@@ -718,6 +718,7 @@ def phase_pipeline(dev, card):
     from yolo_tpu_torch import runtime
     from yolo_tpu_torch.ops import nms
     from yolo_tpu_torch.ops.nms_suppress import suppress
+    from yolo_tpu_torch.utils.profiler import counter, reset
 
     def bundle(device, dtype):
         return runtime.load_model(
@@ -729,10 +730,10 @@ def phase_pipeline(dev, card):
     infer = {s: b16.make_infer(sparse=s, **kw) for s in (False, True)}
     x = runtime.preprocess(images(1, BS, SIZE), device=dev)
 
-    suppress.launches = 0
+    reset()
     dets = {s: infer[s](x) for s in (False, True)}
     torch.cuda.synchronize()
-    launches = suppress.launches
+    launches = counter('k1.launches')
     check(launches == 2, f'main path launched the NMS kernel ({launches} '
           'launches for one dense and one sparse batch)')
     for s, d in dets.items():
@@ -771,8 +772,9 @@ def phase_pipeline(dev, card):
 
         # K1 on the exact candidate set the dense path hands it: class-offset
         # boxes at conf 0.001, every one of the 512 slots filled
-        boxes, oboxes, cand, _, valid = nms._candidates(
-            io, CONF_THRES, kw['top_k'], True, False)
+        boxes, oboxes, cand, _, valid = nms._pairs(
+            *nms._candidates(io, CONF_THRES, kw['top_k']), CONF_THRES,
+            kw['top_k'], True, False)
         zero = lambda t: torch.where(valid[..., None], t, 0.0).contiguous()
         args = (zero(oboxes), zero(boxes), (cand * valid).contiguous(),
                 valid.contiguous())
@@ -1009,19 +1011,19 @@ def int8_checks(b, x):
     from yolo_tpu_torch.compress.quant import make_quant_apply
     from yolo_tpu_torch.models.int8_engine import make_int8_apply, prepare_int8
     from yolo_tpu_torch.ops import nms
-    from yolo_tpu_torch.ops.conv_int8 import (float_edge_conv, fused_conv_int8,
+    from yolo_tpu_torch.ops.conv_int8 import (float_edge_conv,
                                               fused_conv_int8_reference,
                                               grouped_conv_int8)
-    from yolo_tpu_torch.ops.nms_suppress import suppress
+    from yolo_tpu_torch.utils.profiler import counter, reset
     sync = torch.cuda.synchronize if x.is_cuda else (lambda: None)
     kw = dict(conf_thres=CONF_THRES, iou_thres=0.6, top_k=512, max_det=300)
     infer = b.make_infer(**kw)
-    suppress.launches = fused_conv_int8.launches = 0
+    reset()
     grouped_conv_int8.calls = float_edge_conv.calls = 0
     dets = infer(x)
     sync()
-    launches = {'nms_suppress': suppress.launches,
-                'conv_int8': fused_conv_int8.launches,
+    launches = {'nms_suppress': counter('k1.launches'),
+                'conv_int8': counter('k2.launches'),
                 'grouped_conv_int8': grouped_conv_int8.calls,
                 'float_edge_conv': float_edge_conv.calls}
     bs = x.shape[0]
@@ -1363,18 +1365,17 @@ def timed_eval(net, params, state, loader, dev, data=DATA, **kw):
     with every launch count zeroed just before it; returns (its result,
     the launches of the run, wall s)."""
     from yolo_tpu_torch.eval.evaluator import evaluate
-    from yolo_tpu_torch.ops.conv_int8 import fused_conv_int8
-    from yolo_tpu_torch.ops.nms_suppress import suppress
+    from yolo_tpu_torch.utils.profiler import counter, reset
     sync = torch.cuda.synchronize if dev.type == 'cuda' else (lambda: None)
     sync()
-    suppress.launches = fused_conv_int8.launches = 0
+    reset()
     t0 = time.perf_counter()
     out = evaluate(net, params, state, data, batch_size=BS, img_size=SIZE,
                    loader=loader, device=dev, **kw)
     sync()
     wall = time.perf_counter() - t0
-    return out, {'nms_suppress': suppress.launches,
-                 'conv_int8': fused_conv_int8.launches}, wall
+    return out, {'nms_suppress': counter('k1.launches'),
+                 'conv_int8': counter('k2.launches')}, wall
 
 
 class EventWaits:
@@ -1606,7 +1607,7 @@ def float_serving(dev, card, cfg, size, conv_scale, what):
     the forward alone and a profile. Returns (K1 launches, the unfused
     bundle, the batch, its detections)."""
     from yolo_tpu_torch import runtime
-    from yolo_tpu_torch.ops.nms_suppress import suppress
+    from yolo_tpu_torch.utils.profiler import counter, reset
 
     def bundle(device, dtype):
         return runtime.load_model(cfg, device=device, dtype=dtype,
@@ -1620,10 +1621,10 @@ def float_serving(dev, card, cfg, size, conv_scale, what):
     x = runtime.preprocess(images(21, BS, size), device=dev)
     infer(x)
     torch.cuda.synchronize()
-    suppress.launches = 0
+    reset()
     dets = infer(x)
     torch.cuda.synchronize()
-    launches = suppress.launches
+    launches = counter('k1.launches')
     check(launches == 1, f'{what}: main path launched K1 {launches} time(s) '
           'for one batch')
     n = int((dets[..., 4] > 0).sum())
@@ -1658,7 +1659,7 @@ def tta_serving(dev, card):
     batch on the merged io of the three passes, timed in turns against the
     single pass. Returns the K1 launches of one batch."""
     from yolo_tpu_torch import runtime
-    from yolo_tpu_torch.ops.nms_suppress import suppress
+    from yolo_tpu_torch.utils.profiler import counter, reset
     b16 = runtime.load_model(CFG, device=dev, conv_scale=CONV_SCALE,
                              generator=torch.Generator().manual_seed(0)).fuse()
     kw = dict(conf_thres=CONF_THRES, iou_thres=0.6, top_k=512, max_det=300)
@@ -1671,10 +1672,10 @@ def tta_serving(dev, card):
           '(22743 + 16128 + 12348)')
     infer['tta'](x)
     torch.cuda.synchronize()
-    suppress.launches = 0
+    reset()
     dets = infer['tta'](x)
     torch.cuda.synchronize()
-    launches = suppress.launches
+    launches = counter('k1.launches')
     check(launches == 1, f'TTA: main path launched K1 {launches} time(s) for '
           'one batch')
     n = int((dets[..., 4] > 0).sum())
@@ -2486,8 +2487,8 @@ def train_child(root, dev):
     from yolo_tpu_torch import runtime
     from yolo_tpu_torch.config import DEFAULT_HYP
     from yolo_tpu_torch.data.datasets import BatchLoader, DetectionDataset
-    from yolo_tpu_torch.ops.nms_suppress import suppress
     from yolo_tpu_torch.train import loop
+    from yolo_tpu_torch.utils.profiler import counter, reset
     card = device_setup() if dev.type == 'cuda' else 'the CPU'
     sync = torch.cuda.synchronize if dev.type == 'cuda' else (lambda: None)
     t_phase = time.perf_counter()
@@ -2537,13 +2538,13 @@ def train_child(root, dev):
     with patched({'evaluate': (loop, 'evaluate'),
                   'save': (loop, 'save_train_checkpoint')}, timed):
         sync()
-        suppress.launches = 0
+        reset()
         t0 = time.perf_counter()
         loop.run_training(loop.TrainOptions(weights=init,
                                             epochs=TRAIN_EPOCHS, **opts))
         sync()
         wall = time.perf_counter() - t0
-        k1 = suppress.launches
+        k1 = counter('k1.launches')
     n_eval_batches = TRAIN_EPOCHS * TRAIN_IMAGES // max(BS // 4, 1)
     want = n_eval_batches if dev.type == 'cuda' else 0
     check(k1 == want, f'(c) K1 launched {k1} times in the loop\'s evaluate '
@@ -2865,8 +2866,8 @@ def ptq_yolov4(root, dev, card, out):
     from yolo_tpu_torch.models.int8_engine import make_int8_apply, prepare_int8
     from yolo_tpu_torch.ops.conv_int8 import fused_conv_int8
     from yolo_tpu_torch.ops.nms import non_max_suppression
-    from yolo_tpu_torch.ops.nms_suppress import suppress
     from yolo_tpu_torch.utils.checkpoint import save_checkpoint
+    from yolo_tpu_torch.utils.profiler import counter, reset
     sync = torch.cuda.synchronize
     kw = dict(conf_thres=CONF_THRES, iou_thres=0.6, top_k=512, max_det=300)
     t0 = time.perf_counter()
@@ -2889,12 +2890,12 @@ def ptq_yolov4(root, dev, card, out):
         if label == 'evaluate':
             def call(*a, **k):
                 sync()
-                suppress.launches = fused_conv_int8.launches = 0
+                reset()
                 t = time.perf_counter()
                 r = fn(*a, **k)
                 sync()
-                evals.append((r, {'nms_suppress': suppress.launches,
-                                  'conv_int8': fused_conv_int8.launches},
+                evals.append((r, {'nms_suppress': counter('k1.launches'),
+                                  'conv_int8': counter('k2.launches')},
                               time.perf_counter() - t))
                 return r
         elif label == 'load':
@@ -2982,11 +2983,11 @@ def ptq_yolov4(root, dev, card, out):
     # (b) the engine on the card: the main path with zeroed counts
     infer = qb.make_infer(**kw)
     sync()
-    suppress.launches = fused_conv_int8.launches = 0
+    reset()
     dets = infer(x)
     sync()
-    la = {'nms_suppress': suppress.launches,
-          'conv_int8': fused_conv_int8.launches}
+    la = {'nms_suppress': counter('k1.launches'),
+          'conv_int8': counter('k2.launches')}
     check(la['conv_int8'] == n_conv - 1 and la['nms_suppress'] == 1
           and bool(torch.isfinite(dets).all()),
           f'(b) yolov4 ptq_cos engine, one batch: K2 {la["conv_int8"]} '
@@ -3225,8 +3226,8 @@ def tpsq_yolov3(dev, card, out):
     from yolo_tpu_torch import runtime
     from yolo_tpu_torch.compress.quant import tpsq_warmup
     from yolo_tpu_torch.models.int8_engine import prepare_int8
-    from yolo_tpu_torch.ops.conv_int8 import float_edge_conv, fused_conv_int8
-    from yolo_tpu_torch.ops.nms_suppress import suppress
+    from yolo_tpu_torch.ops.conv_int8 import float_edge_conv
+    from yolo_tpu_torch.utils.profiler import counter, reset
     b = runtime.load_model(CFG, device=dev, quantized=2, steps=100,
                            conv_scale=CONV_SCALE,
                            generator=torch.Generator().manual_seed(0))
@@ -3250,11 +3251,12 @@ def tpsq_yolov3(dev, card, out):
     kw = dict(conf_thres=CONF_THRES, iou_thres=0.6, top_k=512, max_det=300)
     infer = b.make_infer(engine=True, **kw)
     torch.cuda.synchronize()
-    suppress.launches = fused_conv_int8.launches = float_edge_conv.calls = 0
+    reset()
+    float_edge_conv.calls = 0
     dets = infer(x)
     torch.cuda.synchronize()
-    la = {'nms_suppress': suppress.launches,
-          'conv_int8': fused_conv_int8.launches,
+    la = {'nms_suppress': counter('k1.launches'),
+          'conv_int8': counter('k2.launches'),
           'float_edge_conv': float_edge_conv.calls}
     n_conv = sum(l.kind == 'conv' for l in b.net.layers)
     check(la['conv_int8'] + la['float_edge_conv'] == n_conv
@@ -3284,9 +3286,9 @@ def qat_loop(root, dev, card, data, per_image, out):
     JPEG files for 2 epochs, then a resume for a third."""
     from yolo_tpu_torch import runtime
     from yolo_tpu_torch.convert import to_jax
-    from yolo_tpu_torch.ops.nms_suppress import suppress
     from yolo_tpu_torch.train import loop
     from yolo_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+    from yolo_tpu_torch.utils.profiler import counter, reset
     raw = runtime.load_model(CFG, device=dev, conv_scale=CONV_SCALE,
                              generator=torch.Generator().manual_seed(0))
     init = os.path.join(root, 'yolov3.npz')
@@ -3304,13 +3306,13 @@ def qat_loop(root, dev, card, data, per_image, out):
                 log_fn=lambda m: logged.append(m))
     n_eval = TRAIN_EPOCHS * PTQ_IMAGES // max(BS // 4, 1)
     torch.cuda.synchronize()
-    suppress.launches = 0
+    reset()
     t0 = time.perf_counter()
     loop.run_training(loop.TrainOptions(weights=init, epochs=TRAIN_EPOCHS,
                                         **opts))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k1 = suppress.launches
+    k1 = counter('k1.launches')
     rows = np.loadtxt(opts['results_file'], ndmin=2)
     last = os.path.join(work, 'weights', 'last.npz')
     ck = load_checkpoint(last)
@@ -3649,8 +3651,8 @@ def kd_cli(setup, root, dev, card):
     KD5 term's box L2 on random heads is large, and the burn-in's bias lr
     of 0.1 took the student to NaN in the second epoch, on the card.)"""
     from yolo_tpu_torch import runtime
-    from yolo_tpu_torch.ops.nms_suppress import suppress
     from yolo_tpu_torch.train.__main__ import main
+    from yolo_tpu_torch.utils.profiler import counter, reset
     work = os.path.join(root, 'kd')
     os.makedirs(work)
     os.chdir(work)
@@ -3661,13 +3663,13 @@ def kd_cli(setup, root, dev, card):
             '--max-targets', str(4 * setup['per_image'] * BS),
             '--device', str(dev)]
     torch.cuda.synchronize()
-    suppress.launches = 0
+    reset()
     t0 = time.perf_counter()
     with TimedLines() as tl:
         main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k1 = suppress.launches
+    k1 = counter('k1.launches')
     n_eval = KD_EPOCHS * KD_IMAGES // max(BS // 4, 1)
     rows = np.loadtxt('results.txt', ndmin=2)
     check(k1 == n_eval and rows.shape == (KD_EPOCHS, 12)
@@ -3698,8 +3700,8 @@ def kd_cli(setup, root, dev, card):
 def evolve_cli(setup, root, dev):
     """(e) ``--evolve`` twice, 1 epoch on 16 of the files: evolve.txt holds
     2 rows of 7 results + 18 hyps, and no checkpoint."""
-    from yolo_tpu_torch.ops.nms_suppress import suppress
     from yolo_tpu_torch.train.__main__ import main
+    from yolo_tpu_torch.utils.profiler import counter, reset
     work = os.path.join(root, 'evolve')
     os.makedirs(work)
     os.chdir(work)
@@ -3710,7 +3712,7 @@ def evolve_cli(setup, root, dev):
         f.write(f'classes=80\ntrain={work}/list.txt\nvalid={work}/list.txt\n'
                 f'names={ROOT}/data_cfg/coco.names\n')
     t0 = time.perf_counter()
-    suppress.launches = 0
+    reset()
     for _ in range(2):
         main(['--cfg', setup['s_cfg'], '--weights', setup['s_w'], '--data',
               'set.data', '--epochs', '1', '--batch-size', str(BS),
@@ -3718,7 +3720,7 @@ def evolve_cli(setup, root, dev):
               str(4 * setup['per_image'] * BS), '--evolve', '--device',
               str(dev)])
     rows = np.loadtxt('evolve.txt', ndmin=2)
-    k1 = suppress.launches
+    k1 = counter('k1.launches')
     check(rows.shape[0] == 2 and rows.shape[1] >= 25
           and not os.path.exists('weights/best.npz')
           and not os.path.exists('weights/last.npz')
@@ -3739,9 +3741,8 @@ def fpga_export(setup, root, dev, card):
     from yolo_tpu_torch.compress import fpga_export as FE
     from yolo_tpu_torch.convert import qstate_to_jax, to_jax
     from yolo_tpu_torch.data.datasets import LoadImages
-    from yolo_tpu_torch.ops.conv_int8 import fused_conv_int8
-    from yolo_tpu_torch.ops.nms_suppress import suppress
     from yolo_tpu_torch.utils.checkpoint import save_checkpoint
+    from yolo_tpu_torch.utils.profiler import counter, reset
     out = {'conv_int8': 0, 'nms_suppress': 0}
     qb, _ = int8_bundle(dev, BS, SIZE)
     q = os.path.join(root, 'q.npz')
@@ -3802,7 +3803,7 @@ def fpga_export(setup, root, dev, card):
         os.makedirs(work)
         os.chdir(work)
         torch.cuda.synchronize()
-        suppress.launches = fused_conv_int8.launches = 0
+        reset()
         t0 = time.perf_counter()
         detect.main(['--cfg', CFG, '--data', setup['data'], '--weights', q,
                      '--quantized', '1', '--source', jpeg, '--img-size',
@@ -3810,8 +3811,8 @@ def fpga_export(setup, root, dev, card):
                      '--layer_idx', str(L), '--device', str(dev)])
         torch.cuda.synchronize()
         t_det = time.perf_counter() - t0
-        la = {'conv_int8': fused_conv_int8.launches,
-              'nms_suppress': suppress.launches}
+        la = {'conv_int8': counter('k2.launches'),
+              'nms_suppress': counter('k1.launches')}
         name = f'{L:04d}_conv'
         card_dir = os.path.join(work, 'quantizer_output')
         cpu_dir = os.path.join(root, f'cpu_{L}')
@@ -4113,8 +4114,8 @@ def device_aug_cli(root, dev, card, data, init, per_image):
     per eval batch, a finite results row, images/s from its batch lines."""
     from yolo_tpu_torch.config import parse_data_cfg
     from yolo_tpu_torch.data import device_aug
-    from yolo_tpu_torch.ops.nms_suppress import suppress
     from yolo_tpu_torch.train.__main__ import main
+    from yolo_tpu_torch.utils.profiler import counter, reset
     work = os.path.join(root, 'train')
     os.makedirs(work)
     os.chdir(work)
@@ -4133,14 +4134,14 @@ def device_aug_cli(root, dev, card, data, init, per_image):
             return fn(*a, **k)
         return call
     torch.cuda.synchronize()
-    suppress.launches = 0
+    reset()
     t0 = time.perf_counter()
     with patched({'aug': (device_aug.DeviceAugment, '__call__')}, counted), \
             TimedLines() as tl:
         main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k1 = suppress.launches
+    k1 = counter('k1.launches')
     n_eval = DATA_IMAGES // max(BS // 4, 1)
     nb = DATA_IMAGES // BS
     rows = np.loadtxt('results.txt', ndmin=2)
@@ -4170,7 +4171,7 @@ def stream_detect(root, dev, init, data):
     import cv2
     from yolo_tpu_torch.data import datasets as D
     from yolo_tpu_torch.detect import main
-    from yolo_tpu_torch.ops.nms_suppress import suppress
+    from yolo_tpu_torch.utils.profiler import counter, reset
     work = os.path.join(root, 'streams')
     os.makedirs(work)
     h, w = STREAM_HW
@@ -4202,12 +4203,12 @@ def stream_detect(root, dev, init, data):
     D.LoadStreams = Capped
     try:
         torch.cuda.synchronize()
-        suppress.launches = 0
+        reset()
         t0 = time.perf_counter()
         main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        k1 = suppress.launches
+        k1 = counter('k1.launches')
     finally:
         D.LoadStreams = saved
     per = {}
@@ -4361,13 +4362,13 @@ def dp_rank(rank, port, root):
     from yolo_tpu_torch import runtime
     from yolo_tpu_torch.ir import build_ir
     from yolo_tpu_torch.models.network import init_params
-    from yolo_tpu_torch.ops.nms_suppress import suppress
     from yolo_tpu_torch.parallel import (allgather_host_values,
                                          init_multihost, make_mesh)
     from yolo_tpu_torch.parallel.collectives import (all_reduce_nograd,
                                                      sum_gradients)
     from yolo_tpu_torch.train import trainer
     from yolo_tpu_torch.train.trainer import init_train_state
+    from yolo_tpu_torch.utils.profiler import counter, reset
     dev = init_multihost(f'localhost:{port}', DP_RANKS, rank)
     device_setup()
     mesh = make_mesh(dev)
@@ -4435,7 +4436,7 @@ def dp_rank(rank, port, root):
     os.chdir(os.path.join(root, f'rank{rank}'))
     for tag, dtype in (('bf16', torch.bfloat16), ('f32', torch.float32)):
         torch.cuda.synchronize()
-        suppress.launches = 0
+        reset()
         t0 = time.perf_counter()
         res, maps, _ = evaluate(
             b.net, b.params, b.state, os.path.join(root, 'set', 'set.data'),
@@ -4447,7 +4448,7 @@ def dp_rank(rank, port, root):
             plot=tag == 'bf16')
         torch.cuda.synchronize()
         out[f'eval_{tag}'] = {'s': time.perf_counter() - t0,
-                              'k1': suppress.launches,
+                              'k1': counter('k1.launches'),
                               'res': [float(v) for v in res],
                               'maps': [float(v) for v in maps]}
     dist.destroy_process_group()
@@ -4465,12 +4466,12 @@ def dp_cli_rank(rank, port, root, name='cli', extra=()):
     """(b) rank ``rank`` of ``python -m yolo_tpu_torch.train --coordinator``
     (its ``main``) with ``root/cli.json``'s argv and ``extra``, in
     ``root/{name}{rank}``; writes ``root/{name}{rank}.json``."""
-    from yolo_tpu_torch.ops.nms_suppress import suppress
     from yolo_tpu_torch.train.__main__ import main
+    from yolo_tpu_torch.utils.profiler import counter, reset
     with open(os.path.join(root, 'cli.json')) as f:
         cfg = json.load(f)
     os.chdir(os.path.join(root, f'{name}{rank}'))
-    suppress.launches = 0
+    reset()
     t0 = time.perf_counter()
     with TimedLines() as tl:
         main(cfg['argv'] + list(extra) + [
@@ -4481,7 +4482,8 @@ def dp_cli_rank(rank, port, root, name='cli', extra=()):
              if m.lstrip().startswith('epoch ') and ' batch ' in m]
     nb = len(lines)
     with open(os.path.join(root, f'{name}{rank}.json'), 'w') as f:
-        json.dump({'s': time.perf_counter() - t0, 'k1': suppress.launches,
+        json.dump({'s': time.perf_counter() - t0,
+                   'k1': counter('k1.launches'),
                    'totals': [m.split(' total ')[1].split()[0]
                               for _, m in lines],
                    'images_per_s': (nb - 1) * BS / (lines[-1][0]
@@ -4499,19 +4501,19 @@ def dp_nccl(root):
     import torch.distributed as dist
     from yolo_tpu_torch.ir import build_ir
     from yolo_tpu_torch.models.network import init_params
-    from yolo_tpu_torch.ops.nms_suppress import suppress
     from yolo_tpu_torch.parallel import Mesh
     from yolo_tpu_torch.train.__main__ import main
     from yolo_tpu_torch.train.trainer import init_train_state
+    from yolo_tpu_torch.utils.profiler import counter, reset
     device_setup()
     with open(os.path.join(root, 'cli.json')) as f:
         cfg = json.load(f)
     from yolo_tpu_torch.parallel import init_multihost
     os.chdir(os.path.join(root, 'nccl'))
-    suppress.launches = 0
+    reset()
     main(cfg['argv_nccl'] + ['--coordinator', 'auto'])
     torch.cuda.synchronize()
-    out = {'k1': suppress.launches,
+    out = {'k1': counter('k1.launches'),
            'rows': np.loadtxt('results.txt', ndmin=2).tolist()}
     # the CLI left the job at its end: join a new one on another port
     os.environ['MASTER_PORT'] = str(free_ports(1)[0])
@@ -4618,10 +4620,10 @@ def dp_child(root, dev):
     from yolo_tpu_torch.eval.evaluator import evaluate
     from yolo_tpu_torch.ir import build_ir
     from yolo_tpu_torch.models.network import init_params
-    from yolo_tpu_torch.ops.nms_suppress import suppress
     from yolo_tpu_torch.train import loop
     from yolo_tpu_torch.train.__main__ import main
     from yolo_tpu_torch.train.trainer import init_train_state
+    from yolo_tpu_torch.utils.profiler import counter, reset
     card = device_setup()
     t_phase = time.perf_counter()
     out = {'seconds': {}, 'card': card}
@@ -4784,13 +4786,13 @@ def dp_child(root, dev):
     saved = loop.DetectionDataset, loop.BatchLoader
     loop.DetectionDataset, loop.BatchLoader = ds_cls, loader_cls
     os.chdir(os.path.join(root, 'single'))
-    suppress.launches = 0
+    reset()
     try:
         main(dp_cli_argv(data, init, per_image) + ['--no-mesh'])
     finally:
         loop.DetectionDataset, loop.BatchLoader = saved
     torch.cuda.synchronize()
-    k1_single = suppress.launches
+    k1_single = counter('k1.launches')
     one = np.loadtxt('results.txt', ndmin=2)
     check(np.allclose(rows[:, 1:5], one[:, 1:5], **DP_CLI_TOL),
           f'(b) the epoch losses {np.round(rows[0, 1:5], 5).tolist()} '
@@ -5065,12 +5067,11 @@ def tp_qat(root, dev, mesh=None, qb=None):
     from yolo_tpu_torch.config import DEFAULT_HYP, parse_data_cfg
     from yolo_tpu_torch.data.datasets import DetectionDataset
     from yolo_tpu_torch.eval.evaluator import evaluate, int8_engine_apply
-    from yolo_tpu_torch.ops.conv_int8 import fused_conv_int8
-    from yolo_tpu_torch.ops.nms_suppress import suppress
     from yolo_tpu_torch.parallel import (allgather_host_values,
                                          gather_state, shard_state)
     from yolo_tpu_torch.train.loss import LossHyp
     from yolo_tpu_torch.train.trainer import init_train_state
+    from yolo_tpu_torch.utils.profiler import counter
     tag = 'one' if mesh is None else 'tp'
     lead = mesh is None or dist.get_rank() == 0
     same = ((lambda d: True) if mesh is None else
@@ -5147,7 +5148,7 @@ def tp_qat(root, dev, mesh=None, qb=None):
     data = os.path.join(root, 'set', 'half.data')
     for what, args in (('sim', (params, st, qb.quant_apply(), qb.qstate)),
                        ('engine', (plan, {}, engine, None))):
-        k1, k2 = suppress.launches, fused_conv_int8.launches
+        k1, k2 = counter('k1.launches'), counter('k2.launches')
         t1 = time.perf_counter()
         res, maps, _ = evaluate(
             qb.net, args[0], args[1], data, batch_size=BS, img_size=SIZE,
@@ -5159,8 +5160,8 @@ def tp_qat(root, dev, mesh=None, qb=None):
                          for l in qb.net.layers if l.kind == 'yolo'])
         torch.cuda.synchronize()
         out[f'eval_{what}'] = {'s': time.perf_counter() - t1,
-                               'k1': suppress.launches - k1,
-                               'k2': fused_conv_int8.launches - k2,
+                               'k1': counter('k1.launches') - k1,
+                               'k2': counter('k2.launches') - k2,
                                'res': [float(v) for v in res],
                                'maps': [float(v) for v in maps]}
     # the sim's head maps on the first eval batch as codes of their
@@ -5345,8 +5346,6 @@ def tp_rank(rank, port, root):
     from yolo_tpu_torch.eval.evaluator import evaluate
     from yolo_tpu_torch.ir import build_ir
     from yolo_tpu_torch.models.network import Darknet, init_params
-    from yolo_tpu_torch.ops.conv_int8 import fused_conv_int8
-    from yolo_tpu_torch.ops.nms_suppress import suppress
     from yolo_tpu_torch.parallel import (MODEL_AXIS, allgather_host_values,
                                          gather_state, init_multihost,
                                          make_mesh, shard_spatial,
@@ -5355,9 +5354,10 @@ def tp_rank(rank, port, root):
     from yolo_tpu_torch.train.loop import save_train_checkpoint
     from yolo_tpu_torch.train.loss import LossHyp
     from yolo_tpu_torch.train.trainer import init_train_state
+    from yolo_tpu_torch.utils.profiler import counter, reset
     dev = init_multihost(f'localhost:{port}', TP_RANKS, rank)
     device_setup()
-    suppress.launches = fused_conv_int8.launches = 0
+    reset()
     mesh = make_mesh(dev, model_parallel=TP_RANKS)
     out = {'backend': dist.get_backend(), 'device': str(dev),
            'mesh': [mesh.data_index, mesh.model_index]}
@@ -5460,7 +5460,7 @@ def tp_rank(rank, port, root):
     shard_state(mesh, b.net, b.params)
     shard_state(mesh, b.net, b.state)
     os.chdir(os.path.join(root, f'tp{rank}'))
-    k1 = suppress.launches
+    k1 = counter('k1.launches')
     t0 = time.perf_counter()
     data = os.path.join(root, 'set', 'half.data')
     res, maps, _ = evaluate(
@@ -5473,7 +5473,7 @@ def tp_rank(rank, port, root):
                      for l in b.net.layers if l.kind == 'yolo'], plot=True)
     torch.cuda.synchronize()
     out['eval'] = {'s': time.perf_counter() - t0,
-                   'k1': suppress.launches - k1,
+                   'k1': counter('k1.launches') - k1,
                    'res': [float(v) for v in res],
                    'maps': [float(v) for v in maps]}
     del b
@@ -5498,11 +5498,11 @@ def tp_rank(rank, port, root):
         for mode in ('dense', 'sparse'):
             infer = bundle.make_infer(sparse=mode == 'sparse', mesh=sp,
                                       **SP_INFER)
-            k1 = suppress.launches
+            k1 = counter('k1.launches')
             with DpCounts() as cnt:
                 dets = infer(xs)
                 torch.cuda.synchronize()
-            k1 = suppress.launches - k1
+            k1 = counter('k1.launches') - k1
             ms = host_ms(lambda: infer(xs), SP_ITERS)
             # of those bytes, the head maps' gathers (whole buffers; the
             # sparse path's objectness maps too); the rest are halo rows
@@ -5524,21 +5524,21 @@ def tp_rank(rank, port, root):
                  qb.make_infer(engine=tag == 'q_engine', mesh=sp,
                                **SP_INFER))
         torch.cuda.synchronize()
-        k1, k2 = suppress.launches, fused_conv_int8.launches
+        k1, k2 = counter('k1.launches'), counter('k2.launches')
         with DpCounts() as cnt, HeadsSeen() as seen:
             dets = infer(xs)
             torch.cuda.synchronize()
         out[f'sp_{tag}'] = {
-            'dets': dets.cpu().tolist(), 'k1': suppress.launches - k1,
-            'k2': fused_conv_int8.launches - k2, 'collectives': cnt.n,
+            'dets': dets.cpu().tolist(), 'k1': counter('k1.launches') - k1,
+            'k2': counter('k2.launches') - k2, 'collectives': cnt.n,
             'bytes': cnt.bytes, 'ms': host_ms(lambda: infer(xs), SP_ITERS)}
         if tag == 'q_engine' and rank == 0:
             torch.save(seen.heads, os.path.join(root, 'sp_heads.pt'))
     del qb, bundles
     torch.cuda.empty_cache()
     part('spatial_quant_tta')
-    out['k1'] = suppress.launches
-    out['k2'] = fused_conv_int8.launches
+    out['k1'] = counter('k1.launches')
+    out['k2'] = counter('k2.launches')
     out['seconds'] = sec
     dist.destroy_process_group()
     with open(os.path.join(root, f'tp{rank}.json'), 'w') as f:
@@ -5554,15 +5554,14 @@ def tp_child(root, dev):
     from yolo_tpu_torch.eval.evaluator import evaluate
     from yolo_tpu_torch.ir import build_ir
     from yolo_tpu_torch.models.network import init_params
-    from yolo_tpu_torch.ops.conv_int8 import fused_conv_int8
-    from yolo_tpu_torch.ops.nms_suppress import suppress
     from yolo_tpu_torch.runtime import preprocess
     from yolo_tpu_torch.train.loss import LossHyp
     from yolo_tpu_torch.train.trainer import init_train_state
+    from yolo_tpu_torch.utils.profiler import counter, reset
     card = device_setup()
     t_phase = time.perf_counter()
     out = {'seconds': {}, 'card': card}
-    suppress.launches = fused_conv_int8.launches = 0
+    reset()
 
     me = os.path.abspath(__file__)
 
@@ -5860,9 +5859,10 @@ def tp_child(root, dev):
           f'{clis[0]["images_per_s"]:.1f} images/s (batches 0 to '
           f'{clis[0]["batches"] - 1}), {clis[0]["s"]:.1f} s with set-up and '
           f'evaluate ({card})')
-    out['nms_suppress'] = (suppress.launches + sum(q['k1'] for q in ranks)
+    out['nms_suppress'] = (counter('k1.launches')
+                           + sum(q['k1'] for q in ranks)
                            + sum(c['k1'] for c in clis))
-    out['conv_int8'] = fused_conv_int8.launches + sum(q['k2'] for q in ranks)
+    out['conv_int8'] = counter('k2.launches') + sum(q['k2'] for q in ranks)
     out['seconds']['all'] = time.perf_counter() - t_phase
     print(f'  phase 15 (child): {out["seconds"]["all"]:.1f} s '
           f'({", ".join(f"{k} {v:.1f}" for k, v in out["seconds"].items() if k not in ("all", "rank0"))}; '
@@ -5904,15 +5904,14 @@ def children(root, dev):
     memory still allocated is printed."""
     import gc
     from yolo_tpu_torch.eval import evaluator
-    from yolo_tpu_torch.ops.conv_int8 import fused_conv_int8
-    from yolo_tpu_torch.ops.nms_suppress import suppress
+    from yolo_tpu_torch.utils.profiler import reset
     seed = torch.initial_seed()
     for n, title, fn in CHILD_PHASES:
         print(title)
         t0 = time.perf_counter()
         work = os.path.join(root, f'p{n}')
         os.chdir(work)
-        suppress.launches = fused_conv_int8.launches = 0
+        reset()
         torch.manual_seed(seed)
         fn(work, dev)
         evaluator._CACHE.clear()

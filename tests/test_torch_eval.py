@@ -350,8 +350,8 @@ def test_evaluate_quantized_matches_jax(eval_sets, path):
     from yolo_tpu_torch import runtime as trt
     from yolo_tpu_torch.compress.quant import make_quant_apply
     from yolo_tpu_torch.eval.evaluator import evaluate, int8_engine_apply
-    from yolo_tpu_torch.ops.conv_int8 import fused_conv_int8
     from yolo_tpu_torch.train.loss import LossHyp
+    from yolo_tpu_torch.utils.profiler import counter
     cfg, npz, data = eval_sets['quant']
     jnet, jparams, jstate, jqstate = _jax_weights(cfg, npz)
     jqcfg = JQ.QuantConfig(scheme='google', steps=100)
@@ -373,10 +373,10 @@ def test_evaluate_quantized_matches_jax(eval_sets, path):
         targs = (arrays, {}, dict(quant_apply=qapply))
     want = jeval(jnet, jargs[0], jargs[1], data, loss_hyp=JHyp(),
                  compute_dtype=jnp.float32, **jargs[2], **kw)
-    n0 = fused_conv_int8.launches
+    n0 = counter('k2.launches')
     got = evaluate(tb.net, targs[0], targs[1], data, loss_hyp=LossHyp(),
                    device='cpu', **targs[2], **kw)
-    assert fused_conv_int8.launches == n0       # the CPU runs K2's twin
+    assert counter('k2.launches') == n0       # the CPU runs K2's twin
     _assert_results_close(got, want, path)
     assert all(np.isfinite(got[0][4:])) and min(got[0][4:]) > 0
     if path == 'engine':        # the plan is prepared once per weights

@@ -94,17 +94,18 @@ def test_k2_plain_matches_pallas_interpret(case):
     import jax.numpy as jnp
     from yolo_tpu.ops.pallas_conv import fused_conv_int8 as jconv
     from yolo_tpu_torch.ops.conv_int8 import fused_conv_int8
+    from yolo_tpu_torch.utils.profiler import counter
     n, h, w, ci, co, k, s, act, out_q = case
     x8, w8, bias = _conv_case(case)
     scale, oscale = np.float32(2 ** -9), np.float32(2 ** -4)
     want = np.asarray(jconv(jnp.asarray(x8), jnp.asarray(w8),
                             jnp.asarray(bias), scale, oscale, stride=s,
                             act=act, out_q=out_q, interpret=True))
-    n0 = fused_conv_int8.launches
+    n0 = counter('k2.launches')
     got = fused_conv_int8(torch.from_numpy(x8), _ohwi(w8),
                           torch.from_numpy(bias), scale, oscale, stride=s,
                           act=act, out_q=out_q).numpy()
-    assert fused_conv_int8.launches == n0      # the CPU runs the plain twin
+    assert counter('k2.launches') == n0      # the CPU runs the plain twin
     assert got.shape == want.shape
     if out_q:
         assert got.dtype == np.int8
@@ -703,6 +704,7 @@ def test_k2_kernel_matches_plain(cuda, case):
     quanta) instead of saturating at their deep sums."""
     from yolo_tpu_torch.ops.conv_int8 import (fused_conv_int8,
                                               fused_conv_int8_reference)
+    from yolo_tpu_torch.utils.profiler import counter
     n, h, w, ci, co, k, s, act, out_q = case
     x8, w8, bias = _conv_case(case)
     oscale = 2.0 ** -2
@@ -712,10 +714,10 @@ def test_k2_kernel_matches_plain(cuda, case):
     args = (torch.from_numpy(x8).to(cuda), _ohwi(w8).to(cuda),
             torch.from_numpy(bias).to(cuda), 2.0 ** -9, oscale)
     kw = dict(stride=s, act=act, out_q=out_q)
-    n0 = fused_conv_int8.launches
+    n0 = counter('k2.launches')
     got = fused_conv_int8(*args, **kw)
     torch.cuda.synchronize()
-    assert fused_conv_int8.launches == n0 + 1
+    assert counter('k2.launches') == n0 + 1
     want = fused_conv_int8_reference(*args, **kw)
     assert got.shape == want.shape and got.dtype == want.dtype
     if not out_q:
@@ -735,7 +737,7 @@ def test_int8_serving_on_card_matches_cpu(cuda, tmp_path):
     rtol/atol 1e-4."""
     from yolo_tpu_torch import runtime as trt
     from yolo_tpu_torch.models.int8_engine import make_int8_apply, prepare_int8
-    from yolo_tpu_torch.ops.conv_int8 import fused_conv_int8
+    from yolo_tpu_torch.utils.profiler import counter
     p = tmp_path / 'leaky.cfg'
     p.write_text(LEAKY_CFG)
     bundles = {}
@@ -759,11 +761,11 @@ def test_int8_serving_on_card_matches_cpu(cuda, tmp_path):
     for dev, b in ((None, cpu), (cuda, card)):
         plan = prepare_int8(b.net, b.params, b.state, b.qstate, b.qcfg)
         eng = make_int8_apply(b.net, plan, heads_only=True)
-        n0 = fused_conv_int8.launches
+        n0 = counter('k2.launches')
         heads[dev] = eng(plan.arrays, trt.preprocess(x, device=dev or 'cpu'))[0]
         if dev is not None:
             torch.cuda.synchronize()
-            assert fused_conv_int8.launches - n0 == 10   # 11 convs - stem
+            assert counter('k2.launches') - n0 == 10   # 11 convs - stem
     for a, b in zip(heads[None], heads[cuda]):
         assert torch.equal(a, b.cpu())
     kw = dict(conf_thres=0.05, iou_thres=0.5, top_k=64, max_det=32)

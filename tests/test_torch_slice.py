@@ -238,7 +238,7 @@ def test_port_never_imports_jax_or_cv2():
 # ---------------------------------------------------------------- on the card
 
 def _suppress_inputs(arrays, dev):
-    """Numpy (boxes, scores, valid) on ``dev`` as ``_suppress_and_finalize``
+    """Numpy (boxes, scores, valid) on ``dev`` as ``_suppress_pairs``
     hands them to the kernel: invalid rows zeroed, scores times valid."""
     b, s, v = arrays
     valid = torch.from_numpy(v).to(dev)
@@ -261,12 +261,13 @@ def _assert_suppress_matches(got, ref):
 @pytest.mark.parametrize('merge', [True, False])
 def test_suppress_kernel_matches_reference(cuda, k, merge):
     from yolo_tpu_torch.ops.nms_suppress import suppress, suppress_reference
+    from yolo_tpu_torch.utils.profiler import counter
     boxes, scores, valid = _suppress_inputs(
         candidates(np.random.default_rng(k), 8, k), cuda)
-    n0 = suppress.launches
+    n0 = counter('k1.launches')
     got = suppress(boxes, boxes, scores, valid, iou_thres=0.6, merge=merge)
     torch.cuda.synchronize()
-    assert suppress.launches == n0 + 1
+    assert counter('k1.launches') == n0 + 1
     ref = suppress_reference(boxes, boxes, scores, valid, iou_thres=0.6,
                              merge=merge)
     _assert_suppress_matches(got, ref)
@@ -375,7 +376,7 @@ def test_slice_on_card_matches_cpu(cuda, toy_cfg):
     """The whole pipeline in f32 (TF32 off) on the card, through the NMS
     kernel, against the same pipeline on the CPU through the plain twin."""
     from yolo_tpu_torch import runtime as trt
-    from yolo_tpu_torch.ops.nms_suppress import suppress
+    from yolo_tpu_torch.utils.profiler import counter
     bundles = {d: trt.load_model(toy_cfg, device=d, dtype=torch.float32,
                                  generator=torch.Generator().manual_seed(0)
                                  ).fuse() for d in ('cpu', cuda)}
@@ -384,9 +385,9 @@ def test_slice_on_card_matches_cpu(cuda, toy_cfg):
         kw = dict(conf_thres=0.01, iou_thres=0.5, top_k=128, max_det=64,
                   sparse=sparse, classes=classes)
         ref = bundles['cpu'].make_infer(**kw)(trt.preprocess(x, device='cpu'))
-        n0 = suppress.launches
+        n0 = counter('k1.launches')
         got = bundles[cuda].make_infer(**kw)(trt.preprocess(x, device=cuda))
         torch.cuda.synchronize()
-        assert suppress.launches == n0 + 1
+        assert counter('k1.launches') == n0 + 1
         assert int((ref[..., 4] > 0).sum()) > 0
         torch.testing.assert_close(got.cpu(), ref, rtol=1e-4, atol=1e-4)

@@ -10,6 +10,7 @@ dpi): what is held is that each helper draws and writes its file.
 """
 
 import io
+import json
 import os
 import sys
 
@@ -361,16 +362,17 @@ def test_dev_plots_write_files(helper, tmp_path, monkeypatch, low_dpi):
 # --------------------------------------------------------------- profiler
 
 def test_profiler(tmp_path):
+    """``trace(logdir)`` writes a Chrome trace that holds the program's
+    spans, and ``summary()`` then gives their totals."""
     import torch
-    from yolo_tpu_torch.utils.profiler import (StepTimer, time_synchronized,
-                                               trace)
-    t0 = time_synchronized()
-    timer = StepTimer(window=2)
-    assert timer.mean == 0.0
-    for _ in range(4):
-        timer.tick()
-    assert len(timer.times) == 2 and timer.mean >= 0.0
+    from yolo_tpu_torch.utils.profiler import reset, span, summary, trace
+    reset()
     with trace(str(tmp_path / 'tr')) as prof:
-        torch.ones(64, 64) @ torch.ones(64, 64)
-    assert prof is not None and time_synchronized() >= t0
-    assert os.path.getsize(tmp_path / 'tr' / 'trace.json') > 0
+        with span('serve.infer'):
+            torch.ones(64, 64) @ torch.ones(64, 64)
+    assert prof is not None
+    events = json.loads((tmp_path / 'tr' / 'trace.json').read_text())
+    names = [e.get('name') for e in events['traceEvents']]
+    assert 'serve.infer' in names
+    assert summary()['spans']['serve.infer']['count'] == 1
+    reset()

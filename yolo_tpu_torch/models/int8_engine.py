@@ -56,6 +56,7 @@ from ..ops.conv import LONE_BN_EPS
 from ..ops.conv_int8 import (float_edge_conv, fused_conv_int8,
                               grouped_conv_int8, k2_rows, supported)
 from ..parallel.collectives import all_gather_dim
+from ..utils.profiler import span
 from .yolo_head import anchors_on, decode_yolo_nhwc, reshape_pred
 
 BN_EPS = 1e-5
@@ -214,7 +215,11 @@ def make_int8_apply(net: NetworkIR, plan: Int8Plan, heads_only: bool = False,
     SE and avgpool sum over the group, and the head maps (int8) are
     gathered whole before the obj maps and the decode, whose grid offsets
     are the whole image's rows: every rank returns one process's
-    outputs."""
+    outputs.
+
+    Spans (``utils/profiler.py``): each conv runs in ``engine.conv``, each
+    shortcut in ``engine.shortcut``, each multi-route concat in
+    ``engine.concat``."""
     check_supported(net, plan.scheme)
     check_engine_scheme(plan.scheme)
     layers = net.layers
@@ -345,7 +350,8 @@ def make_int8_apply(net: NetworkIR, plan: Int8Plan, heads_only: bool = False,
             kind = lyr.kind
             sp = rows.split
             if kind in ('conv', 'depthwise'):
-                prev = conv_i8(lyr, arrays[k], prev, sp)
+                with span('engine.conv'):
+                    prev = conv_i8(lyr, arrays[k], prev, sp)
             elif kind == 'se':
                 prev = ('f', conv_ops.se_block_nhwc(
                     _as_float(prev), arrays[k]['fc1'], arrays[k]['fc2'],
@@ -370,11 +376,14 @@ def make_int8_apply(net: NetworkIR, plan: Int8Plan, heads_only: bool = False,
             elif kind == 'route':
                 if len(lyr.layers) > 1 and k in meta:   # requantized concat
                     rs = meta[k]['rs']
-                    parts = [requant_edge(outs[j], rs)[1] for j in lyr.layers]
-                    prev = ('q', torch.cat(parts, -1), rs)
+                    with span('engine.concat'):
+                        parts = [requant_edge(outs[j], rs)[1]
+                                 for j in lyr.layers]
+                        prev = ('q', torch.cat(parts, -1), rs)
                 elif len(lyr.layers) > 1:       # float concat (TPSQ)
-                    prev = ('f', torch.cat([_as_float(outs[j])
-                                            for j in lyr.layers], -1))
+                    with span('engine.concat'):
+                        prev = ('f', torch.cat([_as_float(outs[j])
+                                                for j in lyr.layers], -1))
                 elif lyr.route_groups:
                     c = prev[1].shape[-1]
                     prev = (prev[0], prev[1][..., c // 2:].contiguous(),
@@ -382,7 +391,8 @@ def make_int8_apply(net: NetworkIR, plan: Int8Plan, heads_only: bool = False,
                 else:
                     prev = outs[lyr.layers[0]]
             elif kind == 'shortcut':
-                prev = shortcut_i8(lyr, arrays.get(k), prev, outs)
+                with span('engine.shortcut'):
+                    prev = shortcut_i8(lyr, arrays.get(k), prev, outs)
             elif kind == 'reorg3d':     # pure layout: scale unchanged
                 prev = (prev[0], conv_ops.space_to_depth_nhwc(
                     prev[1], lyr.stride), *prev[2:])

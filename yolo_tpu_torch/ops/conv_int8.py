@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from . import activations as act_mod
 from . import conv as conv_ops
 from .._build import load_library
+from ..utils.profiler import count
 
 # activation codes of csrc/conv_int8.cu
 ACT_CODES = {'linear': 0, 'none': 0, '': 0, 'leaky': 1, 'relu': 2,
@@ -283,7 +284,7 @@ def fused_conv_int8(x8, w8, bias, scale, out_scale, *, stride: int,
     the module docstring), else 1 / ``out_scale``.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    (each launch adds one to ``fused_conv_int8.launches``) or raises."""
+    (each launch adds one to the counter ``k2.launches``) or raises."""
     if x8.device.type == 'cpu':
         return fused_conv_int8_reference(x8, w8, bias, scale, out_scale,
                                          stride=stride, act=act, maxabs=maxabs,
@@ -319,7 +320,7 @@ def _launch(x8, w8, bias, out, stride, scale, oinv, act, slope, out_q, qmin,
             qmax, bn, stages, rows):
     """One launch of the kernel with the given tiles (BN, ring stages, the
     run of bytes) on checked, Cin-padded, 16-byte aligned CUDA tensors;
-    adds one to ``fused_conv_int8.launches``, or raises if the launch is
+    adds one to the counter ``k2.launches``, or raises if the launch is
     refused."""
     lib = load_library()
     n, h, w, cin = x8.shape
@@ -335,10 +336,7 @@ def _launch(x8, w8, bias, out, stride, scale, oinv, act, slope, out_q, qmin,
     if err != 0:
         raise RuntimeError('conv_int8 kernel launch failed: '
                            + lib.conv_int8_error_string(err).decode())
-    fused_conv_int8.launches += 1
-
-
-fused_conv_int8.launches = 0
+    count('k2.launches', 1)
 
 
 def k2_rows(x8, w8, bias, scale, out_scale, *, stride: int, group,

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from .boxes import xywh2xyxy
+from ..utils.profiler import count, span
 from .nms_suppress import suppress, suppress_reference
 
 MIN_WH, MAX_WH = 2.0, 4096.0  # box constraints (pixels)
@@ -81,8 +82,9 @@ def _pairs(box_xywh, obj, cls, conf_thres, top_k, multi_label, agnostic,
     return boxes, boxes + offset[..., None], cand_scores, cls_idx, valid
 
 
-def _candidates(pred, conf_thres, top_k, multi_label, agnostic, classes=None):
-    """Candidate selection from decoded pred (bs, N, 5 + nc)."""
+def _candidates(pred, conf_thres, top_k):
+    """Boxes pre-selected by objectness from decoded pred (bs, N, 5 + nc):
+    batched (box_xywh, obj, cls), ready for ``_pairs``."""
     box_xywh, obj, cls = pred[..., :4], pred[..., 4], pred[..., 5:]
     wh_ok = ((box_xywh[..., 2:4] > MIN_WH)
              & (box_xywh[..., 2:4] < MAX_WH)).all(-1)
@@ -92,9 +94,7 @@ def _candidates(pred, conf_thres, top_k, multi_label, agnostic, classes=None):
     # stage 1: pre-select boxes by objectness (score = obj * cls <= obj)
     box_k = min(max(4 * top_k, 256), obj.shape[1])
     obj_top, box_sel = _topk(torch.where(base_ok, obj, 0.0), box_k)
-    return _pairs(_gather_rows(box_xywh, box_sel), obj_top,
-                  _gather_rows(cls, box_sel), conf_thres, top_k, multi_label,
-                  agnostic, classes)
+    return _gather_rows(box_xywh, box_sel), obj_top, _gather_rows(cls, box_sel)
 
 
 def _finalize(boxes, cand_scores, cls_idx, keep, max_det):
@@ -110,19 +110,31 @@ def _finalize(boxes, cand_scores, cls_idx, keep, max_det):
     return det
 
 
-def _suppress_and_finalize(boxes, oboxes, cand_scores, cls_idx, valid,
-                           iou_thres, merge, max_sweeps, max_det,
-                           plain=False):
-    # zero the invalid rows first: the merge multiplies every row by its
-    # weight, and 0 * inf = NaN would poison every merged box of the image
-    boxes = torch.where(valid[..., None], boxes, 0.0)
-    oboxes = torch.where(valid[..., None], oboxes, 0.0)
-    fn = suppress_reference if plain else suppress
-    keep, merged = fn(oboxes.contiguous(), boxes.contiguous(),
-                      (cand_scores * valid).contiguous(), valid.contiguous(),
-                      iou_thres=iou_thres, max_sweeps=max_sweeps, merge=merge)
-    merged = torch.where(keep[..., None], merged, boxes)
-    return _finalize(merged, cand_scores, cls_idx, keep, max_det)
+def _suppress_pairs(box_xywh, obj, cls, conf_thres, iou_thres, top_k,
+                    max_det, multi_label, agnostic, merge, max_sweeps,
+                    classes, plain):
+    """The candidate pairs of the pre-selected boxes, suppressed (with the
+    merge) and ranked into ``max_det`` slots, in the span ``nms.suppress``;
+    the valid pairs and the slots are counted (``nms.valid``,
+    ``nms.slots``)."""
+    with span('nms.suppress'):
+        boxes, oboxes, cand_scores, cls_idx, valid = _pairs(
+            box_xywh, obj, cls, conf_thres, top_k, multi_label, agnostic,
+            classes)
+        count('nms.valid', valid)
+        count('nms.slots', valid.numel())
+        # zero the invalid rows first: the merge multiplies every row by
+        # its weight, and 0 * inf = NaN would poison every merged box of the
+        # image
+        boxes = torch.where(valid[..., None], boxes, 0.0)
+        oboxes = torch.where(valid[..., None], oboxes, 0.0)
+        fn = suppress_reference if plain else suppress
+        keep, merged = fn(oboxes.contiguous(), boxes.contiguous(),
+                          (cand_scores * valid).contiguous(),
+                          valid.contiguous(), iou_thres=iou_thres,
+                          max_sweeps=max_sweeps, merge=merge)
+        merged = torch.where(keep[..., None], merged, boxes)
+        return _finalize(merged, cand_scores, cls_idx, keep, max_det)
 
 
 def non_max_suppression(pred, conf_thres: float = 0.1, iou_thres: float = 0.6,
@@ -136,10 +148,11 @@ def non_max_suppression(pred, conf_thres: float = 0.1, iou_thres: float = 0.6,
     whenever suppression chains are shorter than the cap. ``plain`` runs
     the suppression's plain PyTorch version instead of the kernel (for
     holding one against the other on the card)."""
-    boxes, oboxes, cand_scores, cls_idx, valid = _candidates(
-        pred, conf_thres, top_k, multi_label, agnostic, classes)
-    return _suppress_and_finalize(boxes, oboxes, cand_scores, cls_idx, valid,
-                                  iou_thres, merge, max_sweeps, max_det, plain)
+    with span('nms.decode'):
+        box_xywh, obj, cls = _candidates(pred, conf_thres, top_k)
+    return _suppress_pairs(box_xywh, obj, cls, conf_thres, iou_thres, top_k,
+                           max_det, multi_label, agnostic, merge, max_sweeps,
+                           classes, plain)
 
 
 def _heads_candidates(heads, anchors, strides, no, conf_thres, top_k,
@@ -238,13 +251,13 @@ def non_max_suppression_heads(heads, anchors, strides, no: int,
     ``Darknet.forward_heads`` or the int8 engine; head_scales: per-scale
     dequant factors of int8 heads (``make_int8_apply(...).head_scales``).
     Output (bs, max_det, 6)."""
-    box_xywh, obj, cls = _heads_candidates(heads, anchors, strides, no,
-                                           conf_thres, top_k, objs=objs,
-                                           head_scales=head_scales)
-    boxes, oboxes, cand_scores, cls_idx, valid = _pairs(
-        box_xywh, obj, cls, conf_thres, top_k, multi_label, agnostic, classes)
-    return _suppress_and_finalize(boxes, oboxes, cand_scores, cls_idx, valid,
-                                  iou_thres, merge, max_sweeps, max_det, plain)
+    with span('nms.decode'):
+        box_xywh, obj, cls = _heads_candidates(heads, anchors, strides, no,
+                                               conf_thres, top_k, objs=objs,
+                                               head_scales=head_scales)
+    return _suppress_pairs(box_xywh, obj, cls, conf_thres, iou_thres, top_k,
+                           max_det, multi_label, agnostic, merge, max_sweeps,
+                           classes, plain)
 
 
 def to_host_detections(dets) -> list:

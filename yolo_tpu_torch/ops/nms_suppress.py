@@ -18,6 +18,7 @@ from typing import NamedTuple
 import torch
 
 from .._build import load_library
+from ..utils.profiler import count
 from .boxes import box_iou_matrix
 
 MAX_K = 1024          # candidates per image the kernel takes
@@ -139,8 +140,8 @@ def suppress(oboxes, boxes, scores, valid, *, iou_thres: float,
     """Batched suppression + merge (contract of ``suppress_reference``).
 
     ``scores`` are the candidate scores times ``valid``; invalid rows of the
-    boxes must already be zero (``nms._suppress_and_finalize`` does both).
-    Each kernel launch adds one to ``suppress.launches``."""
+    boxes must already be zero (``nms._suppress_pairs`` does both).
+    Each kernel launch adds one to the counter ``k1.launches``."""
     if valid.device.type == 'cpu':
         return suppress_reference(oboxes, boxes, scores, valid,
                                   iou_thres=iou_thres, max_sweeps=max_sweeps,
@@ -162,8 +163,8 @@ def suppress(oboxes, boxes, scores, valid, *, iou_thres: float,
 def _launch(oboxes, boxes, scores, valid, keep, merged, iou_thres, max_sweeps,
             merge, cluster):
     """One launch of the kernel with ``cluster`` CTAs per image on checked
-    CUDA tensors, into ``keep`` and ``merged``; adds one to
-    ``suppress.launches``, or raises if the launch is refused."""
+    CUDA tensors, into ``keep`` and ``merged``; adds one to the counter
+    ``k1.launches``, or raises if the launch is refused."""
     lib = load_library()
     # the kernel reads the boxes in 16-byte pieces
     oboxes, boxes = (t if t.data_ptr() % 16 == 0 else t.clone()
@@ -178,7 +179,4 @@ def _launch(oboxes, boxes, scores, valid, keep, merged, iou_thres, max_sweeps,
     if err != 0:
         raise RuntimeError('nms_suppress kernel launch failed: '
                            + lib.nms_suppress_error_string(err).decode())
-    suppress.launches += 1
-
-
-suppress.launches = 0
+    count('k1.launches', 1)

@@ -34,6 +34,7 @@ from .models.torch_import import load_torch_checkpoint
 from .ops.nms import non_max_suppression, non_max_suppression_heads
 from .parallel.mesh import DATA_AXIS, replicate
 from .utils.checkpoint import load_checkpoint
+from .utils.profiler import span
 
 
 @dataclass
@@ -120,7 +121,8 @@ class ModelBundle:
                    mesh=None):
         """Forward + decode + batched NMS as one callable:
         ``infer(x)`` with x an NHWC float batch on ``device`` returns
-        (bs, max_det, 6) detections.
+        (bs, max_det, 6) detections. Each call is one top-level span
+        ``serve.infer`` (``utils/profiler.py``).
 
         Float bundles: ``sparse`` selects the sparse-decode NMS from the raw
         head maps (``non_max_suppression_heads``, cell mode via the slim
@@ -171,22 +173,25 @@ class ModelBundle:
         if augment:
             @torch.inference_mode()
             def infer(x):
-                return non_max_suppression(
-                    model.forward_augment(x, spatial=spatial), **kw)
+                with span('serve.infer'):
+                    return non_max_suppression(
+                        model.forward_augment(x, spatial=spatial), **kw)
         elif sparse:
             anchors = model.anchors()
             strides = self.strides
 
             @torch.inference_mode()
             def infer(x):
-                heads, objs = model.forward_heads(x, spatial=spatial)
-                return non_max_suppression_heads(heads, anchors, strides,
-                                                 self.nc + 5, objs=objs, **kw)
+                with span('serve.infer'):
+                    heads, objs = model.forward_heads(x, spatial=spatial)
+                    return non_max_suppression_heads(
+                        heads, anchors, strides, self.nc + 5, objs=objs, **kw)
         else:
             @torch.inference_mode()
             def infer(x):
-                return non_max_suppression(
-                    model.decode(model.heads(x, spatial=spatial)), **kw)
+                with span('serve.infer'):
+                    return non_max_suppression(
+                        model.decode(model.heads(x, spatial=spatial)), **kw)
         return infer
 
     def _make_quant_infer(self, kw, engine, spatial):
@@ -198,8 +203,10 @@ class ModelBundle:
 
             @torch.inference_mode()
             def infer(x):
-                return non_max_suppression(
-                    sim(params, state, qstate, x, spatial=spatial)[0], **kw)
+                with span('serve.infer'):
+                    return non_max_suppression(
+                        sim(params, state, qstate, x, spatial=spatial)[0],
+                        **kw)
             return infer
         plan = prepare_int8(self.net, self.params, self.state, self.qstate,
                             self.qcfg, device=self.device)
@@ -209,10 +216,11 @@ class ModelBundle:
 
         @torch.inference_mode()
         def infer(x):
-            heads, objs = eng(plan.arrays, x)
-            return non_max_suppression_heads(
-                heads, anchors, strides, self.nc + 5, objs=objs,
-                head_scales=eng.head_scales, **kw)
+            with span('serve.infer'):
+                heads, objs = eng(plan.arrays, x)
+                return non_max_suppression_heads(
+                    heads, anchors, strides, self.nc + 5, objs=objs,
+                    head_scales=eng.head_scales, **kw)
         return infer
 
 

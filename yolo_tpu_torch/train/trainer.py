@@ -74,6 +74,7 @@ from .ema import EMAState, ema_init, ema_update
 from .loss import LossHyp, compute_loss
 from ..parallel.collectives import average_tensors, sum_gradients
 from .optim import PerGroupScalars, make_optimizer
+from ..utils.profiler import span
 
 
 @dataclass
@@ -175,7 +176,12 @@ def make_train_functions(net: NetworkIR, anchor_vecs, nc: int, hyp: LossHyp,
     data index 0 alone, so that the sum over the data group holds it once.
 
     ``remat``: False/None/'none', 'blocks', or True/'full' (module
-    docstring)."""
+    docstring).
+
+    Spans (``utils/profiler.py``): each call of ``grad_fn`` is the
+    top-level span ``train.grad`` over ``train.forward`` (the forward or
+    the QAT apply), ``train.loss`` (with the KD term) and
+    ``train.backward``; each call of ``update_fn`` is ``train.update``."""
     if remat in (False, None, 'none', ''):
         remat = None
     elif remat in (True, 'full'):
@@ -199,27 +205,35 @@ def make_train_functions(net: NetworkIR, anchor_vecs, nc: int, hyp: LossHyp,
 
     def grad_fn(state: TrainState, imgs, targets, valid, gr: float,
                 loss_scale: float):
+        with span('train.grad'):
+            return _grad(state, imgs, targets, valid, gr, loss_scale)
+
+    def _grad(state, imgs, targets, valid, gr, loss_scale):
         model = state.model
         dev = imgs.device
         if dev not in anchors:
             anchors[dev] = [torch.as_tensor(a, dtype=torch.float32,
                                             device=dev) for a in anchor_vecs]
-        if quant_apply is None:
-            (yolo_p, feats), new_bn = model.forward_train(
-                imgs, head_layout=layout, group=group, remat=remat)
-        else:
-            args = (state.params, state.bn_state, state.qstate, imgs, True)
-            kw = dict(group=group, model_group=model_group)
-            (yolo_p, feats), new_bn, new_q = (
-                quant_apply(*args, **kw) if remat is None else
-                checkpoint(quant_apply, *args, **kw, use_reentrant=False))
-            state.qstate = _tree_detach(new_q)
-        loss, items = compute_loss(yolo_p, targets, valid, anchors[dev], nc,
-                                   hyp, gr, layout=layout, group=group)
-        if kd_loss_fn is not None:
-            loss = loss + kd_loss_fn(yolo_p, feats, targets, valid, imgs,
-                                     group=group)
-        (loss * loss_scale).backward()
+        with span('train.forward'):
+            if quant_apply is None:
+                (yolo_p, feats), new_bn = model.forward_train(
+                    imgs, head_layout=layout, group=group, remat=remat)
+            else:
+                args = (state.params, state.bn_state, state.qstate, imgs, True)
+                kw = dict(group=group, model_group=model_group)
+                (yolo_p, feats), new_bn, new_q = (
+                    quant_apply(*args, **kw) if remat is None else
+                    checkpoint(quant_apply, *args, **kw, use_reentrant=False))
+                state.qstate = _tree_detach(new_q)
+        with span('train.loss'):
+            loss, items = compute_loss(yolo_p, targets, valid, anchors[dev],
+                                       nc, hyp, gr, layout=layout,
+                                       group=group)
+            if kd_loss_fn is not None:
+                loss = loss + kd_loss_fn(yolo_p, feats, targets, valid, imgs,
+                                         group=group)
+        with span('train.backward'):
+            (loss * loss_scale).backward()
         if sparse_keys:
             gammas = [model.layer[k].gamma for k in sparse_keys
                       if k in model.layer and hasattr(model.layer[k], 'gamma')]
@@ -240,6 +254,10 @@ def make_train_functions(net: NetworkIR, anchor_vecs, nc: int, hyp: LossHyp,
         return state, items
 
     def update_fn(state: TrainState, scalars: PerGroupScalars):
+        with span('train.update'):
+            return _update(state, scalars)
+
+    def _update(state, scalars):
         sum_gradients([p for g in state.optimizer.param_groups
                        for p in g['params']], group)
         if model_group is not None:
