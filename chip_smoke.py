@@ -47,15 +47,23 @@ Phases; any failure exits non-zero, and nothing runs on the CPU instead
    ulp): there at most 1 LSB apart, and the share that differs is printed.
    Prints the times of both, the bound, and ``torch._int_mm`` on the same
    product beside the 1x1 shape, at three yolov3 @608 bs=8 shapes.
+   Then K3, the fused int8 shortcut, against its plain version
+   (``K3_CASES``: widths that are no multiple of 16, nx > na and nx < na;
+   then every (size, width) of the 23 shortcuts of yolov3 and of yolov4
+   @608 bs=8 on random codes), both ways, bit-equal.
 6. int8 serving: yolov3 @608 at full width, bs=8, random weights from a
    seed, ``load_model(quantized=1, device='cuda')`` with zero BN running
    statistics (the first calibration batch is copied in), 3 calibration
    steps on the card (``apply(x, train=True)``, ``QuantConfig(steps=100)``),
    then ``make_infer()`` (the int8 engine into the sparse NMS on int8
-   heads). K1's and K2's counts are zeroed just before one batch and must
-   read 1 and 74 (75 convs less the float stem) after it; more than 0 valid
-   candidates must reach K1. The engine through K2 must give int8 heads
-   bit-equal to the same engine through K2's plain version, and at conf
+   heads). K1's, K2's and K3's counts are zeroed just before one batch and
+   must read 1, 74 (75 convs less the float stem) and 23 (one a shortcut)
+   after it; more than 0 valid candidates must reach K1. The engine
+   through K2 and K3 must give int8 heads bit-equal to the same engine
+   through their plain versions (then each K3 call of the batch is held
+   to its plain version on its own inputs and timed alone, back to back
+   on the device, beside ``torch.add`` of the same tensors and the byte
+   bound, 745.2 MB or 0.2225 ms a batch), and at conf
    0.1 its survivor count must lie within max(2, 20%) of the f32
    fake-quant sim's on the card (requant rounding, as the JAX package's
    test allows); the head difference to the sim is printed in quanta.
@@ -180,12 +188,14 @@ yolov3 from seed 0 and its init.npz, made by phase 10 (c).
    engine batch of each evaluate; the sim and the engine each >= 0.99 on
    their own labels; ``PTQ.npz`` and ``PTQ_qstate.npz`` reload to the
    same engine heads; (b) yolov4's ptq_cos engine: one batch with zeroed
-   counts (K2 109, K1 1), every K2 call against its plain version on its
-   own input (leaky and linear bit-equal, mish within 1 LSB, the share
-   printed) and timed alone, summed beside the bound; the whole engine
-   through K2 against through its plain version (the share of int8 head
-   values that differ printed); survivors against the sim by phase 6's
-   rule; ``make_infer`` float bf16 against the engine in turns; a
+   counts (K2 109, K3 23, K1 1), every K2 call against its plain version
+   on its own input (leaky and linear bit-equal, mish within 1 LSB, the
+   share printed) and timed alone, summed beside the bound, and every K3
+   call as in phase 6 (bound 443.6 MB or 0.1324 ms a batch); the whole
+   engine through K2 and K3 against through their plain versions (the
+   share of int8 head values that differ printed); survivors against the
+   sim by phase 6's rule; ``make_infer`` float bf16 against the engine in
+   turns; a
    profile; (c) QAT of yolov3 @608, google, bs=8, bf16 MACs, Adam, one
    seeded batch, ``QuantConfig(steps=10)``: 12 steps, the last 3 through
    ``make_bn_frozen()``; ``grad_fn``/``update_fn`` by CUDA events before
@@ -566,6 +576,12 @@ def phase_build():
                   f' out: {line.split(":", 1)[-1].strip()}')
         if 'conv_int8' in line and 'Performance Loss' in line:
             print(f'    {line.strip()}')
+        # and of each shortcut_int8 variant (piece bytes, guarded, way 2)
+        m = re.search(r'shortcut_int8_kernelILi(\d+)ELb([01])ELb([01])E',
+                      fn or '')
+        if m and ('registers' in line or 'spill' in line):
+            print(f'    K3 V={m.group(1)} big={m.group(2)} way2={m.group(3)}:'
+                  f' {line.split(":", 1)[-1].strip()}')
     ops = conv_sass(lib)
     igmma = sum(n for op, n in ops.items() if op.startswith('IGMMA'))
     check(igmma > 0 and not any('DP4A' in op for op in ops),
@@ -861,18 +877,16 @@ K2_TIMED = [(BS, 152, 152, 64, 128, 3, 1), (BS, 304, 304, 64, 128, 3, 2),
             (BS, 76, 76, 256, 128, 1, 1)]
 
 
-def int8_conv_shapes(cfg=CFG, size=SIZE, bs=BS):
-    """(N, H, W, Cin, Cout, K, stride) of every conv on an int8 edge of a
-    square ``size`` input (every conv but the float stem), in network
-    order, from the cfg alone."""
+def layer_sizes(cfg=CFG, size=SIZE):
+    """(the cfg's layers, {index: H = W of its output}) of a square ``size``
+    input, from the cfg alone."""
     from yolo_tpu_torch.ir import build_ir
-    hw, out = {}, []
-    for lyr in build_ir(cfg).layers:
+    layers = build_ir(cfg).layers
+    hw = {}
+    for lyr in layers:
         src = hw.get(lyr.index - 1, size)
         if lyr.kind == 'conv':
             hw[lyr.index] = (src + 2 * lyr.pad - lyr.size) // lyr.stride + 1
-            out.append((bs, src, src, lyr.in_channels, lyr.filters, lyr.size,
-                        lyr.stride))
         elif lyr.kind == 'upsample':
             hw[lyr.index] = src * lyr.stride
         elif lyr.kind == 'route':
@@ -881,7 +895,31 @@ def int8_conv_shapes(cfg=CFG, size=SIZE, bs=BS):
             hw[lyr.index] = (src + lyr.stride - 1) // lyr.stride
         else:
             hw[lyr.index] = src
+    return layers, hw
+
+
+def int8_conv_shapes(cfg=CFG, size=SIZE, bs=BS):
+    """(N, H, W, Cin, Cout, K, stride) of every conv on an int8 edge of a
+    square ``size`` input (every conv but the float stem), in network
+    order, from the cfg alone."""
+    layers, hw = layer_sizes(cfg, size)
+    out = []
+    for lyr in layers:
+        if lyr.kind == 'conv':
+            src = hw.get(lyr.index - 1, size)
+            out.append((bs, src, src, lyr.in_channels, lyr.filters, lyr.size,
+                        lyr.stride))
     return out[1:]
+
+
+def shortcut_shapes(cfg=CFG, size=SIZE, bs=BS):
+    """(N, H, W, nx, na) of every shortcut of a square ``size`` input, in
+    network order, from the cfg alone: nx the width of the layer before
+    it, na that of its first ``from`` layer."""
+    layers, hw = layer_sizes(cfg, size)
+    return [(bs, hw[l.index], hw[l.index], layers[l.index - 1].filters,
+             layers[l.layers[0]].filters)
+            for l in layers if l.kind == 'shortcut']
 
 
 def k2_class(k, stride):
@@ -982,6 +1020,141 @@ def phase_conv_kernel(dev):
     return max_err
 
 
+# ----------------------------------------------------------- K3, shortcuts
+
+# (sx, sa, in_scale, sc) of the K3 calls below: the edges' scales, the
+# shortcut's input scale and its output scale (powers of two, as the
+# calibration gives them)
+K3_SCALES = (2.0 ** -4, 2.0 ** -3, 2.0 ** -3, 2.0 ** -2)
+# (N, H, W, nx, na, way): widths that are no multiple of 16 (yolov3-mobilenet
+# @416's 24, 40 and 112: 8- and 16-byte runs of a flat tensor), nx > na and
+# nx < na (pieces a pixel), and odd widths (1-byte pieces)
+K3_CASES = [(8, 52, 52, 24, 24, 1), (8, 26, 26, 40, 40, 2),
+            (8, 13, 13, 112, 112, 1), (2, 38, 38, 48, 16, 1),
+            (2, 38, 38, 16, 48, 2), (2, 19, 19, 24, 8, 1),
+            (2, 19, 19, 5, 3, 2)]
+
+
+def k3_edges(g, dev, n, h, w, nx, na):
+    """Random int8 edges (n, h, w, nx) and (n, h, w, na) on ``dev``."""
+    return tuple(torch.randint(-128, 128, (n, h, w, c), generator=g,
+                               dtype=torch.int8).to(dev) for c in (nx, na))
+
+
+def phase_shortcut_kernel(dev):
+    """K3 against its plain version on the card: ``K3_CASES``, then each
+    of the 23 shortcuts of yolov3 and of yolov4 @608 bs=8 on random codes,
+    both ways, bit-equal. (Phases 6 and 11 (b) time each call of an engine
+    batch on its own inputs: ``k3_calls_vs_plain``.)"""
+    print('[5/15] K3 shortcut_int8 vs plain version')
+    from yolo_tpu_torch.ops.shortcut_int8 import (
+        fused_shortcut_int8, fused_shortcut_int8_reference)
+    g = torch.Generator().manual_seed(0)
+    sx, sa, ins, sc = K3_SCALES
+    cases = [(c, f'{c[0]}x{c[1]}x{c[2]} nx {c[3]} na {c[4]} way {c[5]}')
+             for c in K3_CASES]
+    for model, cfg in (('yolov3', CFG), ('yolov4', CFG_V4)):
+        cases += [((*shape, way), f'{model} {shape[1]} px x {shape[3]} way '
+                   f'{way}') for shape in sorted(set(shortcut_shapes(cfg)))
+                  for way in (1, 2)]
+    for (n, h, w, nx, na, way), what in cases:
+        x8, a8 = k3_edges(g, dev, n, h, w, nx, na)
+        kw = dict(way=way, qmin=-128, qmax=127)
+        got = fused_shortcut_int8(x8, sx, a8, sa, ins, sc, **kw)
+        torch.cuda.synchronize()
+        want = fused_shortcut_int8_reference(x8, sx, a8, sa, ins, sc, **kw)
+        check(torch.equal(got, want), f'{what}: bit-equal')
+
+
+def record_k3(net, plan, x):
+    """Every K3 call of one engine batch: (args, kwargs, output)."""
+    from yolo_tpu_torch.models.int8_engine import make_int8_apply
+    calls = []
+
+    def wrap(label, fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            calls.append((args, kw, out))
+            return out
+        return call
+    with patched(k3_in_engine(), wrap), torch.inference_mode():
+        make_int8_apply(net, plan, heads_only=True)(plan.arrays, x)
+    return calls
+
+
+def queued_ms(fn, n=20, reps=3):
+    """Median device time a call of ``fn`` run ``n`` times back to back:
+    CUDA events around the ``n`` calls, queued behind a sleep kernel long
+    enough that the host's launches stay outside the interval and each
+    kernel starts as the one before it ends (``device_ms`` times one call,
+    with the launch and the events' own few microseconds)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(8 * SLEEP_CYCLES)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
+def k3_calls_vs_plain(calls, what):
+    """Each recorded K3 call of an engine batch against its plain version
+    on the same inputs (bit-equal), then timed alone: on the device back to
+    back (``queued_ms``) and one call at a time (``device_ms``), the
+    caller's wait, the plain version, and ``torch.add`` of the same two
+    int8 tensors back to back (the same bytes read and written; the library
+    yardstick, which the port never calls), summed beside the byte bound.
+    Inputs are warm in L2 where they fit, as the engine leaves them.
+    Returns the sums."""
+    from yolo_tpu_torch.ops.shortcut_int8 import (
+        fused_shortcut_int8, fused_shortcut_int8_reference)
+    tot = {'calls': len(calls), 'queued_ms': 0.0, 'device_ms': 0.0,
+           'ms': 0.0, 'plain_ms': 0.0, 'library_queued_ms': 0.0,
+           'bound_ms': 0.0, 'bytes': 0}
+    with torch.inference_mode():
+        for args, kw, out in calls:
+            want = fused_shortcut_int8_reference(*args, **kw)
+            if not torch.equal(out, want):
+                raise SmokeFailure(f'{what}: a K3 call of the engine differs '
+                                   'from its plain version')
+            run = lambda: fused_shortcut_int8(*args, **kw)
+            tot['queued_ms'] += queued_ms(run)
+            tot['device_ms'] += device_ms(run, iters=10, warmup=2)
+            tot['ms'] += cuda_ms(run, iters=10, warmup=2)
+            tot['plain_ms'] += cuda_ms(
+                lambda: fused_shortcut_int8_reference(*args, **kw), iters=3,
+                warmup=1)
+            if tot['library_queued_ms'] is not None and (
+                    args[0].shape == args[2].shape):
+                tot['library_queued_ms'] += queued_ms(
+                    lambda: torch.add(args[0], args[2]))
+            else:       # the edges' widths differ: no one library call
+                tot['library_queued_ms'] = None
+            n_bytes = args[0].numel() + args[2].numel() + out.numel()
+            tot['bytes'] += n_bytes
+            tot['bound_ms'] += bound_ms(n_bytes, 0, F32_OPS_PER_S)[0]
+    tot['bound_share'] = tot['bound_ms'] / tot['queued_ms']
+    check(True, f'{what}: {len(calls)} K3 calls of one engine batch '
+          'bit-equal to the plain version on their own inputs')
+    print(f'  {what}: the {len(calls)} K3 calls timed alone, summed: '
+          f'{tot["queued_ms"]:.4f} ms on the device back to back '
+          f'({100 * tot["bound_share"]:.1f}% of the bound, '
+          f'{tot["bytes"] / tot["queued_ms"] / 1e9:.3f} TB/s), '
+          f'{tot["device_ms"]:.4f} ms one call at a time, caller\'s wait '
+          f'{tot["ms"]:.4f} ms, plain {tot["plain_ms"]:.3f} ms, torch.add of '
+          f'the same tensors back to back {tot["library_queued_ms"]} ms; '
+          f'bound {tot["bound_ms"]:.4f} ms by bytes '
+          f'({tot["bytes"] / 1e6:.1f} MB)')
+    return tot
+
+
 def int8_bundle(dev, bs, size, cfg=CFG):
     """``cfg`` (yolov3) at full width, random weights from a seed, zero BN
     running statistics, calibrated by CALIB_STEPS steps on ``dev``."""
@@ -1014,6 +1187,7 @@ def int8_checks(b, x):
     from yolo_tpu_torch.ops.conv_int8 import (float_edge_conv,
                                               fused_conv_int8_reference,
                                               grouped_conv_int8)
+    from yolo_tpu_torch.ops.shortcut_int8 import fused_shortcut_int8_reference
     from yolo_tpu_torch.utils.profiler import counter, reset
     sync = torch.cuda.synchronize if x.is_cuda else (lambda: None)
     kw = dict(conf_thres=CONF_THRES, iou_thres=0.6, top_k=512, max_det=300)
@@ -1024,6 +1198,7 @@ def int8_checks(b, x):
     sync()
     launches = {'nms_suppress': counter('k1.launches'),
                 'conv_int8': counter('k2.launches'),
+                'shortcut_int8': counter('k3.launches'),
                 'grouped_conv_int8': grouped_conv_int8.calls,
                 'float_edge_conv': float_edge_conv.calls}
     bs = x.shape[0]
@@ -1045,14 +1220,16 @@ def int8_checks(b, x):
         n_valid = int(valid.sum())
         check(n_valid > 0, f'{n_valid} valid candidates reach K1 '
               f'({valid.shape[1]} slots per image)')
-        plain_heads = make_int8_apply(b.net, plan, heads_only=True,
-                                      conv=fused_conv_int8_reference)(
-            plan.arrays, x)[0]
+        with patched(k3_in_engine(), lambda label, fn:
+                     fused_shortcut_int8_reference):
+            plain_heads = make_int8_apply(b.net, plan, heads_only=True,
+                                          conv=fused_conv_int8_reference)(
+                plan.arrays, x)[0]
         sync()
         for i, (a, c) in enumerate(zip(heads, plain_heads)):
             check(a.dtype == torch.int8 and torch.equal(a, c),
-                  f'head {i}: engine through K2 == through its plain version '
-                  f'({tuple(a.shape)} int8, bit-equal)')
+                  f'head {i}: engine through K2 and K3 == through their '
+                  f'plain versions ({tuple(a.shape)} int8, bit-equal)')
         sim_heads = make_quant_apply(b.net, b.qcfg, heads_only=True)(
             b.params, b.state, b.qstate, x)[0]
         for i, (a, h, s) in enumerate(zip(heads, sim_heads,
@@ -1071,6 +1248,13 @@ def int8_checks(b, x):
           f'{n_sim} (within max(2, {SURVIVOR_TOL:.0%}); '
           f'{x.shape[0] * kw["max_det"]} slots)')
     return launches, plan, infer
+
+
+def k3_in_engine():
+    """{label: (module, name)} of the int8 engine's K3 wrapper, for
+    ``patched``."""
+    from yolo_tpu_torch.models import int8_engine
+    return {'K3': (int8_engine, 'fused_shortcut_int8')}
 
 
 def int8_layer_times(b, plan, x):
@@ -1261,7 +1445,12 @@ def phase_int8(dev, card):
           f'({n_conv} convs less the float stem)')
     check(launches['nms_suppress'] == 1,
           f'main path launched K1 {launches["nms_suppress"]} time(s)')
+    n_short = sum(l.kind == 'shortcut' for l in b.net.layers)
+    check(launches['shortcut_int8'] == n_short,
+          f'main path launched K3 {launches["shortcut_int8"]} times for one '
+          f'batch (one a shortcut: {n_short})')
     totals = int8_layer_times(b, plan, x)
+    totals['k3'] = k3_calls_vs_plain(record_k3(b.net, plan, x), 'yolov3')
 
     f16 = runtime.ModelBundle(net=b.net, params=b.params, state=b.state,
                               device=b.device).fuse()
@@ -1712,6 +1901,7 @@ def engine_spans():
     from yolo_tpu_torch.ops import conv as C
     return {'grouped int8 conv': (E, 'grouped_conv_int8'),
             'float-edge conv': (E, 'float_edge_conv'),
+            'K3 shortcut': (E, 'fused_shortcut_int8'),
             'SE block': (C, 'se_block_nhwc')}
 
 
@@ -1771,6 +1961,9 @@ def mobile_int8(dev, card):
               f'{launches[name]} times for one batch ({n} expected)')
     check(launches['nms_suppress'] == 1, f'mobilenet int8: K1 launched '
           f'{launches["nms_suppress"]} time(s)')
+    print(f'  mobilenet int8: K3 ran {launches["shortcut_int8"]} times for '
+          f'one batch, of {sum(l.kind == "shortcut" for l in b.net.layers)} '
+          'shortcuts (the others add a float edge)')
     routes = route_times(b, plan, x)
     f16 = runtime.ModelBundle(net=b.net, params=b.params, state=b.state,
                               device=b.device).fuse()
@@ -1839,7 +2032,8 @@ def phase_new_cfgs(dev, card):
           'save_torch_checkpoint: the same detections, bit for bit')
     image_decoders()
     print(f'  phase 8: {time.perf_counter() - t0:.1f} s')
-    return {'nms_suppress': k1, 'conv_int8': launches['conv_int8']}, routes
+    return {'nms_suppress': k1, 'conv_int8': launches['conv_int8'],
+            'shortcut_int8': launches['shortcut_int8']}, routes
 
 
 
@@ -2987,26 +3181,37 @@ def ptq_yolov4(root, dev, card, out):
     dets = infer(x)
     sync()
     la = {'nms_suppress': counter('k1.launches'),
-          'conv_int8': counter('k2.launches')}
+          'conv_int8': counter('k2.launches'),
+          'shortcut_int8': counter('k3.launches')}
+    n_short = sum(l.kind == 'shortcut' for l in qb.net.layers)
     check(la['conv_int8'] == n_conv - 1 and la['nms_suppress'] == 1
+          and la['shortcut_int8'] == n_short
           and bool(torch.isfinite(dets).all()),
           f'(b) yolov4 ptq_cos engine, one batch: K2 {la["conv_int8"]} '
-          f'launches ({n_conv} convs less the float stem), K1 '
+          f'launches ({n_conv} convs less the float stem), K3 '
+          f'{la["shortcut_int8"]} (one a shortcut), K1 '
           f'{la["nms_suppress"]}; {int((dets[..., 4] > 0).sum())} detections')
     out['nms_suppress'] += la['nms_suppress']
     out['conv_int8'] += la['conv_int8']
+    out['shortcut_int8'] = la['shortcut_int8']
     plan = prepare_int8(qb.net, qb.params, qb.state, qb.qstate, qb.qcfg)
     calls = record_k2(qb.net, plan, x)
     k2 = k2_calls_vs_plain(calls, '(b) yolov4', timed=True)
+    k3 = k3_calls_vs_plain(record_k3(qb.net, plan, x), '(b) yolov4')
     from yolo_tpu_torch.ops.conv_int8 import fused_conv_int8_reference
+    from yolo_tpu_torch.ops.shortcut_int8 import fused_shortcut_int8_reference
     with torch.inference_mode():
-        via = [make_int8_apply(qb.net, plan, heads_only=True, conv=c)(
-            plan.arrays, x)[0] for c in (fused_conv_int8,
-                                         fused_conv_int8_reference)]
+        via = [make_int8_apply(qb.net, plan, heads_only=True,
+                               conv=fused_conv_int8)(plan.arrays, x)[0]]
+        with patched(k3_in_engine(), lambda label, fn:
+                     fused_shortcut_int8_reference):
+            via.append(make_int8_apply(qb.net, plan, heads_only=True,
+                                       conv=fused_conv_int8_reference)(
+                plan.arrays, x)[0])
     shares = [float((a != c).double().mean()) for a, c in zip(*via)]
-    print(f'  (b) the whole engine through K2 against through its plain '
-          f'version: {", ".join(f"{v:.2e}" for v in shares)} of the int8 '
-          'head values differ (mish rounding carried down)')
+    print(f'  (b) the whole engine through K2 and K3 against through their '
+          f'plain versions: {", ".join(f"{v:.2e}" for v in shares)} of the '
+          'int8 head values differ (mish rounding carried down)')
     surv = survivors_vs_sim(qb, x, '(b) yolov4 ptq_cos')
     with torch.inference_mode():
         fh = runtime.ModelBundle(net=qb.net, params=qb.params, state=qb.state,
@@ -3032,7 +3237,8 @@ def ptq_yolov4(root, dev, card, out):
               f') = {BS * 1000 / statistics.median(r):.1f} images/s ({card})')
     print('  (b) the ptq_cos engine, profiled:')
     prof = profile_device(lambda: infer(x))
-    out['yolov4'] = {'k2': k2, 'survivors': surv, 'via_plain_share': shares,
+    out['yolov4'] = {'k2': k2, 'k3': k3, 'survivors': surv,
+                     'via_plain_share': shares,
                      'head_cosine': cosines,
                      'ms': {n: statistics.median(r) for n, r in runs.items()},
                      'profile': prof, 'k2_launches_per_batch': n_conv - 1}
@@ -6004,6 +6210,7 @@ def main():
     k1_float, k1_main = phase_pipeline(dev, card)
     laps(4)
     k2_err = phase_conv_kernel(dev)
+    phase_shortcut_kernel(dev)
     laps(5)
     launches, k2_tot, qb = phase_int8(dev, card)
     laps(6)
@@ -6066,7 +6273,16 @@ def main():
              'ms': quant['yolov4']['k2']['ms'],
              'bound_ms': quant['yolov4']['k2']['bound'],
              'mish_lsb_share': quant['yolov4']['k2']['mish_share']},
-         'tpsq_calls_per_batch': quant['tpsq']['launches']['conv_int8']}]}))
+         'tpsq_calls_per_batch': quant['tpsq']['launches']['conv_int8']},
+        {'name': 'shortcut_int8', 'route': 'cuda',
+         'source': 'yolo_tpu_torch/csrc/shortcut_int8.cu', 'replaces': None,
+         'launches': (launches['shortcut_int8']
+                      + new_launches['shortcut_int8']
+                      + quant['shortcut_int8']),
+         'launches_phase11': quant['shortcut_int8'],
+         'per_batch': {'yolov3': launches['shortcut_int8'],
+                       'yolov4': quant['shortcut_int8']},
+         'yolov3': k2_tot['k3'], 'yolov4': quant['yolov4']['k3']}]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

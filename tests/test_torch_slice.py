@@ -223,7 +223,8 @@ def test_port_never_imports_jax_or_cv2():
             "'utils.profiler', 'utils.gsutil', 'utils.downloads', "
             "'utils.dev', 'parallel', 'parallel.mesh', "
             "'parallel.multihost', 'parallel.collectives', "
-            "'models.network', 'ops.conv', 'runtime')}; "
+            "'models.network', 'ops.conv', 'ops.shortcut_int8', "
+            "'runtime')}; "
             "assert need <= set(mods), need - set(mods); "
             "assert 'PIL' not in sys.modules; "
             "assert 'matplotlib' not in sys.modules; "

@@ -28,9 +28,9 @@ CSRC_DIR = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent / '_build'
 
 # --fmad=false: no multiply-add contraction, so the kernels' float results
-# (the NMS IoU, the int8 conv epilogue) match the plain PyTorch versions bit
-# for bit. -Xptxas=-v: each kernel's registers, spills and shared memory go
-# to the build log (``build_log()``).
+# (the NMS IoU, the int8 conv epilogue, the shortcut chain) match the plain
+# PyTorch versions bit for bit. -Xptxas=-v: each kernel's registers, spills
+# and shared memory go to the build log (``build_log()``).
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '--fmad=false', '-Xptxas=-v', '-Xcompiler', '-fPIC')
 
@@ -127,6 +127,11 @@ def load_library() -> ctypes.CDLL:
     lib.conv_int8_launch.restype = i
     lib.conv_int8_error_string.argtypes = [i]
     lib.conv_int8_error_string.restype = ctypes.c_char_p
+    lib.shortcut_int8_launch.argtypes = [p, p, p, ctypes.c_longlong, i, i, f,
+                                         f, f, f, f, f, i, i, i, i, p]
+    lib.shortcut_int8_launch.restype = i
+    lib.shortcut_int8_error_string.argtypes = [i]
+    lib.shortcut_int8_error_string.restype = ctypes.c_char_p
     return lib
 
 

@@ -15,7 +15,10 @@ float. This engine runs the calibrated model with int8 tensors end to end:
     ``grouped_conv_int8``, the same arithmetic in plain PyTorch with exact
     int32 sums (the JAX package runs them through XLA's s8 conv);
   - shortcuts and concats follow the sim's requantization chains (min/max
-    shortcut ways, a common concat scale) in f32;
+    shortcut ways, a common concat scale); a shortcut of one ``from`` layer
+    without fusion weights on two int8 edges runs K3
+    (``ops/shortcut_int8.fused_shortcut_int8``: the chain in one pass), the
+    others the chain in f32 PyTorch;
   - SE, global avgpool, scale_channels and a standalone [batchnorm] (on
     its running statistics) are float edges, as in the sim.
 
@@ -55,6 +58,8 @@ from ..ops import conv as conv_ops
 from ..ops.conv import LONE_BN_EPS
 from ..ops.conv_int8 import (float_edge_conv, fused_conv_int8,
                               grouped_conv_int8, k2_rows, supported)
+from ..ops.shortcut_int8 import (fused_shortcut_int8, shortcut_codes,
+                                 shortcut_requant)
 from ..parallel.collectives import all_gather_dim
 from ..utils.profiler import span
 from .yolo_head import anchors_on, decode_yolo_nhwc, reshape_pred
@@ -292,13 +297,22 @@ def make_int8_apply(net: NetworkIR, plan: Int8Plan, heads_only: bool = False,
         return ('f', x)
 
     def shortcut_i8(lyr, arr, t, outs):
-        """The sim's requantization chain in f32; scales are pow-2, so the
-        inverses are exact and every fake-quant is a multiply."""
+        """A requantized shortcut: K3 (``fused_shortcut_int8``; its plain
+        twin on the CPU) where it has one ``from`` layer, no fusion weights
+        and two int8 edges, else the sim's requantization chain in f32 (the
+        same steps; scales are pow-2, so the inverses are exact and every
+        fake-quant is a multiply)."""
         if str(lyr.index) not in meta:
             return shortcut_f(lyr, arr, t, outs)
         m = meta[str(lyr.index)]
-        in_s, inv_in = m['in_scale'], 1.0 / m['in_scale']
-        sc, inv_sc = m['sc'], 1.0 / m['sc']
+        kw = dict(way=plan.shortcut_way, qmin=qmin, qmax=qmax)
+        if (not lyr.weighted and len(lyr.layers) == 1 and t[0] == 'q'
+                and outs[lyr.layers[0]][0] == 'q'):
+            e = outs[lyr.layers[0]]
+            q = fused_shortcut_int8(t[1].contiguous(), t[2],
+                                    e[1].contiguous(), e[2], m['in_scale'],
+                                    m['sc'], **kw)
+            return ('q', q, m['sc'])
         ws = None
         if lyr.weighted:
             ws = torch.sigmoid(arr['w']) * (2.0 / (len(lyr.layers) + 1))
@@ -309,22 +323,9 @@ def make_int8_apply(net: NetworkIR, plan: Int8Plan, heads_only: bool = False,
             a = _as_float(outs[j])
             if ws is not None:
                 a = a * ws[i + 1]
-            if plan.shortcut_way == 2:      # max way: saturating fake-quant
-                xq = torch.clamp(round_half_away(x * inv_in), qmin, qmax) * in_s
-                aq = torch.clamp(round_half_away(a * inv_in), qmin, qmax) * in_s
-            else:                            # min way: round, no clamp
-                xq = round_half_away(x * inv_in) * in_s
-                aq = round_half_away(a * inv_in) * in_s
-            nx_, na_ = xq.shape[-1], aq.shape[-1]
-            if nx_ == na_:
-                s = xq + aq
-            elif nx_ > na_:
-                s = torch.cat([xq[..., :na_] + aq, xq[..., na_:]], -1)
-            else:
-                s = xq + aq[..., :nx_]
-            x = torch.clamp(round_half_away(s * inv_sc), qmin, qmax) * sc
-        q = torch.clamp(round_half_away(x * inv_sc), qmin, qmax)
-        return ('q', q.to(torch.int8), sc)
+            x = shortcut_requant(x, a, m['in_scale'], m['sc'], **kw)
+        return ('q', shortcut_codes(x, m['sc'], qmin=qmin, qmax=qmax),
+                m['sc'])
 
     # static per-yolo head dequant scales: each yolo layer directly follows
     # its head conv, so the edge at a yolo layer is that conv's output
