@@ -176,7 +176,11 @@ def record(s, window):
             'conv_ops': counts.conv_ops(convs, s.bs),
             'peak_ops_per_s': (counts.INT8_OPS_PER_S if s.quant
                                else counts.BF16_OPS_PER_S),
-            'k2_bound_ms': counts.k2_bound_ms(convs, s.bs) if s.quant else None,
+            'k2_bound_ms': (counts.k2_bound_ms(convs, s.layers, s.bs)
+                            if s.quant else None),
+            'grouped_bound_ms': (counts.grouped_bound_ms(convs, s.layers,
+                                                         s.bs)
+                                 if s.quant else None),
             # every candidate slot is valid at the traffic's conf_thres
             'k1_bound_ms': counts.k1_bound_ms(s.bs, s.wl['top_k'],
                                               [s.wl['top_k']] * s.bs)}

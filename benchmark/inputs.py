@@ -9,8 +9,14 @@ but for BN's gamma and beta, whose ranges the configuration's form gives
 yolov4 whose BN runs on data statistics is chaotic, and one rounding of
 bf16 moves its heads by 20-33%, so that no comparison can tell a right
 answer from a wrong one; a smaller gamma beside a larger beta keeps the
-random detector well conditioned. Each kind is drawn in one call for the
-whole network by a generator on the device.
+random detector well conditioned. A grouped conv's weight is (cout, cin
+/ groups, k, k), He-normal over that fan-in, in the same draw as every
+conv's; an se's ``fc1`` (cout / reduction, cout) and ``fc2`` (cout, cout
+/ reduction) are U(-1, 1) over the square root of their fan-in, the
+port's init, in the Linear layout and on a stream of their own, so that
+a network without se layers draws the tensors it drew before they were
+added. Each kind is drawn in one call for the whole network by a
+generator on the device.
 """
 
 from __future__ import annotations
@@ -46,7 +52,7 @@ def weights(layers, seed, init, dev):
     g_lo, g_hi = init['bn_gamma']
     g = generator(seed, dev, 1)
     cs = convs(layers)
-    shapes = [(l.cout, l.cin, l.size, l.size) for l in cs]
+    shapes = [(l.cout, l.cin // l.groups, l.size, l.size) for l in cs]
     sizes = [math.prod(s) for s in shapes]
     w = torch.randn(sum(sizes), generator=g, device=dev)
     bn = [l for l in cs if l.bn]
@@ -75,6 +81,15 @@ def weights(layers, seed, init, dev):
             head[:, 4] -= 4.5
             head[:, 5:] += math.log(0.6 / (nxt.nc - 0.99))
         params[str(lyr.index)]['b'] = bias
+    ses = [l for l in layers if l.kind == 'se']
+    sizes = [l.cout * (l.cout // l.reduction) for l in ses]
+    u = 2 * torch.rand(2 * sum(sizes), generator=generator(seed, dev, 5),
+                       device=dev) - 1
+    for lyr, fc1, fc2 in zip(ses, _split(u[:sum(sizes)], sizes),
+                             _split(u[sum(sizes):], sizes)):
+        c, r = lyr.cout, lyr.cout // lyr.reduction
+        params[str(lyr.index)] = {'fc1': fc1.reshape(r, c) / math.sqrt(c),
+                                  'fc2': fc2.reshape(c, r) / math.sqrt(r)}
     return params, state
 
 

@@ -2,13 +2,38 @@
 train-mode forward, and the google and cos-PTQ fake-quant schemes.
 
 Written from the Darknet cfg semantics and the schemes' definitions (the
-reference repository's ``models.py``, ``utils/quantized``), for the layer
-kinds of yolov3 and yolov4: convolutional (batch-normalised or biased;
-leaky 0.1, mish, linear), shortcut, route (one source, or a concat),
-maxpool (``-inf`` padding of (size - 1) // 2), nearest upsample and yolo.
-Tensors are NCHW; weights are OIHW, keyed by layer index as
-``{'w', 'gamma', 'beta'}`` or ``{'w', 'b'}`` with BN statistics
-``{'mean', 'var'}``.
+reference repository's ``models.py``, ``utils/layers.py``,
+``utils/quantized``), for the layer kinds of yolov3, yolov4 and the
+mobile backbones (MobileNetV3, arXiv:1905.02244; GhostNet,
+arXiv:1911.11907; EfficientNet-B0, arXiv:1905.11946):
+- convolutional and depthwise (batch-normalised or biased; ``groups=``,
+  a depthwise conv's groups its input channels; zero padding of
+  (size - 1) // 2 where ``pad`` is set, else none). Activations: leaky
+  0.1, mish, relu, relu6, h_swish ``x relu6(x + 3) / 6``, swish
+  ``x sigmoid(x)``, logistic, and linear (``none`` too);
+- se: the mean over H and W, ``relu(y @ fc1.T) @ fc2.T``, the hard
+  sigmoid gate ``clip(y + 3, 0, 6) / 6`` times the input's channels; its
+  reduction from the cfg (4 where it gives ``filters``); the fc layers
+  have no bias, as the source's;
+- avgpool (the global mean over H and W), scale_channels (the ``from``
+  layer times the previous output, a gate of 1 x 1), dropout (the
+  identity, as at inference);
+- shortcut (one ``from`` layer; of unequal widths, the sum into the
+  leading channels or the added map cut to the input's, as the source's
+  ``Shortcut``), route (one source, or a concat; with ``groups``, the
+  ``group_id``-th of as many equal parts of its one source), maxpool
+  (``-inf`` padding of (size - 1) // 2), nearest upsample and yolo.
+The quantized schemes quantize every conv, depthwise and grouped ones
+included, and leave se, avgpool and scale_channels float, as the
+program's sim does. Departures: ``pad`` set means (size - 1) // 2, the
+program's rule, where Darknet takes size / 2 (the same for odd sizes);
+a ``[se]`` that gives ``filters`` takes that width. Not written, as no
+cfg of these families has them: a lone [BatchNorm2d], reorg3d,
+weighted shortcuts and ASFF heads.
+Tensors are NCHW; weights are OIHW (a grouped conv's ``cin / groups``
+wide), keyed by layer index as ``{'w', 'gamma', 'beta'}`` or ``{'w',
+'b'}`` with BN statistics ``{'mean', 'var'}``; an se's ``{'fc1', 'fc2'}``
+in the Linear layout (out, in).
 
 ``cast``, where a function takes it, rounds both operands of every conv
 (the control of a lower precision); None leaves them in f32.
@@ -31,14 +56,20 @@ RANGE_MOMENTUM = 0.1         # the activation range trackers
 @dataclass
 class Layer:
     index: int
-    kind: str                    # conv | maxpool | upsample | route | shortcut | yolo
+    kind: str                    # conv | maxpool | upsample | route | shortcut |
+                                 # se | avgpool | scale_channels | dropout | yolo
     cin: int
     cout: int
     size: int = 1
     stride: int = 1
+    pad: int = 0                 # a conv's zero padding on each side
+    groups: int = 1              # a conv's groups; a route's equal parts
     bn: bool = False
     act: str = 'linear'
-    src: tuple = ()              # absolute indices of route / shortcut inputs
+    src: tuple = ()              # absolute indices of route / shortcut /
+                                 # scale_channels inputs
+    reduction: int = 4           # se: fc1 maps cout to cout // reduction
+    part: int = 0                # route: the one of its groups it takes
     anchors: tuple = ()          # yolo: (w, h) pixel anchors of its mask
     nc: int = 0
     head: bool = False           # a conv that feeds a yolo layer
@@ -67,14 +98,24 @@ def build(lines, in_ch: int = 3) -> list[Layer]:
         kind = b['type']
         cin = out_ch[-1] if out_ch else in_ch
         absolute = lambda v: tuple(i + t if t < 0 else t for t in ints(v))
-        if kind == 'convolutional':
+        if kind in ('convolutional', 'depthwise'):
             size = int(b['size'])
             lyr = Layer(i, 'conv', cin, int(b['filters']), size=size,
                         stride=int(b['stride']),
+                        pad=(size - 1) // 2 if int(b.get('pad', 0)) else 0,
+                        groups=(cin if kind == 'depthwise'
+                                else int(b.get('groups', 1))),
                         bn=bool(int(b.get('batch_normalize', 0))),
                         act=b.get('activation', 'linear'))
-            if not int(b.get('pad', 0)):
-                raise ValueError(f'layer {i}: a conv without pad')
+        elif kind == 'se':
+            c = (int(b['filters']) if 'filters' in b and 'reduction' not in b
+                 else cin)
+            lyr = Layer(i, 'se', cin, c, reduction=int(b.get('reduction', 4)))
+        elif kind in ('avgpool', 'dropout'):
+            lyr = Layer(i, kind, cin, cin)
+        elif kind == 'scale_channels':
+            src = absolute(b['from'])
+            lyr = Layer(i, kind, cin, out_ch[src[0]], src=src)
         elif kind == 'maxpool':
             lyr = Layer(i, 'maxpool', cin, cin, size=int(b['size']),
                         stride=int(b['stride']))
@@ -82,7 +123,10 @@ def build(lines, in_ch: int = 3) -> list[Layer]:
             lyr = Layer(i, 'upsample', cin, cin, stride=int(b['stride']))
         elif kind == 'route':
             src = absolute(b['layers'])
-            lyr = Layer(i, 'route', cin, sum(out_ch[j] for j in src), src=src)
+            lyr = Layer(i, 'route', cin, sum(out_ch[j] for j in src), src=src,
+                        groups=int(b.get('groups', 1)),
+                        part=int(b.get('group_id', 0)))
+            lyr.cout //= lyr.groups
         elif kind == 'shortcut':
             lyr = Layer(i, 'shortcut', cin, cin, src=absolute(b['from']))
         elif kind == 'yolo':
@@ -102,30 +146,65 @@ def convs(layers):
     return [l for l in layers if l.kind == 'conv']
 
 
+def hard_sigmoid(y):
+    return torch.clamp(y + 3.0, 0.0, 6.0) / 6.0
+
+
+_ACTS = {'leaky': lambda y: torch.where(y >= 0, y, y * 0.1),
+         'mish': lambda y: y * torch.tanh(F.softplus(y)),
+         'relu': torch.relu,
+         'relu6': lambda y: torch.clamp(y, 0.0, 6.0),
+         'h_swish': lambda y: y * hard_sigmoid(y),
+         'swish': lambda y: y * torch.sigmoid(y),
+         'logistic': torch.sigmoid,
+         'linear': lambda y: y,
+         'none': lambda y: y}
+
+
 def _act(name):
-    if name == 'leaky':
-        return lambda y: torch.where(y >= 0, y, y * 0.1)
-    if name == 'mish':
-        return lambda y: y * torch.tanh(F.softplus(y))
-    if name == 'linear':
-        return lambda y: y
-    raise ValueError(f'activation {name!r}')
+    if name not in _ACTS:
+        raise ValueError(f'activation {name!r}')
+    return _ACTS[name]
 
 
 def _conv(x, w, lyr, cast=None):
     if cast is not None:
         x, w = cast(x), cast(w)
-    return F.conv2d(x, w, stride=lyr.stride, padding=(lyr.size - 1) // 2)
+    return F.conv2d(x, w, stride=lyr.stride, padding=lyr.pad,
+                    groups=lyr.groups)
 
 
-def _walk(layers, x, conv, shortcut=None, concat=None):
+def add_sliced(x, a):
+    """A shortcut's sum: of equal widths, x + a; else a into x's leading
+    channels, or a cut to x's width."""
+    nx, na = x.shape[1], a.shape[1]
+    if nx == na:
+        return x + a
+    if nx > na:
+        return torch.cat([x[:, :na] + a, x[:, na:]], 1)
+    return x + a[:, :nx]
+
+
+def se(x, p):
+    """Squeeze and excitation with the hard sigmoid gate."""
+    y = torch.relu(x.mean((2, 3)) @ p['fc1'].T) @ p['fc2'].T
+    return x * hard_sigmoid(y)[:, :, None, None]
+
+
+def _walk(layers, params, x, conv, shortcut=None, concat=None):
     """Run the graph: ``conv(lyr, x)``, and for the quantized schemes
-    ``shortcut(lyr, x, a)`` and ``concat(lyr, parts)``; returns the head
-    maps, NCHW."""
+    ``shortcut(lyr, x, a)`` and ``concat(lyr, parts)``; se, avgpool and
+    scale_channels in float; returns the head maps, NCHW."""
     outs, heads, prev = {}, [], x
     for lyr in layers:
         if lyr.kind == 'conv':
             prev = conv(lyr, prev)
+        elif lyr.kind == 'se':
+            prev = se(prev, params[str(lyr.index)])
+        elif lyr.kind == 'avgpool':
+            prev = prev.mean((2, 3), keepdim=True)
+        elif lyr.kind == 'scale_channels':
+            prev = outs[lyr.src[0]] * prev
         elif lyr.kind == 'maxpool' and (lyr.size, lyr.stride) == (2, 1):
             # yolov3-tiny's: one zero row and column at the bottom right
             prev = F.max_pool2d(F.pad(prev, (0, 1, 0, 1)), 2, 1)
@@ -136,13 +215,17 @@ def _walk(layers, x, conv, shortcut=None, concat=None):
             prev = F.interpolate(prev, scale_factor=lyr.stride, mode='nearest')
         elif lyr.kind == 'route':
             parts = [outs[j] for j in lyr.src]
+            if lyr.groups > 1:
+                parts = [t[:, lyr.part * lyr.cout:(lyr.part + 1) * lyr.cout]
+                         for t in parts]
             prev = (parts[0] if len(parts) == 1 else
                     concat(lyr, parts) if concat else torch.cat(parts, 1))
         elif lyr.kind == 'shortcut':
             a = outs[lyr.src[0]]
-            prev = shortcut(lyr, prev, a) if shortcut else prev + a
+            prev = shortcut(lyr, prev, a) if shortcut else add_sliced(prev, a)
         elif lyr.kind == 'yolo':
             heads.append(prev)
+        # dropout: the identity
         outs[lyr.index] = prev
     return heads
 
@@ -161,7 +244,7 @@ def forward(layers, params, state, x, cast=None):
         k = str(lyr.index)
         w, b = fold(params[k], state.get(k))
         return _act(lyr.act)(_conv(x, w, lyr, cast) + b[:, None, None])
-    return _walk(layers, x, conv)
+    return _walk(layers, params, x, conv)
 
 
 def forward_train(layers, params, x, cast=None, stats=None):
@@ -184,7 +267,7 @@ def forward_train(layers, params, x, cast=None, stats=None):
         else:
             y = y + p['b'][:, None, None]
         return _act(lyr.act)(y)
-    return _walk(layers, x, conv)
+    return _walk(layers, params, x, conv)
 
 
 def batch_statistics(layers, params, x):
@@ -206,7 +289,7 @@ def batch_statistics(layers, params, x):
             y = y + p['b'][:, None, None]
         return _act(lyr.act)(y)
     with torch.no_grad():
-        _walk(layers, x, conv)
+        _walk(layers, params, x, conv)
     return stats
 
 
@@ -294,11 +377,12 @@ class Quantizer:
 class QuantSim:
     """The fake-quant network of one scheme ('google' or 'ptq_cos') at
     ``bits`` for weights and activations: every conv's BN folded into its
-    weight and quantized with its bias and its output; shortcuts add
-    inputs rounded to a shared grid and requantize the sum; concats
-    requantize their sources to one grid. ``calibrate`` runs a train-mode
-    batch (BN on batch statistics until ``bn_freeze``, then on running
-    ones; the trackers and votes update), ``heads`` an eval batch.
+    weight and quantized with its bias and its output (depthwise and
+    grouped convs as any other; se, avgpool and scale_channels float);
+    shortcuts add inputs rounded to a shared grid and requantize the sum;
+    concats requantize their sources to one grid. ``calibrate`` runs a
+    train-mode batch (BN on batch statistics until ``bn_freeze``, then on
+    running ones; the trackers and votes update), ``heads`` an eval batch.
 
     ``steps`` is the calibration length the scheme's freeze steps are
     taken from: BN statistics freeze at 90% of it, google's scales at
@@ -365,8 +449,8 @@ class QuantSim:
             hi = torch.minimum(tx.max, ta.max)
             lo = torch.maximum(tx.min, ta.min)
             in_s = pow2_snap(torch.maximum(lo.abs(), hi.abs())) / qr
-        total = (round_half_away(x / in_s) * in_s
-                 + round_half_away(a / in_s) * in_s)
+        total = add_sliced(round_half_away(x / in_s) * in_s,
+                           round_half_away(a / in_s) * in_s)
         if train:
             ts.update(total)
             s = ts.scale(self.bits)
@@ -388,7 +472,7 @@ class QuantSim:
 
     @torch.no_grad()
     def run(self, x, train):
-        return _walk(self.layers, x,
+        return _walk(self.layers, self.params, x,
                      lambda l, t: self._conv(l, t, train),
                      lambda l, t, a: self._shortcut(l, t, a, train),
                      lambda l, p: self._concat(l, p, train))
@@ -402,19 +486,22 @@ class QuantSim:
 
 def macs(layers, size):
     """Multiply-adds of every conv of one image of ``size`` x ``size``, in
-    network order, with each conv's (h_in, w_in) and output size."""
+    network order, with each conv's input and output side: (layer, h_in,
+    h_out, macs), a grouped conv's ``cin / groups`` wide."""
     hw, out, cur = {}, [], size
     for lyr in layers:
         if lyr.kind == 'conv':
             src = cur
-            cur = (src + 2 * ((lyr.size - 1) // 2) - lyr.size) // lyr.stride + 1
+            cur = (src + 2 * lyr.pad - lyr.size) // lyr.stride + 1
             out.append((lyr, src, cur, cur * cur * lyr.cout * lyr.size ** 2
-                        * lyr.cin))
+                        * (lyr.cin // lyr.groups)))
         elif lyr.kind == 'maxpool':
             cur = math.ceil(cur / lyr.stride)
         elif lyr.kind == 'upsample':
             cur = cur * lyr.stride
-        elif lyr.kind == 'route':
+        elif lyr.kind == 'avgpool':
+            cur = 1
+        elif lyr.kind in ('route', 'scale_channels'):
             cur = hw[lyr.src[0]]
         hw[lyr.index] = cur
     return out

@@ -1,7 +1,9 @@
 """A copy of the benchmark folder with tiny cells dropped in as data files:
 yolov3-tiny at 96 px (yolov4 itself at 256 px for bf16 serving, whose
-float8 control a network as shallow as yolov3-tiny does not tell apart),
-batches of 2, on the CPU, where the port's kernels run their plain twins.
+float8 control a network as shallow as yolov3-tiny does not tell apart;
+yolov3-mobilenet at 96 px for the mobile backbone's depthwise convs, SE
+blocks and float edges), batches of 2, on the CPU, where the port's
+kernels run their plain twins.
 Each tiny cell is a copy of a real workload file with its sizes cut and
 its limits kept, so the harness, the drivers, the reference and the
 limits run as in a real cell. The bf16 serving workload, which is no cell
@@ -28,7 +30,11 @@ TINY = {'tiny.int8-serve': ('yolov3-608.int8-serve', 'tiny',
                                 'yolov4-608.int8-serve'),
         'tiny.bf16-serve': ('yolov4-608.bf16-serve', 'tiny-v4',
                             'yolov4-608.int8-serve'),
-        'tiny.train': ('yolov3-608.train', 'tiny', 'yolov3-608.train')}
+        'tiny.train': ('yolov3-608.train', 'tiny', 'yolov3-608.train'),
+        'tiny-mobile.int8-serve': ('yolov3-608.int8-serve', 'tiny-mobile',
+                                   'yolov3-608.int8-serve')}
+MOBILE_CFG = os.path.join('cfg', 'yolov3-mobilenet',
+                          'yolov3-mobilenet-visdrone.cfg')
 
 
 def cfg_lines(path):
@@ -42,9 +48,12 @@ def build_tiny(dst):
         '.cache', '__pycache__', 'tests'))
     lines = cfg_lines(os.path.join(REPO, 'cfg', 'yolov3tiny',
                                    'yolov3-tiny.cfg'))
-    for name, real in (('tiny', 'yolov3-608'), ('tiny-cos', 'yolov4-608')):
+    mobile = cfg_lines(os.path.join(REPO, MOBILE_CFG))
+    for name, real, dk in (('tiny', 'yolov3-608', lines),
+                           ('tiny-cos', 'yolov4-608', lines),
+                           ('tiny-mobile', 'yolov3-608', mobile)):
         cfg = json.load(open(os.path.join(root, 'configs', f'{real}.json')))
-        cfg.update(name=name, img_size=TINY_SIZE, darknet_cfg=lines)
+        cfg.update(name=name, img_size=TINY_SIZE, darknet_cfg=dk)
         cfg['forms']['int8'].update(calibration_batches=2)
         json.dump(cfg, open(os.path.join(root, 'configs', f'{name}.json'),
                             'w'))

@@ -15,7 +15,8 @@ from conftest import TINY
 from benchmark import run as harness
 
 SEED = 2 ** 31 + 12345
-SERVE = ['tiny.int8-serve', 'tiny.int8-serve-cos', 'tiny.bf16-serve']
+SERVE = ['tiny.int8-serve', 'tiny.int8-serve-cos', 'tiny.bf16-serve',
+         'tiny-mobile.int8-serve']
 
 
 def tiny_run(root, cell, fault=None, trace=0):
