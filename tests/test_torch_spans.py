@@ -22,6 +22,10 @@ SERVE_READERS = ('engine_conv_ms', 'engine_shortcut_ms', 'engine_concat_ms',
                  'decode_ms', 'suppress_ms', 'k1_valid_share',
                  'launch_us.serve')
 TRAIN_READERS = ('forward_ms', 'loss_ms', 'backward_ms', 'launch_us.train')
+# the serving readers of the mobile backbone's spans (its cell alone)
+MOBILE_READERS = ('engine_grouped_ms', 'engine_float_conv_ms', 'engine_se_ms',
+                  'grouped_roofline')
+GROUPED_BOUND_MS = 0.0737
 
 
 @pytest.fixture(autouse=True)
@@ -137,13 +141,17 @@ def test_int8_engine_spans(tmp_path):
               and len(l.layers) > 1]
     assert routes and kinds.count('shortcut') == 3
     want = {'serve.infer': 1, 'engine.conv': kinds.count('conv'),
-            'engine.shortcut': kinds.count('shortcut'),
+            'engine.float_conv': 1, 'engine.shortcut': kinds.count('shortcut'),
             'engine.concat': len(routes), 'nms.decode': 1,
             'nms.suppress': 1}
     assert {n: sum(r.name == n for r in recs) for n in want} == want
     assert len(recs) == sum(want.values())
     assert recs[0].name == 'serve.infer' and recs[0].parent == -1
-    assert all(r.top == 0 and r.parent == 0 for r in recs[1:])
+    assert all(r.top == 0 for r in recs[1:])
+    # the float stem's conv inside its engine.conv, the rest under the batch
+    assert [r.parent for r in recs[1:3]] == [0, 1]
+    assert [r.name for r in recs[1:3]] == ['engine.conv', 'engine.float_conv']
+    assert all(r.parent == 0 for r in recs[3:])
     c = P.summary()['counters']
     assert c['nms.slots'] == 2 * 64 and 0 < c['nms.valid'] <= 128
 
@@ -185,16 +193,20 @@ def test_train_step_spans(tmp_path):
 
 # ------------------------------------------------------ the benchmark's readers
 
-def _serving_store(n_batches):
+def _serving_store(n_batches, grouped_calls=15):
     """Spans of ``n_batches`` served batches on the CPU, as the int8 engine
     opens them, with a little work in each."""
     with profile(activities=CPU):
         for i in range(n_batches):
             with P.span('serve.infer'):
                 for name in ('engine.conv', 'engine.shortcut',
-                             'engine.concat', 'nms.decode'):
+                             'engine.concat', 'nms.decode', 'engine.se'):
                     with P.span(name):
                         time.sleep(0.001)
+                for name in ('engine.grouped', 'engine.float_conv'):
+                    with P.span('engine.conv'), P.span(name):
+                        time.sleep(0.001)
+                P.count('grouped.calls', grouped_calls)
                 with P.span('nms.suppress'):
                     P.count('nms.valid', torch.arange(8) < 6 - i)
                     P.count('nms.slots', 8)
@@ -211,18 +223,30 @@ def _per_top(name, top_name, n):
     return ns / 1e6 / len(tops)
 
 
-@pytest.mark.parametrize('name', SERVE_READERS)
+@pytest.mark.parametrize('name', SERVE_READERS + MOBILE_READERS)
 def test_serving_readers(name):
-    rec = {'steps': 2, 'kernels': 40, 'driver': 'serve'}
+    rec = {'steps': 2, 'kernels': 40, 'driver': 'serve',
+           'grouped_bound_ms': GROUPED_BOUND_MS}
     read = reader(name)
     assert read(rec) is None                    # an empty store
+    if name == 'grouped_roofline':              # no grouped call counted
+        _serving_store(3, grouped_calls=0)
+        assert read(rec) is None
+        P.reset()
     _serving_store(3)
     span = {'engine_conv_ms': 'engine.conv',
             'engine_shortcut_ms': 'engine.shortcut',
             'engine_concat_ms': 'engine.concat', 'decode_ms': 'nms.decode',
-            'suppress_ms': 'nms.suppress'}.get(name)
+            'suppress_ms': 'nms.suppress',
+            'engine_grouped_ms': 'engine.grouped',
+            'engine_float_conv_ms': 'engine.float_conv',
+            'engine_se_ms': 'engine.se'}.get(name)
     if span:
         want = _per_top(span, 'serve.infer', 2)
+    elif name == 'grouped_roofline':
+        want = 100.0 * GROUPED_BOUND_MS / _per_top('engine.grouped',
+                                                   'serve.infer', 2)
+        assert read({**rec, 'grouped_bound_ms': None}) is None
     elif name == 'k1_valid_share':
         want = 100.0 * (6 + 5) / 16
     else:

@@ -222,9 +222,12 @@ def make_int8_apply(net: NetworkIR, plan: Int8Plan, heads_only: bool = False,
     are the whole image's rows: every rank returns one process's
     outputs.
 
-    Spans (``utils/profiler.py``): each conv runs in ``engine.conv``, each
-    shortcut in ``engine.shortcut``, each multi-route concat in
-    ``engine.concat``."""
+    Spans (``utils/profiler.py``): each conv runs in ``engine.conv``, and
+    inside it a conv that ``grouped_conv_int8`` runs in ``engine.grouped``,
+    one that ``float_edge_conv`` runs in ``engine.float_conv``; each
+    shortcut runs in ``engine.shortcut``, each multi-route concat in
+    ``engine.concat``, each SE, global avgpool and scale_channels layer in
+    ``engine.se``."""
     check_supported(net, plan.scheme)
     check_engine_scheme(plan.scheme)
     layers = net.layers
@@ -258,9 +261,10 @@ def make_int8_apply(net: NetworkIR, plan: Int8Plan, heads_only: bool = False,
         if t[0] == 'f':
             x, pad = conv_ops.conv_rows_nhwc(t[1], lyr.size, stride, lyr.pad,
                                              sp)
-            q = float_edge_conv(x, arr['w8'], arr['bias'], m['sw'],
-                                m['sa'], stride=stride, pad=pad,
-                                groups=lyr.groups, **epi)
+            with span('engine.float_conv'):
+                q = float_edge_conv(x, arr['w8'], arr['bias'], m['sw'],
+                                    m['sa'], stride=stride, pad=pad,
+                                    groups=lyr.groups, **epi)
         elif (isinstance(stride, int)
               and supported(lyr.size, stride, lyr.pad, lyr.groups)):
             args = (t[1], arr['w8'], arr['bias'], t[2] * m['sw'], m['sa'])
@@ -270,9 +274,10 @@ def make_int8_apply(net: NetworkIR, plan: Int8Plan, heads_only: bool = False,
         else:
             x, pad = conv_ops.conv_rows_nhwc(t[1], lyr.size, stride, lyr.pad,
                                              sp)
-            q = grouped_conv_int8(x, arr['w8'], arr['bias'],
-                                  t[2] * m['sw'], m['sa'], stride=stride,
-                                  pad=pad, groups=lyr.groups, **epi)
+            with span('engine.grouped'):
+                q = grouped_conv_int8(x, arr['w8'], arr['bias'],
+                                      t[2] * m['sw'], m['sa'], stride=stride,
+                                      pad=pad, groups=lyr.groups, **epi)
         return ('q', q, m['sa'])
 
     def shortcut_f(lyr, arr, t, outs):
@@ -353,21 +358,24 @@ def make_int8_apply(net: NetworkIR, plan: Int8Plan, heads_only: bool = False,
             if kind in ('conv', 'depthwise'):
                 with span('engine.conv'):
                     prev = conv_i8(lyr, arrays[k], prev, sp)
-            elif kind == 'se':
-                prev = ('f', conv_ops.se_block_nhwc(
-                    _as_float(prev), arrays[k]['fc1'], arrays[k]['fc2'],
-                    group=sp))
-            elif kind == 'avgpool':
-                prev = ('f', conv_ops.global_avg_pool_nhwc(_as_float(prev),
-                                                           group=sp))
+            elif kind in ('se', 'avgpool', 'scale_channels'):
+                with span('engine.se'):
+                    if kind == 'se':
+                        y = conv_ops.se_block_nhwc(
+                            _as_float(prev), arrays[k]['fc1'],
+                            arrays[k]['fc2'], group=sp)
+                    elif kind == 'avgpool':
+                        y = conv_ops.global_avg_pool_nhwc(_as_float(prev),
+                                                          group=sp)
+                    else:
+                        y = _as_float(outs[lyr.layers[0]]) * _as_float(prev)
+                    prev = ('f', y)
             elif kind == 'batchnorm':   # a float edge (eps 1e-4)
                 a = arrays[k]
                 prev = ('f', conv_ops.batch_norm_infer(
                     _as_float(prev).permute(0, 3, 1, 2), a['gamma'],
                     a['beta'], a['mean'], a['var'],
                     LONE_BN_EPS).permute(0, 2, 3, 1))
-            elif kind == 'scale_channels':
-                prev = ('f', _as_float(outs[lyr.layers[0]]) * _as_float(prev))
             elif kind == 'maxpool':
                 prev = (prev[0], conv_ops.max_pool_nhwc(
                     prev[1], lyr.size, lyr.stride, group=sp), *prev[2:])

@@ -231,9 +231,11 @@ def grouped_conv_int8(x8, w8, bias, scale, out_scale, *, stride, pad,
     it): ``grouped_conv_s32``, then K2's f32
     epilogue into int8 (the JAX package runs these through XLA's s8 conv
     with s32 sums and the same epilogue). Plain PyTorch on every device;
-    each call adds one to ``grouped_conv_int8.calls``."""
+    each call adds one to ``grouped_conv_int8.calls`` and to the counter
+    ``grouped.calls``."""
     acc = grouped_conv_s32(x8, w8, stride=stride, pad=pad, groups=groups)
     grouped_conv_int8.calls += 1
+    count('grouped.calls', 1)
     return _epilogue(acc, bias, scale, out_scale, act, maxabs, True, qmin,
                      qmax, out_mult)
 
@@ -376,7 +378,8 @@ def float_edge_conv(x, w8, bias, sw, sa, *, stride, pad, groups: int,
     computes it: XLA keeps the bf16 conv's f32 sums without rounding them
     to bf16 (its eager op does round them). ``pad``: an int or a (py, px)
     pair ((0, pad) on a block of rows with its halo). Each call adds one to
-    ``float_edge_conv.calls``. ``out_mult``: the requant multiplier (a
+    ``float_edge_conv.calls`` and to the counter ``float_edge.calls``.
+    ``out_mult``: the requant multiplier (a
     Python float, as the JAX engine's), else 1 / ``sa``."""
     wf = w8.permute(0, 3, 1, 2).to(torch.float32) * sw
     xb = x.to(torch.bfloat16).to(torch.float32)
@@ -386,6 +389,7 @@ def float_edge_conv(x, w8, bias, sw, sa, *, stride, pad, groups: int,
     q = torch.clamp(round_half_away(y * (1.0 / sa if out_mult is None
                                          else out_mult)), qmin, qmax)
     float_edge_conv.calls += 1
+    count('float_edge.calls', 1)
     return q.to(torch.int8).contiguous()
 
 

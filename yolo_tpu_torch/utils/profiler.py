@@ -16,7 +16,9 @@ switch.
   that in a session that records host activity the span sits above the
   kernels it launched. It never synchronises.
 - ``count(name, value)``: an integer is counted always (``counter(name)``
-  reads the total: the kernels' launches ``k2.launches``, ``k1.launches``);
+  reads the total: the kernels' launches ``k1.launches``, ``k2.launches``,
+  ``k3.launches``, and the calls of the int8 engine's other conv paths,
+  ``grouped.calls`` and ``float_edge.calls``);
   a tensor only while tracing is on, kept as it is and reduced by
   ``summary``, so that the hot path adds no kernel and no sync. What is
   counted while tracing is on is also filed under the open top-level span.
@@ -31,6 +33,13 @@ switch.
 - ``trace(logdir)``: ``torch.profiler`` over the block (CPU, and CUDA when
   it is there), its Chrome trace, with the program's spans above their
   kernels, written into ``logdir``; ``summary()`` then gives the totals.
+
+The program's spans: ``serve.infer`` (a call of ``runtime.make_infer``'s
+callable) and, under it, ``engine.conv`` (with ``engine.grouped`` and
+``engine.float_conv`` inside it), ``engine.shortcut``, ``engine.concat``,
+``engine.se``, ``nms.decode`` and ``nms.suppress``; ``train.grad`` (with
+``train.forward``, ``train.loss`` and ``train.backward``) and
+``train.update``. Its traced counters: ``nms.valid`` and ``nms.slots``.
 
 Spans are kept in memory, one stack for the process: open and close them
 on one thread.
