@@ -50,7 +50,13 @@ Phases; any failure exits non-zero, and nothing runs on the CPU instead
    Then K3, the fused int8 shortcut, against its plain version
    (``K3_CASES``: widths that are no multiple of 16, nx > na and nx < na;
    then every (size, width) of the 23 shortcuts of yolov3 and of yolov4
-   @608 bs=8 on random codes), both ways, bit-equal.
+   @608 bs=8 on random codes), both ways, bit-equal. Then K4, the
+   depthwise int8 conv, on the 15 depthwise convs of a yolov3-mobilenet
+   @640 batch of 8 (``depthwise_shapes``; random codes), each bit-equal to
+   its plain version and timed alone: back to back on the device, with
+   the L2 flushed before each call, the plain version, and
+   ``F.conv2d(groups=C)`` on f32 copies of the codes (the library
+   yardstick), summed beside the bound (246.8 MB, 0.0737 ms).
 6. int8 serving: yolov3 @608 at full width, bs=8, random weights from a
    seed, ``load_model(quantized=1, device='cuda')`` with zero BN running
    statistics (the first calibration batch is copied in), 3 calibration
@@ -103,9 +109,9 @@ Phases; any failure exits non-zero, and nothing runs on the CPU instead
    True)``): K1 once per batch on the merged io of 22743 + 16128 + 12348
    rows per image, timed in turns against the single pass; (d) the int8
    engine of yolov3-mobilenet @416, bs=8, calibrated as in phase 6: K2 on
-   every ungrouped conv on an int8 edge, the exact grouped int32 conv on
-   the depthwise convs and the float-edge conv on the stem and after each
-   SE block, each count checked after one batch; the heads through K2
+   every ungrouped conv on an int8 edge, K4 on the depthwise convs (the
+   grouped conv's route) and the float-edge conv on the stem and after
+   each SE block, each count checked after one batch; the heads through K2
    bit-equal to those through its plain version, the sim's survivors as
    in phase 6, every call of each route and every SE block timed alone,
    images/s against the bf16 float pipeline on the same weights, a
@@ -885,7 +891,7 @@ def layer_sizes(cfg=CFG, size=SIZE):
     hw = {}
     for lyr in layers:
         src = hw.get(lyr.index - 1, size)
-        if lyr.kind == 'conv':
+        if lyr.kind in ('conv', 'depthwise'):
             hw[lyr.index] = (src + 2 * lyr.pad - lyr.size) // lyr.stride + 1
         elif lyr.kind == 'upsample':
             hw[lyr.index] = src * lyr.stride
@@ -1155,6 +1161,130 @@ def k3_calls_vs_plain(calls, what):
     return tot
 
 
+# --------------------------------------------------- K4, depthwise convs
+
+# the benchmark's yolov3-mobilenet cell serves 640 px
+DW_SIZE = 640
+# a buffer twice the H100's 50 MB L2: adding to it evicts a kernel's inputs
+L2_FLUSH_BYTES = 100 * 2 ** 20
+
+
+def depthwise_shapes(cfg, size, bs=BS):
+    """(N, H, W, C, K, stride, pad, activation) of every depthwise conv
+    (groups == C) of a square ``size`` input, in network order, from the
+    cfg alone."""
+    layers, hw = layer_sizes(cfg, size)
+    return [(bs, hw.get(l.index - 1, size), hw.get(l.index - 1, size),
+             l.in_channels, l.size, l.stride, l.pad, l.activation)
+            for l in layers if l.kind in ('conv', 'depthwise')
+            and l.groups > 1 and l.groups == l.in_channels == l.filters]
+
+
+def dw_inputs(g, dev, n, h, w, c, k):
+    """Random int8 codes and weights over the whole int8 range, an f32
+    bias, and pow-2 scales that spread the outputs over about 40 quanta."""
+    x8 = torch.randint(-128, 128, (n, h, w, c), generator=g,
+                       dtype=torch.int8)
+    w8 = torch.randint(-128, 128, (c, k, k, 1), generator=g,
+                       dtype=torch.int8)
+    bias = torch.randn(c, generator=g) * 0.5
+    scale = 2.0 ** round(np.log2(2.5 / (k * 74.0 ** 2)))
+    return x8.to(dev), w8.to(dev), bias.to(dev), scale, 2.0 ** -4
+
+
+def flushed_ms(fn, flush, iters=10):
+    """Median device time of one ``fn()`` call whose inputs are cold: the
+    L2 is flushed (``flush``, a buffer twice its size, is added to) before
+    each call, then timed as ``device_ms`` times it."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        flush.add_(1)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def phase_depthwise_kernel(dev):
+    """K4 against its plain version on the card, bit-equal, on the 15
+    depthwise convs of a yolov3-mobilenet @640 batch of BS (3x3 and 5x5,
+    s1 and s2, 16-960 wide, relu6 and h_swish; random codes), then each
+    timed alone and summed: back to back on the device (``queued_ms``),
+    with the L2 flushed before each call (``flushed_ms``), the plain
+    version by the caller's wait, and ``F.conv2d(groups=C)`` on f32 copies
+    of the same codes in channels-last layout back to back (the library
+    yardstick; the port never calls it), beside the bound (int8 in,
+    weights and f32 bias read once, int8 out written once, 2 operations a
+    multiply-add at the int8 peak: the benchmark's ``grouped_bound_ms``).
+    Returns the sums."""
+    print('[5/15] K4 depthwise_int8 vs plain version')
+    import torch.nn.functional as F
+    from yolo_tpu_torch.ops.depthwise_int8 import (
+        fused_depthwise_int8, fused_depthwise_int8_reference)
+    from yolo_tpu_torch.utils.profiler import counter
+    g = torch.Generator().manual_seed(0)
+    flush = torch.zeros(L2_FLUSH_BYTES // 4, device=dev)
+    shapes = depthwise_shapes(MOBILE_CFG, DW_SIZE)
+    tot = {'calls': len(shapes), 'queued_ms': 0.0, 'flushed_ms': 0.0,
+           'plain_ms': 0.0, 'library_queued_ms': 0.0, 'bound_ms': 0.0,
+           'bytes': 0, 'macs': 0}
+    n0 = counter('k4.launches')
+    with torch.inference_mode():
+        for n, h, w, c, k, s, p, act in shapes:
+            x8, w8, bias, sc, osc = dw_inputs(g, dev, n, h, w, c, k)
+            kw = dict(stride=s, pad=p, act=act)
+            got = fused_depthwise_int8(x8, w8, bias, sc, osc, **kw)
+            torch.cuda.synchronize()
+            want = fused_depthwise_int8_reference(x8, w8, bias, sc, osc, **kw)
+            what = f'{h} px x {c} {k}x{k} s{s} {act}'
+            check(got.shape == want.shape and torch.equal(got, want),
+                  f'{what}: K4 bit-equal to the plain version '
+                  f'{tuple(got.shape)}')
+            run = lambda: fused_depthwise_int8(x8, w8, bias, sc, osc, **kw)
+            ms = queued_ms(run)
+            tot['queued_ms'] += ms
+            tot['flushed_ms'] += flushed_ms(run, flush)
+            tot['plain_ms'] += cuda_ms(
+                lambda: fused_depthwise_int8_reference(x8, w8, bias, sc, osc,
+                                                       **kw),
+                iters=3, warmup=1)
+            xf = x8.permute(0, 3, 1, 2).float()       # channels-last f32
+            wf = w8.permute(0, 3, 1, 2).float()
+            tot['library_queued_ms'] += queued_ms(
+                lambda: F.conv2d(xf, wf, stride=s, padding=p, groups=c))
+            n_bytes = x8.numel() + w8.numel() + 4 * c + got.numel()
+            macs = got.numel() * k * k
+            tot['bytes'] += n_bytes
+            tot['macs'] += macs
+            b_ms = bound_ms(n_bytes, 2.0 * macs, INT8_OPS_PER_S)[0]
+            tot['bound_ms'] += b_ms
+            print(f'  {what}: {ms:.4f} ms back to back, bound {b_ms:.4f} ms '
+                  f'({100 * b_ms / ms:.1f}%)')
+    torch.cuda.synchronize()
+    tot['launches'] = counter('k4.launches') - n0
+    tot['bound_share'] = tot['bound_ms'] / tot['queued_ms']
+    print(f'  K4 on the {len(shapes)} depthwise convs of a yolov3-mobilenet '
+          f'@{DW_SIZE} batch of {BS}, each alone, summed: '
+          f'{tot["queued_ms"]:.4f} ms on the device back to back '
+          f'({100 * tot["bound_share"]:.1f}% of the bound, '
+          f'{tot["bytes"] / tot["queued_ms"] / 1e9:.3f} TB/s, '
+          f'{tot["macs"] / tot["queued_ms"] / 1e9:.2f} T multiply-adds/s), '
+          f'{tot["flushed_ms"]:.4f} ms with the L2 flushed before each, '
+          f'plain {tot["plain_ms"]:.3f} ms by the caller\'s wait, '
+          f'F.conv2d(groups=C) on f32 copies back to back '
+          f'{tot["library_queued_ms"]:.4f} ms; bound '
+          f'{tot["bound_ms"]:.4f} ms ({tot["bytes"] / 1e6:.1f} MB, '
+          f'{tot["macs"] / 1e9:.3f} G multiply-adds)')
+    return tot
+
+
 def int8_bundle(dev, bs, size, cfg=CFG):
     """``cfg`` (yolov3) at full width, random weights from a seed, zero BN
     running statistics, calibrated by CALIB_STEPS steps on ``dev``."""
@@ -1199,6 +1329,7 @@ def int8_checks(b, x):
     launches = {'nms_suppress': counter('k1.launches'),
                 'conv_int8': counter('k2.launches'),
                 'shortcut_int8': counter('k3.launches'),
+                'depthwise_int8': counter('k4.launches'),
                 'grouped_conv_int8': grouped_conv_int8.calls,
                 'float_edge_conv': float_edge_conv.calls}
     bs = x.shape[0]
@@ -1961,6 +2092,9 @@ def mobile_int8(dev, card):
               f'{launches[name]} times for one batch ({n} expected)')
     check(launches['nms_suppress'] == 1, f'mobilenet int8: K1 launched '
           f'{launches["nms_suppress"]} time(s)')
+    check(launches['depthwise_int8'] == want['grouped_conv_int8'],
+          f'mobilenet int8: K4 launched {launches["depthwise_int8"]} times '
+          f'for one batch (one a depthwise conv)')
     print(f'  mobilenet int8: K3 ran {launches["shortcut_int8"]} times for '
           f'one batch, of {sum(l.kind == "shortcut" for l in b.net.layers)} '
           'shortcuts (the others add a float edge)')
@@ -2033,7 +2167,8 @@ def phase_new_cfgs(dev, card):
     image_decoders()
     print(f'  phase 8: {time.perf_counter() - t0:.1f} s')
     return {'nms_suppress': k1, 'conv_int8': launches['conv_int8'],
-            'shortcut_int8': launches['shortcut_int8']}, routes
+            'shortcut_int8': launches['shortcut_int8'],
+            'depthwise_int8': launches['depthwise_int8']}, routes
 
 
 
@@ -6211,6 +6346,7 @@ def main():
     laps(4)
     k2_err = phase_conv_kernel(dev)
     phase_shortcut_kernel(dev)
+    k4 = phase_depthwise_kernel(dev)
     laps(5)
     launches, k2_tot, qb = phase_int8(dev, card)
     laps(6)
@@ -6282,7 +6418,12 @@ def main():
          'launches_phase11': quant['shortcut_int8'],
          'per_batch': {'yolov3': launches['shortcut_int8'],
                        'yolov4': quant['shortcut_int8']},
-         'yolov3': k2_tot['k3'], 'yolov4': quant['yolov4']['k3']}]}))
+         'yolov3': k2_tot['k3'], 'yolov4': quant['yolov4']['k3']},
+        {'name': 'depthwise_int8', 'route': 'cuda',
+         'source': 'yolo_tpu_torch/csrc/depthwise_int8.cu', 'replaces': None,
+         'launches': k4['launches'] + new_launches['depthwise_int8'],
+         'per_batch': {'yolov3-mobilenet': new_launches['depthwise_int8']},
+         'mobilenet_640': k4}]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

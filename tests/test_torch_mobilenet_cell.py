@@ -31,7 +31,7 @@ TINY_CFG = os.path.join('cfg', 'yolov3tiny', 'yolov3-tiny.cfg')
 INIT = CONFIG['forms']['int8']['init']
 DEV = torch.device('cpu')
 NEW_READERS = ('engine_grouped_ms', 'engine_float_conv_ms', 'engine_se_ms',
-               'grouped_roofline')
+               'grouped_roofline', 'k4_share')
 
 
 _spec = importlib.util.spec_from_file_location(
@@ -212,8 +212,8 @@ def test_engine_spans_and_counters_of_one_call(cfg, want):
 # ---------------------------------------------------------- the cell
 
 def test_cell_lists_its_metrics():
-    """The cell reports the serving cells' metrics and the four new ones,
-    which no other cell lists."""
+    """The cell reports the serving cells' metrics and the five of its own
+    layers, which no other cell lists."""
     bench = json.load(open(os.path.join(ROOT, 'BENCHMARK.json')))
     cell = next(c for c in bench['workloads'] if c['name'] == CELL)
     assert cell['chips'] == 1 and cell['config'] == CONFIG['name']

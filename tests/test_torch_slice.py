@@ -224,7 +224,7 @@ def test_port_never_imports_jax_or_cv2():
             "'utils.dev', 'parallel', 'parallel.mesh', "
             "'parallel.multihost', 'parallel.collectives', "
             "'models.network', 'ops.conv', 'ops.shortcut_int8', "
-            "'runtime')}; "
+            "'ops.depthwise_int8', 'runtime')}; "
             "assert need <= set(mods), need - set(mods); "
             "assert 'PIL' not in sys.modules; "
             "assert 'matplotlib' not in sys.modules; "

@@ -24,7 +24,7 @@ SERVE_READERS = ('engine_conv_ms', 'engine_shortcut_ms', 'engine_concat_ms',
 TRAIN_READERS = ('forward_ms', 'loss_ms', 'backward_ms', 'launch_us.train')
 # the serving readers of the mobile backbone's spans (its cell alone)
 MOBILE_READERS = ('engine_grouped_ms', 'engine_float_conv_ms', 'engine_se_ms',
-                  'grouped_roofline')
+                  'grouped_roofline', 'k4_share')
 GROUPED_BOUND_MS = 0.0737
 
 
@@ -195,7 +195,8 @@ def test_train_step_spans(tmp_path):
 
 def _serving_store(n_batches, grouped_calls=15):
     """Spans of ``n_batches`` served batches on the CPU, as the int8 engine
-    opens them, with a little work in each."""
+    opens them, with a little work in each; batch i launches K4 for all but
+    i of its grouped calls."""
     with profile(activities=CPU):
         for i in range(n_batches):
             with P.span('serve.infer'):
@@ -207,6 +208,7 @@ def _serving_store(n_batches, grouped_calls=15):
                     with P.span('engine.conv'), P.span(name):
                         time.sleep(0.001)
                 P.count('grouped.calls', grouped_calls)
+                P.count('k4.launches', max(grouped_calls - i, 0))
                 with P.span('nms.suppress'):
                     P.count('nms.valid', torch.arange(8) < 6 - i)
                     P.count('nms.slots', 8)
@@ -229,7 +231,7 @@ def test_serving_readers(name):
            'grouped_bound_ms': GROUPED_BOUND_MS}
     read = reader(name)
     assert read(rec) is None                    # an empty store
-    if name == 'grouped_roofline':              # no grouped call counted
+    if name in ('grouped_roofline', 'k4_share'):   # no grouped call counted
         _serving_store(3, grouped_calls=0)
         assert read(rec) is None
         P.reset()
@@ -247,6 +249,8 @@ def test_serving_readers(name):
         want = 100.0 * GROUPED_BOUND_MS / _per_top('engine.grouped',
                                                    'serve.infer', 2)
         assert read({**rec, 'grouped_bound_ms': None}) is None
+    elif name == 'k4_share':
+        want = 100.0 * (15 + 14) / 30
     elif name == 'k1_valid_share':
         want = 100.0 * (6 + 5) / 16
     else:

@@ -1,12 +1,13 @@
-"""Build ``csrc/*.cu`` into one shared library with a plain C interface,
-and ``csrc/fastpre.cpp`` into a host library of its own.
+"""Build ``csrc/*.cu`` (with the ``csrc/*.cuh`` headers they include) into
+one shared library with a plain C interface, and ``csrc/fastpre.cpp`` into
+a host library of its own.
 
 The CUDA library is compiled with ``nvcc`` for Hopper (``sm_90a``) at first
 use (one ``nvcc`` per source, all started together, then one link), cached
-in ``yolo_tpu_torch/_build/`` under a hash of the sources and flags, and
-loaded with ``ctypes``. Kernels launch on PyTorch's current stream; the
-wrappers in ``ops/`` pass device pointers and the stream as integers.
-A failed build or load raises: there is no fallback.
+in ``yolo_tpu_torch/_build/`` under a hash of the sources, the headers and
+the flags, and loaded with ``ctypes``. Kernels launch on PyTorch's current
+stream; the wrappers in ``ops/`` pass device pointers and the stream as
+integers. A failed build or load raises: there is no fallback.
 
 The host library (the batch letterbox of ``native/``, C++ with OpenMP) is
 compiled with ``g++`` under the JAX package's flags (``HOST_FLAGS``), into
@@ -59,10 +60,15 @@ def _nvcc() -> str:
                        'to build the yolo_tpu_torch CUDA kernels')
 
 
+def _headers() -> list[Path]:
+    return sorted(CSRC_DIR.glob('*.cuh'))
+
+
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, the headers they include
+    and the flags lives."""
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f'libyolo_tpu_torch_{h.hexdigest()[:16]}.so'
@@ -132,6 +138,11 @@ def load_library() -> ctypes.CDLL:
     lib.shortcut_int8_launch.restype = i
     lib.shortcut_int8_error_string.argtypes = [i]
     lib.shortcut_int8_error_string.restype = ctypes.c_char_p
+    lib.depthwise_int8_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i,
+                                          i, i, i, f, f, i, f, i, i, i, p]
+    lib.depthwise_int8_launch.restype = i
+    lib.depthwise_int8_error_string.argtypes = [i]
+    lib.depthwise_int8_error_string.restype = ctypes.c_char_p
     return lib
 
 

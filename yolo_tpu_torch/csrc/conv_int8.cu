@@ -75,6 +75,8 @@
 
 #include <atomic>
 
+#include "epilogue_int8.cuh"   // Act, activate_rare
+
 namespace {
 
 constexpr int kBM = 128;        // output pixels per block
@@ -83,33 +85,6 @@ constexpr int kThreads = 384;   // warpgroup 0 loads, warpgroups 1-2 sum
 constexpr int kAStage = kBM * kBK;              // 16 KB
 constexpr int kRowsPerLoader = kBM * kBK / 16 / 128;   // 8 pieces a thread
 constexpr int kSmemLimit = 232448;   // shared memory a block may take (H100)
-
-enum Act {
-  kLinear = 0, kLeaky = 1, kRelu = 2, kRelu6 = 3, kMish = 4, kSwish = 5,
-  kLogistic = 6, kHSwish = 7, kHSigmoid = 8
-};
-
-__device__ __forceinline__ float sigmoidf(float y) {
-  return __frcp_rn(__fadd_rn(1.0f, expf(-y)));
-}
-
-// the activations other than leaky, linear and relu (those of yolov3 and
-// most cfgs, which the epilogue applies inline)
-__device__ __noinline__ float activate_rare(float y, int act) {
-  switch (act) {
-    case kRelu6: return fminf(fmaxf(y, 0.0f), 6.0f);
-    case kMish: {   // softplus with PyTorch's threshold of 20
-      const float sp = y > 20.0f ? y : log1pf(expf(y));
-      return __fmul_rn(y, tanhf(sp));
-    }
-    case kSwish: return __fmul_rn(y, sigmoidf(y));
-    case kLogistic: return sigmoidf(y);
-    case kHSwish:
-      return __fmul_rn(y, __fdiv_rn(fminf(fmaxf(y + 3.0f, 0.0f), 6.0f), 6.0f));
-    case kHSigmoid: return __fdiv_rn(fminf(fmaxf(y + 3.0f, 0.0f), 6.0f), 6.0f);
-    default: return y;
-  }
-}
 
 // ------------------------------------------------- barriers, copies, wgmma
 

@@ -12,8 +12,13 @@ float. This engine runs the calibrated model with int8 tensors end to end:
     epilogue of scale, bias, activation and requantization to the layer's
     own output scale), the arithmetic the sim models; the other convs on
     int8 edges (depthwise and grouped ones, 5x5 windows) run
-    ``grouped_conv_int8``, the same arithmetic in plain PyTorch with exact
-    int32 sums (the JAX package runs them through XLA's s8 conv);
+    ``grouped_conv_int8``, the same arithmetic with exact sums (the JAX
+    package runs them through XLA's s8 conv): on the card a depthwise conv
+    (groups == Cin == Cout) of a square 1, 3, 5 or 7 window at strides 1
+    or 2, which every grouped conv of the cfgs is, runs K4
+    (``ops/depthwise_int8.fused_depthwise_int8``: the conv and the
+    epilogue in one launch); the rest, and every conv on the CPU, run
+    plain PyTorch;
   - shortcuts and concats follow the sim's requantization chains (min/max
     shortcut ways, a common concat scale); a shortcut of one ``from`` layer
     without fusion weights on two int8 edges runs K3

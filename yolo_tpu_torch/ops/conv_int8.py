@@ -227,17 +227,27 @@ def grouped_conv_int8(x8, w8, bias, scale, out_scale, *, stride, pad,
                       groups: int, act: str = 'leaky', maxabs: bool = False,
                       qmin: int = -128, qmax: int = 127, out_mult=None):
     """The int8 convs K2 does not take (depthwise and grouped ones, other
-    windows, strides or paddings; ``pad`` as ``grouped_conv_s32`` takes
-    it): ``grouped_conv_s32``, then K2's f32
-    epilogue into int8 (the JAX package runs these through XLA's s8 conv
-    with s32 sums and the same epilogue). Plain PyTorch on every device;
-    each call adds one to ``grouped_conv_int8.calls`` and to the counter
-    ``grouped.calls``."""
-    acc = grouped_conv_s32(x8, w8, stride=stride, pad=pad, groups=groups)
+    windows, strides or paddings; ``pad`` and ``stride`` as
+    ``grouped_conv_s32`` takes them), with K2's f32 epilogue into int8 (the
+    JAX package runs these through XLA's s8 conv with s32 sums and the same
+    epilogue). A depthwise conv on the card that K4 takes
+    (``depthwise_int8.takes``: ``groups`` == Cin == Cout, a square window
+    of 1, 3, 5 or 7, strides 1 or 2; every grouped conv of the cfgs)
+    launches K4 (``depthwise_int8.fused_depthwise_int8``); every other
+    conv, and every conv on the CPU, runs ``grouped_conv_s32`` and the
+    epilogue in plain PyTorch. Each call adds one to
+    ``grouped_conv_int8.calls`` and to the counter ``grouped.calls``."""
+    if x8.is_cuda and depthwise_int8.takes(x8, w8, groups, stride, pad):
+        out = depthwise_int8.fused_depthwise_int8(
+            x8, w8, bias, scale, out_scale, stride=stride, pad=pad, act=act,
+            maxabs=maxabs, qmin=qmin, qmax=qmax, out_mult=out_mult)
+    else:
+        acc = grouped_conv_s32(x8, w8, stride=stride, pad=pad, groups=groups)
+        out = _epilogue(acc, bias, scale, out_scale, act, maxabs, True, qmin,
+                        qmax, out_mult)
     grouped_conv_int8.calls += 1
     count('grouped.calls', 1)
-    return _epilogue(acc, bias, scale, out_scale, act, maxabs, True, qmin,
-                     qmax, out_mult)
+    return out
 
 
 grouped_conv_int8.calls = 0
@@ -394,3 +404,8 @@ def float_edge_conv(x, w8, bias, sw, sa, *, stride, pad, groups: int,
 
 
 float_edge_conv.calls = 0
+
+
+# K4 builds on this module's s32 sums and epilogue (its plain twin), so it
+# is imported once they are defined
+from . import depthwise_int8  # noqa: E402
