@@ -6310,8 +6310,8 @@ IMPORT_CHECKED = ('native', 'data.datasets', 'data.device_aug',
                   'utils.profiler', 'utils.gsutil', 'utils.downloads',
                   'utils.dev', 'parallel', 'parallel.mesh',
                   'parallel.multihost', 'parallel.collectives',
-                  'models.network', 'ops.conv', 'runtime', 'train.trainer',
-                  'train.loop', 'eval.evaluator')
+                  'models.network', 'ops.conv', 'ops.int8_math', 'runtime',
+                  'train.trainer', 'train.loop', 'eval.evaluator')
 
 
 def check_imports():

@@ -180,31 +180,27 @@ def build_instrumented(tmp, exchange=False):
     if proc.returncode:
         raise SystemExit(f'k1_sweep: nvcc failed\n{proc.stdout}{proc.stderr}')
     lib = ctypes.CDLL(so)
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.nms_suppress_launch.argtypes = [p, p, p, p, p, p, i, i, f, i, i, i,
-                                        i, p]
-    lib.set_stamps.argtypes = [p]
+    lib.set_stamps.argtypes = [ctypes.c_void_p]
     return lib
 
 
 def stamped_run(lib, dev, boxes, scores, valid, cluster, sweeps=16):
     """Device time and per-phase medians of one instrumented launch
     configuration; checks keep and merged against the plain version."""
-    from yolo_tpu_torch.ops.nms_suppress import suppress_reference
+    from yolo_tpu_torch.ops import nms_suppress as K1
     bs, k = valid.shape
     keep, merged = torch.empty_like(valid), torch.empty_like(boxes)
     stamps = torch.zeros((bs * cluster, 8), dtype=torch.int64, device=dev)
     lib.set_stamps(stamps.data_ptr())
-    run = lambda: lib.nms_suppress_launch(
-        boxes.data_ptr(), boxes.data_ptr(), scores.data_ptr(),
+    launch = K1._k1.on(lib)          # K1's launcher on the stamped copy
+    run = lambda: launch(
+        dev.index, boxes.data_ptr(), boxes.data_ptr(), scores.data_ptr(),
         valid.data_ptr(), keep.data_ptr(), merged.data_ptr(), bs, k, 0.6,
-        sweeps, 1, cluster, dev.index,
-        torch._C._cuda_getCurrentRawStream(dev.index))
-    if run() != 0:
-        raise SystemExit('k1_sweep: the instrumented launch was refused')
+        sweeps, 1, cluster)
+    run()
     torch.cuda.synchronize()
-    ref = suppress_reference(boxes, boxes, scores, valid, iou_thres=0.6,
-                             max_sweeps=sweeps)
+    ref = K1.suppress_reference(boxes, boxes, scores, valid, iou_thres=0.6,
+                                max_sweeps=sweeps)
     m = ref[0][..., None]
     if not (torch.equal(keep, ref[0]) and torch.allclose(
             torch.where(m, merged, 0.0), torch.where(m, ref[1], 0.0),

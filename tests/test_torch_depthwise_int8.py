@@ -128,7 +128,8 @@ def test_twin_is_the_plain_grouped_path(k, stride, pad):
     """The wrapper on the CPU runs the twin: the output equals
     ``grouped_conv_int8``'s, and the twin's s32 sums equal a float64
     grouped conv of the same codes (exact below 2^53)."""
-    from yolo_tpu_torch.ops.conv_int8 import grouped_conv_int8, grouped_conv_s32
+    from yolo_tpu_torch.ops.conv_int8 import grouped_conv_int8
+    from yolo_tpu_torch.ops.int8_math import grouped_conv_s32
     from yolo_tpu_torch.ops.depthwise_int8 import (
         fused_depthwise_int8, fused_depthwise_int8_reference, out_size)
     c = 24
@@ -341,7 +342,7 @@ def test_k4_edge_cases(cuda, case):
 
 
 def _activations():
-    from yolo_tpu_torch.ops.conv_int8 import ACT_CODES
+    from yolo_tpu_torch.ops.int8_math import ACT_CODES
     return [(a, False) for a in ACT_CODES] + [('leaky', True)]
 
 

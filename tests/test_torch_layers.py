@@ -105,8 +105,8 @@ def test_grouped_int8_conv_matches_jax_lax(k, stride, g):
     from jax import lax
     from yolo_tpu.compress.quant import round_half_away as jround
     from yolo_tpu.ops.activations import get as jact
-    from yolo_tpu_torch.ops.conv_int8 import (grouped_conv_int8,
-                                              grouped_conv_s32)
+    from yolo_tpu_torch.ops.conv_int8 import grouped_conv_int8
+    from yolo_tpu_torch.ops.int8_math import grouped_conv_s32
     x8, w8, bias, groups = _grouped_case(k, g)
     pad = k // 2
     acc = lax.conv_general_dilated(

@@ -224,7 +224,7 @@ def test_port_never_imports_jax_or_cv2():
             "'utils.dev', 'parallel', 'parallel.mesh', "
             "'parallel.multihost', 'parallel.collectives', "
             "'models.network', 'ops.conv', 'ops.shortcut_int8', "
-            "'ops.depthwise_int8', 'runtime')}; "
+            "'ops.depthwise_int8', 'ops.int8_math', 'runtime')}; "
             "assert need <= set(mods), need - set(mods); "
             "assert 'PIL' not in sys.modules; "
             "assert 'matplotlib' not in sys.modules; "
@@ -234,6 +234,59 @@ def test_port_never_imports_jax_or_cv2():
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
     subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
                    check=True, timeout=120)
+
+
+def test_kernel_signatures_match_the_sources():
+    """Every C function in the ``extern "C"`` blocks of ``csrc/*.cu`` is
+    declared once in the port, with as many parameters as the source and
+    a pointer, ``int``, ``long long`` or ``float`` (``_build.CTYPES``) in
+    the same places:
+    ``<prefix>_launch`` and the K1 occupancy query by their wrapper in
+    ``ops/`` (``_build.kernel``, ``_build.c_function``), every
+    ``<prefix>_error_string`` by the launch seam. No other file of the
+    port, its scripts or the smoke declares a ctypes signature for them."""
+    import importlib
+    import re
+    from pathlib import Path
+    from yolo_tpu_torch import _build
+
+    def c_kind(param):
+        if '*' in param:
+            return 'p'
+        return {'int': 'i', 'long long': 'q',
+                'float': 'f'}[param.rsplit(None, 1)[0].strip()]
+
+    in_c = {}
+    for cu in sorted(_build.CSRC_DIR.glob('*.cu')):
+        for block in re.findall(r'extern "C" \{(.*?)\n\}  // extern "C"',
+                                cu.read_text(), re.S):
+            for name, params in re.findall(
+                    r'^(?:int|const char\*) (\w+)\(([^)]*)\) \{', block,
+                    re.M):
+                assert name not in in_c, name
+                in_c[name] = ''.join(c_kind(p) for p in params.split(','))
+    assert len(in_c) == 9, in_c
+    declared = {}
+    for mod in ('nms_suppress', 'conv_int8', 'shortcut_int8',
+                'depthwise_int8'):
+        for v in vars(importlib.import_module(
+                f'yolo_tpu_torch.ops.{mod}')).values():
+            if callable(v) and hasattr(v, 'c_name'):
+                assert v.c_name not in declared, v.c_name
+                declared[v.c_name] = v.params
+    errors = {n for n in in_c if n.endswith('_error_string')}
+    assert declared == {n: k for n, k in in_c.items() if n not in errors}
+    for name in errors:       # ``_build._failed``: (int)
+        assert in_c[name] == 'i'
+        assert name.replace('_error_string', '_launch') in declared
+    files = [*Path(ROOT, 'yolo_tpu_torch').rglob('*.py'),
+             *Path(ROOT, 'scripts').glob('*.py'), Path(ROOT, 'chip_smoke.py')]
+    for f in files:
+        text = f.read_text()
+        assert 'CFUNCTYPE' not in text or f.name == '_build.py', f
+        for base in re.findall(r'(\w+)\.(?:argtypes|restype)\b', text):
+            assert base not in in_c, (f, base)
+        assert 'load_library().' not in text, f
 
 
 # ---------------------------------------------------------------- on the card

@@ -55,7 +55,7 @@ from ..models.yolo_head import anchors_on, decode_yolo_nhwc, reshape_pred
 from ..ops import activations as act_mod
 from ..ops import conv as conv_ops
 from ..ops.conv import LONE_BN_EPS, LONE_BN_MOM
-from ..ops.conv_int8 import round_half_away
+from ..ops.int8_math import round_half_away
 from ..parallel.collectives import (all_gather_dim, all_reduce_nograd,
                                     batch_moments, copy_to_model,
                                     gather_channels)

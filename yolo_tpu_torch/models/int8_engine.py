@@ -57,12 +57,13 @@ import numpy as np
 import torch
 
 from ..compress.quant import (QuantConfig, check_supported, qrange,
-                              round_half_away, unported)
+                              unported)
 from ..ir import NetworkIR
 from ..ops import conv as conv_ops
 from ..ops.conv import LONE_BN_EPS
 from ..ops.conv_int8 import (float_edge_conv, fused_conv_int8,
                               grouped_conv_int8, k2_rows, supported)
+from ..ops.int8_math import round_half_away
 from ..ops.shortcut_int8 import (fused_shortcut_int8, shortcut_codes,
                                  shortcut_requant)
 from ..parallel.collectives import all_gather_dim

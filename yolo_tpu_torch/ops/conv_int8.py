@@ -30,19 +30,16 @@ from __future__ import annotations
 import functools
 from typing import NamedTuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
 from . import activations as act_mod
 from . import conv as conv_ops
-from .._build import load_library
+from . import depthwise_int8
+from .._build import check_tensors, kernel, on_card
 from ..utils.profiler import count
-
-# activation codes of csrc/conv_int8.cu
-ACT_CODES = {'linear': 0, 'none': 0, '': 0, 'leaky': 1, 'relu': 2,
-             'relu6': 3, 'mish': 4, 'swish': 5, 'logistic': 6, 'h_swish': 7,
-             'h_sigmoid': 8}
+from .int8_math import (ACT_CODES, epilogue, f32, grouped_conv_s32,
+                        out_multiplier, round_half_away)
 
 # the kernel's tiles (csrc/conv_int8.cu)
 BM = 128             # output pixels per block: two warpgroups of 64 rows
@@ -52,6 +49,8 @@ BN_CHOICES = (256, 128, 64, 32)      # output channels per block (the
                                      # kernel's instantiations)
 SLAB_BYTES = BM * 36 * 4  # the epilogue's s32 slab: BM rows of 32 (+4) words
 SMEM_LIMIT = 232448  # bytes of shared memory a block may take on an H100
+
+_k2 = kernel('conv_int8', 'pppp iiiiiiiiii ffif iiiiii', 'k2.launches')
 
 
 class TilePlan(NamedTuple):
@@ -137,16 +136,6 @@ def supported(k: int, stride: int, pad: int, groups: int) -> bool:
             and ((k == 1 and stride == 1) or (k == 3 and stride in (1, 2))))
 
 
-def _f32(v) -> np.float32:
-    return np.float32(v.item() if torch.is_tensor(v) else v)
-
-
-def round_half_away(x):
-    """sign(x) * floor(|x| + 0.5): ties go away from zero (``torch.round``
-    rounds them to even and is wrong here)."""
-    return torch.sign(x) * torch.floor(torch.abs(x) + 0.5)
-
-
 def fused_conv_int8_reference(x8, w8, bias, scale, out_scale, *, stride: int,
                               act: str = 'leaky', maxabs: bool = False,
                               out_q: bool = True, qmin: int = -128,
@@ -161,66 +150,8 @@ def fused_conv_int8_reference(x8, w8, bias, scale, out_scale, *, stride: int,
     acc = F.conv2d(x8.permute(0, 3, 1, 2).to(torch.float64),
                    w8.permute(0, 3, 1, 2).to(torch.float64),
                    stride=stride, padding=k // 2)
-    return _epilogue(acc.permute(0, 2, 3, 1).to(torch.int32), bias, scale,
-                     out_scale, act, maxabs, out_q, qmin, qmax, out_mult)
-
-
-def out_multiplier(out_scale, out_mult=None) -> np.float32:
-    """The f32 multiplier of the requant: ``out_mult`` rounded once to f32
-    when the caller gives it, else f32(1) / f32(out_scale)."""
-    if out_mult is not None:
-        return _f32(out_mult)
-    return np.float32(1.0) / _f32(out_scale)
-
-
-def _epilogue(acc, bias, scale, out_scale, act, maxabs, out_q, qmin, qmax,
-              out_mult=None):
-    """The kernel's f32 epilogue on s32 sums ``acc`` (NHWC)."""
-    dev = acc.device
-    s = torch.tensor(_f32(scale), device=dev)
-    y = acc.to(torch.float32) * s + bias.to(torch.float32)
-    y = act_mod.get(act, maxabs)(y)
-    if not out_q:
-        return y.contiguous()
-    oinv = torch.tensor(out_multiplier(out_scale, out_mult), device=dev)
-    q = torch.clamp(round_half_away(y * oinv), qmin, qmax)
-    return q.to(torch.int8).contiguous()
-
-
-def grouped_conv_s32(x8, w8, *, stride, pad, groups: int):
-    """The exact s32 sums of an int8 conv of any window, stride, padding
-    and group count, in plain PyTorch on every device: x8 int8 NHWC, w8
-    int8 (Cout, K, K, Cin // groups), zero padding ``pad`` (an int, or a
-    (py, px) pair: (0, pad) on a block of rows with its halo), ``stride``
-    an int or an (sy, sx) pair; returns int32 NHWC. The sums are int32
-    products of shifted int8 slices, added tap by tap over the K x K
-    window: exact by construction, with no float conv algorithm between (a
-    cuDNN f32 conv may pick Winograd or FFT, which are not exact)."""
-    sy, sx = (stride, stride) if isinstance(stride, int) else stride
-    py, px = (pad, pad) if isinstance(pad, int) else pad
-    n, h, w, cin = x8.shape
-    cout, kh, kw, cg = w8.shape
-    og = cout // groups
-    if cin != cg * groups or cout != og * groups:
-        raise ValueError(f'grouped_conv_s32: x8 {tuple(x8.shape)} and w8 '
-                         f'{tuple(w8.shape)} do not match groups={groups}')
-    ho = (h + 2 * py - kh) // sy + 1
-    wo = (w + 2 * px - kw) // sx + 1
-    xp = F.pad(x8.to(torch.int32), (0, 0, px, px, py, py))
-    wg = w8.to(torch.int32).reshape(groups, og, kh, kw, cg)
-    acc = torch.zeros((n, ho, wo, groups, og), dtype=torch.int32,
-                      device=x8.device)
-    for dy in range(kh):
-        for dx in range(kw):
-            xs = xp[:, dy:dy + sy * (ho - 1) + 1:sy,
-                    dx:dx + sx * (wo - 1) + 1:sx]
-            if cg == 1:                  # depthwise: one multiply-add
-                acc.addcmul_(xs.reshape(n, ho, wo, groups, 1),
-                             wg[:, :, dy, dx, 0])
-            else:
-                prod = xs.reshape(n, ho, wo, groups, 1, cg) * wg[:, :, dy, dx]
-                acc += prod.sum(-1, dtype=torch.int32)
-    return acc.reshape(n, ho, wo, cout)
+    return epilogue(acc.permute(0, 2, 3, 1).to(torch.int32), bias, scale,
+                    out_scale, act, maxabs, out_q, qmin, qmax, out_mult)
 
 
 def grouped_conv_int8(x8, w8, bias, scale, out_scale, *, stride, pad,
@@ -243,8 +174,8 @@ def grouped_conv_int8(x8, w8, bias, scale, out_scale, *, stride, pad,
             maxabs=maxabs, qmin=qmin, qmax=qmax, out_mult=out_mult)
     else:
         acc = grouped_conv_s32(x8, w8, stride=stride, pad=pad, groups=groups)
-        out = _epilogue(acc, bias, scale, out_scale, act, maxabs, True, qmin,
-                        qmax, out_mult)
+        out = epilogue(acc, bias, scale, out_scale, act, maxabs, True, qmin,
+                       qmax, out_mult)
     grouped_conv_int8.calls += 1
     count('grouped.calls', 1)
     return out
@@ -257,21 +188,11 @@ def _check(x8, w8, bias, stride, act, qmin, qmax):
     if x8.dim() != 4 or w8.dim() != 4 or bias.dim() != 1:
         raise ValueError('fused_conv_int8: x8 must be (N, H, W, Cin), w8 '
                          '(Cout, K, K, Cin) and bias (Cout,)')
+    check_tensors('fused_conv_int8', (('x8', x8, torch.int8),
+                                      ('w8', w8, torch.int8),
+                                      ('bias', bias, torch.float32)), align=4)
     n, h, w, cin = x8.shape
     cout, k, k2, wcin = w8.shape
-    for name, t, dtype in (('x8', x8, torch.int8), ('w8', w8, torch.int8),
-                           ('bias', bias, torch.float32)):
-        if t.dtype != dtype:
-            raise ValueError(f'fused_conv_int8: {name} must be {dtype}, '
-                             f'got {t.dtype}')
-        if t.device != x8.device:
-            raise ValueError(f'fused_conv_int8: {name} is on {t.device}, '
-                             f'x8 on {x8.device}')
-        if not t.is_contiguous():
-            raise ValueError(f'fused_conv_int8: {name} must be contiguous')
-        if t.data_ptr() % 4:
-            raise ValueError(f'fused_conv_int8: {name} must be 4-byte '
-                             'aligned')
     if k != k2 or wcin != cin or bias.shape[0] != cout:
         raise ValueError(f'fused_conv_int8: shapes do not match: x8 '
                          f'{tuple(x8.shape)}, w8 {tuple(w8.shape)}, bias '
@@ -297,13 +218,11 @@ def fused_conv_int8(x8, w8, bias, scale, out_scale, *, stride: int,
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
     (each launch adds one to the counter ``k2.launches``) or raises."""
-    if x8.device.type == 'cpu':
+    if not on_card('fused_conv_int8', x8):
         return fused_conv_int8_reference(x8, w8, bias, scale, out_scale,
                                          stride=stride, act=act, maxabs=maxabs,
                                          out_q=out_q, qmin=qmin, qmax=qmax,
                                          out_mult=out_mult)
-    if x8.device.type != 'cuda':
-        raise ValueError(f'fused_conv_int8: no kernel for device {x8.device}')
     _check(x8, w8, bias, stride, act, qmin, qmax)
     x8, w8 = pad_cin(x8, w8)
     # the kernel reads x8, w8 and bias in 16-byte pieces (cp.async, TMA,
@@ -321,7 +240,7 @@ def fused_conv_int8(x8, w8, bias, scale, out_scale, *, stride: int,
     if out.numel() == 0:
         return out
     plan = tile_plan(n * ho * wo, cin, cout, k, out_q)
-    _launch(x8, w8, bias, out, stride, float(_f32(scale)),
+    _launch(x8, w8, bias, out, stride, float(f32(scale)),
             float(out_multiplier(out_scale, out_mult)), act,
             0.25 if maxabs else 0.1, out_q, qmin, qmax, plan.bn, plan.stages,
             plan.rows)
@@ -334,21 +253,12 @@ def _launch(x8, w8, bias, out, stride, scale, oinv, act, slope, out_q, qmin,
     run of bytes) on checked, Cin-padded, 16-byte aligned CUDA tensors;
     adds one to the counter ``k2.launches``, or raises if the launch is
     refused."""
-    lib = load_library()
     n, h, w, cin = x8.shape
     cout, k = w8.shape[0], w8.shape[1]
-    ho, wo = out.shape[1], out.shape[2]
-    dev = x8.device.index
-    err = lib.conv_int8_launch(
-        x8.data_ptr(), w8.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        n, h, w, cin, cout, k, stride, k // 2, ho, wo, scale, oinv,
-        ACT_CODES[act], slope, int(bool(out_q)), int(qmin), int(qmax),
-        bn, stages, int(bool(rows)), dev,
-        torch._C._cuda_getCurrentRawStream(dev))
-    if err != 0:
-        raise RuntimeError('conv_int8 kernel launch failed: '
-                           + lib.conv_int8_error_string(err).decode())
-    count('k2.launches', 1)
+    _k2(x8.device.index, x8.data_ptr(), w8.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), n, h, w, cin, cout, k, stride, k // 2, out.shape[1],
+        out.shape[2], scale, oinv, ACT_CODES[act], slope, int(bool(out_q)),
+        int(qmin), int(qmax), bn, stages, int(bool(rows)))
 
 
 def k2_rows(x8, w8, bias, scale, out_scale, *, stride: int, group,
@@ -405,7 +315,3 @@ def float_edge_conv(x, w8, bias, sw, sa, *, stride, pad, groups: int,
 
 float_edge_conv.calls = 0
 
-
-# K4 builds on this module's s32 sums and epilogue (its plain twin), so it
-# is imported once they are defined
-from . import depthwise_int8  # noqa: E402

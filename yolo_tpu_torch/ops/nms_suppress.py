@@ -17,8 +17,7 @@ from typing import NamedTuple
 
 import torch
 
-from .._build import load_library
-from ..utils.profiler import count
+from .._build import c_function, check_tensors, kernel, on_card
 from .boxes import box_iou_matrix
 
 MAX_K = 1024          # candidates per image the kernel takes
@@ -27,6 +26,9 @@ THREADS = 512         # threads of a CTA (kThreads in the kernel)
 CLUSTER_PORTABLE = 8  # the largest cluster every Hopper launch can take
 CLUSTER_MAX = 16      # the largest, where the card holds enough of them
 SMEM_LIMIT = 232448   # bytes of shared memory a CTA may take on an H100
+
+_k1 = kernel('nms_suppress', 'pppppp iif iii', 'k1.launches')
+_max_clusters = c_function('nms_suppress', 'max_clusters', 'iiip')
 
 
 class SuppressPlan(NamedTuple):
@@ -83,12 +85,8 @@ def device_plan(bs: int, k: int, device: int) -> SuppressPlan:
 def max_clusters(device: int, k: int, cluster: int = CLUSTER_MAX) -> int:
     """How many clusters of ``cluster`` CTAs at this k the card ``device``
     holds at once (``cudaOccupancyMaxActiveClusters``); asked once."""
-    lib = load_library()
     n = ctypes.c_int(0)
-    err = lib.nms_suppress_max_clusters(k, cluster, device, ctypes.byref(n))
-    if err != 0:
-        raise RuntimeError('nms_suppress occupancy query failed: '
-                           + lib.nms_suppress_error_string(err).decode())
+    _max_clusters(k, cluster, device, ctypes.byref(n))
     return n.value
 
 
@@ -119,18 +117,15 @@ def suppress_reference(oboxes, boxes, scores, valid, *, iou_thres: float,
 
 def _check(oboxes, boxes, scores, valid):
     bs, k = valid.shape
-    for name, t, shape, dtype in (('oboxes', oboxes, (bs, k, 4), torch.float32),
-                                  ('boxes', boxes, (bs, k, 4), torch.float32),
-                                  ('scores', scores, (bs, k), torch.float32),
-                                  ('valid', valid, (bs, k), torch.bool)):
-        if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f'suppress: {name} must be {dtype} of shape '
-                             f'{shape}, got {t.dtype} {tuple(t.shape)}')
-        if t.device != valid.device:
-            raise ValueError(f'suppress: {name} is on {t.device}, '
-                             f'valid on {valid.device}')
-        if not t.is_contiguous():
-            raise ValueError(f'suppress: {name} must be contiguous')
+    check_tensors('suppress', (('valid', valid, torch.bool),
+                               ('oboxes', oboxes, torch.float32),
+                               ('boxes', boxes, torch.float32),
+                               ('scores', scores, torch.float32)))
+    if (oboxes.shape != (bs, k, 4) or boxes.shape != (bs, k, 4)
+            or scores.shape != (bs, k)):
+        raise ValueError(f'suppress: shapes do not match: oboxes '
+                         f'{tuple(oboxes.shape)}, boxes {tuple(boxes.shape)},'
+                         f' scores {tuple(scores.shape)}, valid {(bs, k)}')
     if k > MAX_K:
         raise ValueError(f'suppress: k={k} exceeds the kernel limit {MAX_K}')
 
@@ -142,12 +137,10 @@ def suppress(oboxes, boxes, scores, valid, *, iou_thres: float,
     ``scores`` are the candidate scores times ``valid``; invalid rows of the
     boxes must already be zero (``nms._suppress_pairs`` does both).
     Each kernel launch adds one to the counter ``k1.launches``."""
-    if valid.device.type == 'cpu':
+    if not on_card('suppress', valid):
         return suppress_reference(oboxes, boxes, scores, valid,
                                   iou_thres=iou_thres, max_sweeps=max_sweeps,
                                   merge=merge)
-    if valid.device.type != 'cuda':
-        raise ValueError(f'suppress: no kernel for device {valid.device}')
     _check(oboxes, boxes, scores, valid)
     bs, k = valid.shape
     keep = torch.empty((bs, k), dtype=torch.bool, device=valid.device)
@@ -165,18 +158,11 @@ def _launch(oboxes, boxes, scores, valid, keep, merged, iou_thres, max_sweeps,
     """One launch of the kernel with ``cluster`` CTAs per image on checked
     CUDA tensors, into ``keep`` and ``merged``; adds one to the counter
     ``k1.launches``, or raises if the launch is refused."""
-    lib = load_library()
     # the kernel reads the boxes in 16-byte pieces
     oboxes, boxes = (t if t.data_ptr() % 16 == 0 else t.clone()
                      for t in (oboxes, boxes))
     bs, k = valid.shape
-    dev = valid.device.index
-    err = lib.nms_suppress_launch(
-        oboxes.data_ptr(), boxes.data_ptr(), scores.data_ptr(),
-        valid.data_ptr(), keep.data_ptr(), merged.data_ptr(), bs, k,
-        float(iou_thres), int(max_sweeps), int(bool(merge)), cluster, dev,
-        torch._C._cuda_getCurrentRawStream(dev))
-    if err != 0:
-        raise RuntimeError('nms_suppress kernel launch failed: '
-                           + lib.nms_suppress_error_string(err).decode())
-    count('k1.launches', 1)
+    _k1(valid.device.index, oboxes.data_ptr(), boxes.data_ptr(),
+        scores.data_ptr(), valid.data_ptr(), keep.data_ptr(),
+        merged.data_ptr(), bs, k, float(iou_thres), int(max_sweeps),
+        int(bool(merge)), cluster)

@@ -29,9 +29,10 @@ from __future__ import annotations
 
 import torch
 
-from .._build import load_library
-from ..utils.profiler import count
-from .conv_int8 import round_half_away
+from .._build import check_tensors, kernel, on_card
+from .int8_math import round_half_away
+
+_k3 = kernel('shortcut_int8', 'pppqii ffffff iii', 'k3.launches')
 
 
 def shortcut_requant(x, a, in_scale, sc, *, way: int, qmin: int, qmax: int):
@@ -77,15 +78,8 @@ def _check(x8, a8, way, qmin, qmax):
         if t.dim() != 4:
             raise ValueError(f'fused_shortcut_int8: {name} must be (N, H, W, '
                              f'C), got {tuple(t.shape)}')
-        if t.dtype != torch.int8:
-            raise ValueError(f'fused_shortcut_int8: {name} must be '
-                             f'torch.int8, got {t.dtype}')
-        if t.device != x8.device:
-            raise ValueError(f'fused_shortcut_int8: {name} is on {t.device},'
-                             f' x8 on {x8.device}')
-        if not t.is_contiguous():
-            raise ValueError(f'fused_shortcut_int8: {name} must be '
-                             'contiguous')
+    check_tensors('fused_shortcut_int8', (('x8', x8, torch.int8),
+                                          ('a8', a8, torch.int8)))
     if x8.shape[:3] != a8.shape[:3] or a8.shape[3] == 0:
         raise ValueError(f'fused_shortcut_int8: shapes do not match: x8 '
                          f'{tuple(x8.shape)}, a8 {tuple(a8.shape)}')
@@ -104,27 +98,17 @@ def fused_shortcut_int8(x8, sx, a8, sa, in_scale, sc, *, way: int, qmin: int,
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
     (each launch adds one to the counter ``k3.launches``) or raises."""
-    if x8.device.type == 'cpu':
+    if not on_card('fused_shortcut_int8', x8):
         return fused_shortcut_int8_reference(x8, sx, a8, sa, in_scale, sc,
                                              way=way, qmin=qmin, qmax=qmax)
-    if x8.device.type != 'cuda':
-        raise ValueError(f'fused_shortcut_int8: no kernel for device '
-                         f'{x8.device}')
     _check(x8, a8, way, qmin, qmax)
     out = torch.empty(x8.shape, dtype=torch.int8, device=x8.device)
     if out.numel() == 0:
         return out
     n, h, w, nx = x8.shape
-    lib = load_library()
-    dev = x8.device.index
     # ctypes rounds each scale to f32, to nearest, as PyTorch rounds a
     # Python float operand of an f32 tensor
-    err = lib.shortcut_int8_launch(
-        x8.data_ptr(), a8.data_ptr(), out.data_ptr(), n * h * w, nx,
-        a8.shape[3], sx, sa, 1.0 / in_scale, in_scale, 1.0 / sc, sc, way,
-        int(qmin), int(qmax), dev, torch._C._cuda_getCurrentRawStream(dev))
-    if err != 0:
-        raise RuntimeError('shortcut_int8 kernel launch failed: '
-                           + lib.shortcut_int8_error_string(err).decode())
-    count('k3.launches', 1)
+    _k3(x8.device.index, x8.data_ptr(), a8.data_ptr(), out.data_ptr(),
+        n * h * w, nx, a8.shape[3], sx, sa, 1.0 / in_scale, in_scale,
+        1.0 / sc, sc, way, int(qmin), int(qmax))
     return out
