@@ -224,7 +224,7 @@ def test_cell_lists_its_metrics():
             if CELL in m.get('workloads', ())}
     v3 = {m['name'] for m in bench['per_layer']
           if 'yolov3-608.int8-serve' in m.get('workloads', ())}
-    assert mine == v3 | set(NEW_READERS) and len(v3) == 13
+    assert mine == v3 | set(NEW_READERS) and len(v3) == 14
     for m in bench['per_layer']:
         if m['name'] in NEW_READERS:
             assert m['workloads'] == [CELL] and m['moves'] == 'images_per_s'

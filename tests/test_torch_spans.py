@@ -259,6 +259,23 @@ def test_serving_readers(name):
     assert read(rec) > 0
 
 
+def test_graph_share_reader():
+    """``graph_share.serve``: the replayed share of the serving calls, from
+    the always-on counters whether or not tracing was on; None without a
+    serving call counted and in a training cell."""
+    read = reader('graph_share.serve')
+    rec = {'steps': 2, 'kernels': 40, 'driver': 'serve'}
+    assert read(rec) is None
+    for name, n in (('serve.eager_calls', 2), ('serve.graph_captures', 1),
+                    ('serve.graph_replays', 7)):
+        P.count(name, n)
+    assert read(rec) == pytest.approx(70.0, rel=1e-12)
+    assert read({**rec, 'driver': 'train'}) is None
+    with profile(activities=CPU):
+        P.count('serve.eager_calls', 10)
+    assert read(rec) == pytest.approx(35.0, rel=1e-12)
+
+
 @pytest.mark.parametrize('name', TRAIN_READERS)
 def test_training_readers(name):
     rec = {'steps': 2, 'kernels': 60, 'driver': 'train'}
@@ -311,6 +328,8 @@ def test_traced_tiny_cell_reports_the_span_metrics(tiny_bench, cell, names):
         # yolov3-tiny has no shortcut
         assert got.pop('engine_shortcut_ms')['value'] == 0.0
         assert got['k1_valid_share']['value'] <= 100.0
+        # CPU tensors never take a graph
+        assert got['graph_share.serve']['value'] == 0.0
     else:
         # forward, loss and backward lie inside the step's gradient
         parts = sum(got[n]['value'] for n in ('forward_ms', 'loss_ms',

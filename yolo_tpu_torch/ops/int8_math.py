@@ -46,13 +46,16 @@ def epilogue(acc, bias, scale, out_scale, act, maxabs, out_q, qmin, qmax,
     """K2's f32 epilogue on s32 sums ``acc`` (NHWC): act(f32(acc) * scale +
     bias), then int8 codes clip(round_half_away(y * oinv), qmin, qmax)
     where ``out_q``, else y in f32."""
+    # 0-d f32 tensors filled on the device: no copy from the host, which a
+    # CUDA graph's capture would refuse
     dev = acc.device
-    s = torch.tensor(f32(scale), device=dev)
+    s = torch.full((), f32(scale), dtype=torch.float32, device=dev)
     y = acc.to(torch.float32) * s + bias.to(torch.float32)
     y = act_mod.get(act, maxabs)(y)
     if not out_q:
         return y.contiguous()
-    oinv = torch.tensor(out_multiplier(out_scale, out_mult), device=dev)
+    oinv = torch.full((), out_multiplier(out_scale, out_mult),
+                      dtype=torch.float32, device=dev)
     q = torch.clamp(round_half_away(y * oinv), qmin, qmax)
     return q.to(torch.int8).contiguous()
 

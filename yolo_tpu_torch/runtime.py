@@ -18,6 +18,7 @@ asks for the CPU.
 from __future__ import annotations
 
 import os
+from collections import OrderedDict
 from dataclasses import dataclass
 
 import numpy as np
@@ -31,10 +32,14 @@ from .models.darknet_io import load_darknet_weights
 from .models.int8_engine import make_int8_apply, prepare_int8
 from .models.network import Darknet, fuse_params, init_params
 from .models.torch_import import load_torch_checkpoint
+from .ops.conv_int8 import float_edge_conv, grouped_conv_int8
 from .ops.nms import non_max_suppression, non_max_suppression_heads
 from .parallel.mesh import DATA_AXIS, replicate
 from .utils.checkpoint import load_checkpoint
-from .utils.profiler import span
+from .utils.profiler import count, span, totals, tracing
+
+#: the most input shapes whose serving step a callable keeps as CUDA graphs
+GRAPHS_KEPT = 4
 
 
 @dataclass
@@ -140,6 +145,24 @@ class ModelBundle:
         prepared here, from the current calibration; ``augment`` prints a
         warning and runs a single pass, as in the JAX package.
 
+        The engine's step (the engine, the sparse decode, K1 and the
+        ranking into ``max_det`` slots) is replayed as one CUDA graph
+        where the call allows it: ``x`` on a CUDA device, no ``mesh``, no
+        ``torch.profiler`` session on (so that every span measures its
+        layer), and the (shape, dtype, device) of ``x`` that the previous
+        call had. The first call of a shape runs eagerly, the next one
+        captures the step, later ones copy ``x`` into the graph's input and
+        replay it; a shape that changes on every call runs eagerly. At most
+        ``GRAPHS_KEPT`` shapes keep a graph, the least recently used is
+        dropped. A replay launches exactly the eager step's kernels on the
+        same inputs, so its detections are bit-equal; it adds to every
+        always-on counter (``k1.launches`` ... ``k4.launches``,
+        ``grouped.calls``, ``float_edge.calls``, ``nms.slots``) and to the
+        ``.calls`` attributes what one eager step adds. Each call adds one
+        to ``serve.eager_calls``, ``serve.graph_captures`` or
+        ``serve.graph_replays``. The returned tensor is the caller's own,
+        eager or replayed: a later call never writes into it.
+
         ``mesh`` (``parallel.make_mesh``, spatial partitioning): every rank
         of the mesh's data axis calls ``infer`` on its rows of the image
         (``parallel.shard_spatial(mesh, x)``); each layer takes its halo
@@ -168,7 +191,8 @@ class ModelBundle:
                   max_det=max_det, multi_label=multi_label, agnostic=agnostic,
                   classes=classes)
         if self.quantized:
-            return self._make_quant_infer(kw, engine, spatial)
+            return self._make_quant_infer(kw, engine, spatial,
+                                          graphs=mesh is None)
         model = self.model()
         if augment:
             @torch.inference_mode()
@@ -194,7 +218,7 @@ class ModelBundle:
                         model.decode(model.heads(x, spatial=spatial)), **kw)
         return infer
 
-    def _make_quant_infer(self, kw, engine, spatial):
+    def _make_quant_infer(self, kw, engine, spatial, graphs):
         if engine is None:
             engine = self.qcfg.scheme in ('google', 'ptq_cos')
         if not engine:
@@ -214,14 +238,112 @@ class ModelBundle:
                               spatial=spatial)
         anchors, strides = self.anchors(), self.strides
 
-        @torch.inference_mode()
-        def infer(x):
+        def step(x):
             with span('serve.infer'):
                 heads, objs = eng(plan.arrays, x)
                 return non_max_suppression_heads(
                     heads, anchors, strides, self.nc + 5, objs=objs,
                     head_scales=eng.head_scales, **kw)
+        if graphs:
+            return StepGraphs(step)
+
+        @torch.inference_mode()
+        def infer(x):
+            count('serve.eager_calls', 1)
+            return step(x)
         return infer
+
+
+# the engine's conv paths that count their calls in a ``.calls`` attribute
+_CALLS = {'grouped_conv_int8.calls': grouped_conv_int8,
+          'float_edge_conv.calls': float_edge_conv}
+
+
+def _tally() -> dict:
+    """The always-on counters and the ``.calls`` attributes, by name."""
+    return {**totals(), **{k: f.calls for k, f in _CALLS.items()}}
+
+
+def _added(before: dict, after: dict) -> list:
+    """What the ``_tally`` ``after`` holds over ``before``, as (name,
+    value) pairs."""
+    return [(k, v - before.get(k, 0)) for k, v in after.items()
+            if v != before.get(k, 0)]
+
+
+def _add(adds):
+    """Add the (name, value) pairs of ``_added`` again."""
+    for k, v in adds:
+        if k in _CALLS:
+            _CALLS[k].calls += v
+        else:
+            count(k, v)
+
+
+class StepGraphs:
+    """A serving step ``step(x)`` replayed as CUDA graphs, one an input
+    (shape, dtype, device), under the rules of ``make_infer``'s docstring.
+    ``graphs`` maps each key kept to its ``_Graph``, the most recently used
+    last; ``last`` is the previous call's key."""
+
+    def __init__(self, step):
+        self.step = step
+        self.graphs: OrderedDict = OrderedDict()
+        self.last = None
+
+    @torch.inference_mode()
+    def __call__(self, x):
+        key = (tuple(x.shape), x.dtype, x.device)
+        prev, self.last = self.last, key
+        if x.is_cuda and not tracing():
+            g = self.graphs.get(key)
+            if g is not None:
+                self.graphs.move_to_end(key)
+                out = g.replay(x)
+                count('serve.graph_replays', 1)
+                return out
+            if key == prev:
+                g = self.graphs[key] = _Graph(self.step, x)
+                if len(self.graphs) > GRAPHS_KEPT:
+                    self.graphs.popitem(last=False)
+                count('serve.graph_captures', 1)
+                return g.out.clone()
+        count('serve.eager_calls', 1)
+        return self.step(x)
+
+
+class _Graph:
+    """``step`` captured on a copy of ``x``, then replayed once for ``x``'s
+    output (``out``, the graph's own tensor). ``adds`` is what the capture
+    added to the always-on counters and the ``.calls`` attributes, one
+    eager step's worth, which each later replay adds again: Python does not
+    run on a replay. Captured in ``thread_local`` mode, so that another
+    thread's CUDA work (a loader's pinned copies) goes on meanwhile."""
+
+    def __init__(self, step, x):
+        dev = x.device
+        self.x = torch.empty_like(x).copy_(x)
+        self.graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        before = _tally()
+        with torch.cuda.stream(side):
+            self.graph.capture_begin(capture_error_mode='thread_local')
+            try:
+                self.out = step(self.x)
+            finally:
+                self.graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.adds = _added(before, _tally())
+        self.graph.replay()
+
+    def replay(self, x):
+        """Copy ``x`` into the graph's input, replay it, add one step to
+        the counters; the caller's own copy of the output."""
+        self.x.copy_(x)
+        self.graph.replay()
+        _add(self.adds)
+        return self.out.clone()
 
 
 def load_model(cfg, weights=None, *, device='cuda', dtype=torch.bfloat16,

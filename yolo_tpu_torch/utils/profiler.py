@@ -16,9 +16,11 @@ switch.
   that in a session that records host activity the span sits above the
   kernels it launched. It never synchronises.
 - ``count(name, value)``: an integer is counted always (``counter(name)``
-  reads the total: the kernels' launches ``k1.launches``, ``k2.launches``,
-  ``k3.launches``, and the calls of the int8 engine's other conv paths,
-  ``grouped.calls`` and ``float_edge.calls``);
+  reads the total, ``totals()`` all of them: the kernels' launches
+  ``k1.launches`` ... ``k4.launches``, the calls of the int8 engine's other
+  conv paths, ``grouped.calls`` and ``float_edge.calls``, and how each
+  call of the int8 engine's serving step ran, ``serve.eager_calls``,
+  ``serve.graph_captures`` or ``serve.graph_replays``: ``runtime.make_infer``);
   a tensor only while tracing is on, kept as it is and reduced by
   ``summary``, so that the hot path adds no kernel and no sync. What is
   counted while tracing is on is also filed under the open top-level span.
@@ -29,7 +31,7 @@ switch.
   the first ``n`` top-level spans of each top-level name, what ran under
   them and what was counted there.
 - ``records()``: the finished spans; ``reset()`` empties the store and the
-  counters.
+  counters; ``tracing()`` says whether a session is on.
 - ``trace(logdir)``: ``torch.profiler`` over the block (CPU, and CUDA when
   it is there), its Chrome trace, with the program's spans above their
   kernels, written into ``logdir``; ``summary()`` then gives the totals.
@@ -156,6 +158,16 @@ def count(name: str, value):
 def counter(name: str) -> int:
     """The integers counted under ``name`` since the last ``reset``."""
     return _store.totals.get(name, 0)
+
+
+def totals() -> dict[str, int]:
+    """Every counter's integers since the last ``reset``, by name (a copy)."""
+    return dict(_store.totals)
+
+
+def tracing() -> bool:
+    """Whether a ``torch.profiler`` session is on: spans record."""
+    return _autograd_profiler._is_profiler_enabled
 
 
 def records() -> list[Span]:
